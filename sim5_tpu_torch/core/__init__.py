@@ -1,6 +1,7 @@
 """Spacetime core: metric, connection, tetrads, orbits, photon kinematics.
 
-Port of `sim5_tpu/core` (the part the stepwise march needs).
+Port of `sim5_tpu/core` (the part the stepwise march and the analytic
+seed need).
 """
 
 from .metric import (
@@ -11,4 +12,5 @@ from .metric import (
 )
 from .tetrads import Tetrad, tetrad_zamo, bl2on, on2bl
 from .orbits import r_bh
-from .photon import photon_carter_const
+from .photon import (photon_carter_const, photon_momentum,
+                     photon_motion_constants)

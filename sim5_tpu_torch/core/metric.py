@@ -3,7 +3,8 @@ algebra in Boyer-Lindquist coordinates (t, r, theta, phi).
 
 Port of `sim5_tpu/core/metric.py` (the part the stepwise march needs).  The
 poloidal coordinate is m = cos(theta) everywhere, as in the reference.
-Dtype and device follow the inputs (`_as_tensors`).
+Dtype and device follow the inputs (`_as_tensors`); inputs that hold no
+tensor go to the card.
 
 (reference: sim5kerr.c:30-625)
 """
@@ -14,11 +15,18 @@ import numpy as np
 import torch
 
 
-def _as_tensors(*vals):
+def default_device(device=None):
+    """`device`, or CUDA when it is None: the port runs on the card unless
+    the caller asks for the CPU (with CPU tensors or `device="cpu"`)."""
+    return torch.device("cuda" if device is None else device)
+
+
+def _as_tensors(*vals, device=None):
     """Broadcast `vals` to tensors of one floating dtype and device.
 
-    Dtype and device come from the first torch tensor among `vals`; with no
-    tensor, from the first floating numpy array; else float64 on the CPU.
+    Dtype and device come from the first torch tensor among `vals`.  With
+    no tensor, the dtype comes from the first floating numpy array (else
+    float64) and the device from `default_device(device)`.
     """
     ref = next((v for v in vals if isinstance(v, torch.Tensor)), None)
     if ref is not None:
@@ -28,7 +36,7 @@ def _as_tensors(*vals):
         arr = next((v for v in vals if isinstance(v, np.ndarray)
                     and v.dtype.kind == "f"), None)
         dtype = torch.float64 if arr is None else torch.as_tensor(arr).dtype
-        device = None
+        device = default_device(device)
     return torch.broadcast_tensors(
         *(torch.as_tensor(v, dtype=dtype, device=device) for v in vals))
 

@@ -2,16 +2,25 @@
 // one launch, one thread per ray.
 //
 // Replaces the Pallas TPU kernel sim5_tpu/march/pallas_march.py
-// (_make_kernel / _march_pallas), the variants without fused radiative
-// transfer: GR or flat, with or without polarization transport.
+// (_make_kernel / _march_pallas) in all its variants: GR or flat, with or
+// without polarization transport, and with no radiative transfer, with
+// emission (I += j dl) or with emission and absorption
+// (I += j e^{-tau} s_eff, tau += alpha dl), all on accepted steps.  The
+// Pallas kernel calls the user's jnp emissivity and absorption; a CUDA
+// kernel cannot call Python, so j and alpha come from one compiled-in
+// family (sim5_tpu_torch/march/emission.py:GaussianSource) whose
+// parameters are kernel arguments.
 //
 // What bounds it: FP32 ALU work and register pressure.  A step is four
 // connection evaluations (<= 20 Christoffel components each, contracted
 // inline) and one metric evaluation; a ray's whole state and all RK4 stages
 // stay in registers, so the march moves almost no bytes (14 floats in and
-// out per ray).  Rays in a warp finish after different step counts, so a
-// warp runs until its slowest ray is done (tail divergence); this first
-// version does no compaction and no persistent blocks.
+// out per ray).  The transfer variants add two register floats (I, tau),
+// one float out per ray, and on each accepted step one model evaluation
+// (j) or two (j, alpha) with three more expf.  Rays in a warp finish after
+// different step counts, so a warp runs until its slowest ray is done
+// (tail divergence); this first version does no compaction and no
+// persistent blocks.
 //
 // Semantics follow the Pallas body step for step: each ray loops while it
 // is active and it < max_steps, which is the per-ray meaning of the Pallas
@@ -19,8 +28,9 @@
 // made while active.  Layout: structure of arrays, component c of ray i at
 // [c * n + i], so loads and stores are coalesced.  x[2] is theta.
 //
-// Built without fast math: cosf, sqrtf and division are the IEEE-accurate
-// forms.  nvcc contracts a*b+c into FMAs, so single adaptive-step decisions
+// Built without fast math: cosf, sqrtf, expf and division are the
+// IEEE-accurate forms (no __expf: fast-math intrinsics cost the image
+// gate before).  nvcc contracts a*b+c into FMAs, so single adaptive-step decisions
 // can flip against the plain torch version; the tests allow for that.
 
 #include <cuda_runtime.h>
@@ -129,6 +139,23 @@ __device__ __forceinline__ Conn flat_conn(float r, float m) {
   return g;
 }
 
+// One model of the GaussianSource family (emission.py), by value:
+// j = amp exp(-[((rho - center) inv_w)^2 + (r m inv_h)^2
+//               + ((t - t_c) inv_d)^2] / 2),  rho = r or r sqrt(1 - m^2).
+struct Gauss {
+  float amp, center, inv_w, inv_h, t_c, inv_d;
+  int cyl;
+};
+
+__device__ __forceinline__ float gauss(const Gauss& g, float t, float r,
+                                       float m) {
+  const float rho = g.cyl ? r * sqrtf(fmaxf(1.0f - m * m, 0.0f)) : r;
+  const float d = (rho - g.center) * g.inv_w;
+  const float z = r * m * g.inv_h;
+  const float w = (t - g.t_c) * g.inv_d;
+  return g.amp * expf(-0.5f * (d * d + z * z + w * w));
+}
+
 template <bool GR>
 __device__ __forceinline__ Conn connection(float a, float r, float m) {
   if constexpr (GR) {
@@ -167,7 +194,9 @@ __device__ __forceinline__ void contract(const Conn& g, const float U[4],
   }
 }
 
-template <bool GR, bool POL>
+// RT: 0 geometry only, 1 emission, 2 emission + absorption; I_out is
+// written for RT > 0 only.
+template <bool GR, bool POL, int RT>
 __global__ void __launch_bounds__(kThreads)
 march_f32(const float* __restrict__ x_in, const float* __restrict__ k_in,
           const float* __restrict__ f_in, const float* __restrict__ kt_in,
@@ -175,9 +204,10 @@ march_f32(const float* __restrict__ x_in, const float* __restrict__ k_in,
           float* __restrict__ x_out, float* __restrict__ k_out,
           float* __restrict__ f_out, float* __restrict__ kt_out,
           float* __restrict__ err_out, int* __restrict__ steps_out,
-          unsigned char* __restrict__ act_out, long long n, float a,
-          float eps0, float r_min, float r_max, float error_stop,
-          float error_gate, int max_steps, float max_step_dl) {
+          unsigned char* __restrict__ act_out, float* __restrict__ I_out,
+          long long n, float a, float eps0, float r_min, float r_max,
+          float error_stop, float error_gate, int max_steps,
+          float max_step_dl, Gauss jm, Gauss am) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
 
@@ -193,6 +223,7 @@ march_f32(const float* __restrict__ x_in, const float* __restrict__ k_in,
   int steps = 0;
   bool active = isfinite(kt) && act_in[i] != 0;
   float eps = eps0;
+  float I = 0.0f, tau = 0.0f;   // transfer carries (RT > 0)
 
   for (int it = 0; active && it < max_steps; ++it) {
     // adaptive step: dl = eps / sum_i |dk_i|/|k_i|  (sim5raytrace.c:164)
@@ -258,9 +289,10 @@ march_f32(const float* __restrict__ x_in, const float* __restrict__ k_in,
 
     // error: k_t drift + |k.k|  (sim5raytrace.c:217-219)
     float g00, g11, g22, g33, g03;
+    const float mn = cosf(xn[2]);   // also the m of an accepted step's j
     {
       const float r = xn[1];
-      const float m = cosf(xn[2]);
+      const float m = mn;
       if (GR) {
         const float r2 = r * r;
         const float a2 = a * a;
@@ -310,6 +342,24 @@ march_f32(const float* __restrict__ x_in, const float* __restrict__ k_in,
       }
       kt = kt_new;
       err = e_new;
+      // radiative transfer on accepted steps, at the accepted position
+      // (x = xn, so m = cos(x[2]) = mn), with the trial's dl; the march is
+      // backward (observer -> source), so tau is the optical depth to the
+      // observer.  Thick branch: the Pallas body's 1e-6 threshold,
+      // 1 - exp (not expm1) and 1e-30 floor.
+      if constexpr (RT > 0) {
+        const float j = gauss(jm, x[0], x[1], mn);
+        if constexpr (RT == 2) {
+          const float al = gauss(am, x[0], x[1], mn);
+          const float dtau = al * dl;
+          const float seff =
+              dtau > 1e-6f ? (1.0f - expf(-dtau)) / nan_max(al, kTiny) : dl;
+          I = I + j * expf(-tau) * seff;
+          tau = tau + dtau;
+        } else {
+          I = I + j * dl;
+        }
+      }
     } else if (fail_floor) {
       err = 1e30f;
     }
@@ -329,51 +379,87 @@ march_f32(const float* __restrict__ x_in, const float* __restrict__ k_in,
   err_out[i] = err;
   steps_out[i] = steps;
   act_out[i] = active ? 1 : 0;
+  if constexpr (RT > 0) I_out[i] = I;
 }
 
-template <bool GR, bool POL>
+template <bool GR, bool POL, int RT>
 void launch(const float* x, const float* k, const float* f, const float* kt,
             const unsigned char* act0, float* xo, float* ko, float* fo,
             float* kto, float* erro, int* stepso, unsigned char* acto,
-            long long n, float a, float eps0, float r_min, float r_max,
-            float error_stop, float error_gate, int max_steps,
-            float max_step_dl, cudaStream_t stream) {
+            float* Io, long long n, float a, float eps0, float r_min,
+            float r_max, float error_stop, float error_gate, int max_steps,
+            float max_step_dl, Gauss jm, Gauss am, cudaStream_t stream) {
   const unsigned int blocks = (unsigned int)((n + kThreads - 1) / kThreads);
-  march_f32<GR, POL><<<blocks, kThreads, 0, stream>>>(
-      x, k, f, kt, act0, xo, ko, fo, kto, erro, stepso, acto, n, a, eps0,
-      r_min, r_max, error_stop, error_gate, max_steps, max_step_dl);
+  march_f32<GR, POL, RT><<<blocks, kThreads, 0, stream>>>(
+      x, k, f, kt, act0, xo, ko, fo, kto, erro, stepso, acto, Io, n, a, eps0,
+      r_min, r_max, error_stop, error_gate, max_steps, max_step_dl, jm, am);
+}
+
+template <bool GR, bool POL>
+void launch_rt(int rt, const float* x, const float* k, const float* f,
+               const float* kt, const unsigned char* act0, float* xo,
+               float* ko, float* fo, float* kto, float* erro, int* stepso,
+               unsigned char* acto, float* Io, long long n, float a,
+               float eps0, float r_min, float r_max, float error_stop,
+               float error_gate, int max_steps, float max_step_dl, Gauss jm,
+               Gauss am, cudaStream_t s) {
+  if (rt == 2) {
+    launch<GR, POL, 2>(x, k, f, kt, act0, xo, ko, fo, kto, erro, stepso, acto,
+                       Io, n, a, eps0, r_min, r_max, error_stop, error_gate,
+                       max_steps, max_step_dl, jm, am, s);
+  } else if (rt == 1) {
+    launch<GR, POL, 1>(x, k, f, kt, act0, xo, ko, fo, kto, erro, stepso, acto,
+                       Io, n, a, eps0, r_min, r_max, error_stop, error_gate,
+                       max_steps, max_step_dl, jm, am, s);
+  } else {
+    launch<GR, POL, 0>(x, k, f, kt, act0, xo, ko, fo, kto, erro, stepso, acto,
+                       Io, n, a, eps0, r_min, r_max, error_stop, error_gate,
+                       max_steps, max_step_dl, jm, am, s);
+  }
 }
 
 }  // namespace
 
-// Launch march_f32<gr, pol> over n rays on `stream`; returns
-// cudaGetLastError() (0 on success).  The caller allocates every output.
-extern "C" int sim5_march_f32(int gr, int pol, const float* x, const float* k,
-                              const float* f, const float* kt,
-                              const unsigned char* act0, float* xo, float* ko,
-                              float* fo, float* kto, float* erro, int* stepso,
-                              unsigned char* acto, long long n, float a,
-                              float eps0, float r_min, float r_max,
-                              float error_stop, float error_gate,
-                              int max_steps, float max_step_dl,
-                              void* stream) {
+// Launch march_f32<gr, pol, rt> over n rays on `stream`; returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue (1) for an
+// rt outside 0..2.  The caller allocates every output; Io (n floats) is
+// read only for rt > 0.  The emissivity (j_*) and absorption (al_*)
+// parameters are those of GaussianSource.params(); the absorption is read
+// only for rt == 2.
+extern "C" int sim5_march_f32(
+    int gr, int pol, int rt, const float* x, const float* k, const float* f,
+    const float* kt, const unsigned char* act0, float* xo, float* ko,
+    float* fo, float* kto, float* erro, int* stepso, unsigned char* acto,
+    float* Io, long long n, float a, float eps0, float r_min, float r_max,
+    float error_stop, float error_gate, int max_steps, float max_step_dl,
+    float j_amp, float j_center, float j_inv_w, float j_inv_h, float j_t_c,
+    float j_inv_d, int j_cyl, float al_amp, float al_center, float al_inv_w,
+    float al_inv_h, float al_t_c, float al_inv_d, int al_cyl, void* stream) {
+  if (rt < 0 || rt > 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Gauss jm{j_amp, j_center, j_inv_w, j_inv_h, j_t_c, j_inv_d, j_cyl};
+  const Gauss am{al_amp, al_center, al_inv_w, al_inv_h, al_t_c, al_inv_d,
+                 al_cyl};
   if (gr && pol) {
-    launch<true, true>(x, k, f, kt, act0, xo, ko, fo, kto, erro, stepso, acto,
-                       n, a, eps0, r_min, r_max, error_stop, error_gate,
-                       max_steps, max_step_dl, s);
+    launch_rt<true, true>(rt, x, k, f, kt, act0, xo, ko, fo, kto, erro,
+                          stepso, acto, Io, n, a, eps0, r_min, r_max,
+                          error_stop, error_gate, max_steps, max_step_dl, jm,
+                          am, s);
   } else if (gr) {
-    launch<true, false>(x, k, f, kt, act0, xo, ko, fo, kto, erro, stepso,
-                        acto, n, a, eps0, r_min, r_max, error_stop,
-                        error_gate, max_steps, max_step_dl, s);
+    launch_rt<true, false>(rt, x, k, f, kt, act0, xo, ko, fo, kto, erro,
+                           stepso, acto, Io, n, a, eps0, r_min, r_max,
+                           error_stop, error_gate, max_steps, max_step_dl,
+                           jm, am, s);
   } else if (pol) {
-    launch<false, true>(x, k, f, kt, act0, xo, ko, fo, kto, erro, stepso,
-                        acto, n, a, eps0, r_min, r_max, error_stop,
-                        error_gate, max_steps, max_step_dl, s);
+    launch_rt<false, true>(rt, x, k, f, kt, act0, xo, ko, fo, kto, erro,
+                           stepso, acto, Io, n, a, eps0, r_min, r_max,
+                           error_stop, error_gate, max_steps, max_step_dl,
+                           jm, am, s);
   } else {
-    launch<false, false>(x, k, f, kt, act0, xo, ko, fo, kto, erro, stepso,
-                         acto, n, a, eps0, r_min, r_max, error_stop,
-                         error_gate, max_steps, max_step_dl, s);
+    launch_rt<false, false>(rt, x, k, f, kt, act0, xo, ko, fo, kto, erro,
+                            stepso, acto, Io, n, a, eps0, r_min, r_max,
+                            error_stop, error_gate, max_steps, max_step_dl,
+                            jm, am, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,20 +6,20 @@ structure-of-arrays (4, N) f32 components, with theta in place of
 m = cos(theta) (the kernel carries theta through the whole march), and runs
 either
 
-* the CUDA kernel `march_f32<GR, POL>` (`csrc/march.cu`) for CUDA tensors,
-  or
+* the CUDA kernel `march_f32<GR, POL, RT>` (`csrc/march.cu`) for CUDA
+  tensors, or
 * `march_reference`, its plain torch version, for CPU tensors.
 
 A CUDA tensor always launches the kernel or raises; the plain version runs
 only because the tensors lie on the CPU.  `LAUNCHES` counts kernel
-launches.
+launches by variant.
 
 `march_reference` is a masked torch loop that mirrors the kernel body
 (`_make_kernel` in the JAX package) operation for operation: theta carried
 throughout, `_TINY = 1e-30`, err = 1e30 on a freeze, and the stage-1
-acceleration reused for the curvature.  The fused radiative-transfer
-variants of the JAX kernel (emissivity / absorption callables) are not
-ported yet.
+acceleration reused for the curvature.  The fused radiative transfer
+(RT > 0) takes its emissivity and absorption from the `GaussianSource`
+family (`emission.py`), whose parameters the kernel takes by value.
 """
 
 import ctypes
@@ -29,11 +29,16 @@ import torch
 
 from ..core import r_bh
 from ..core.metric import _kerr_conn_entries, _flat_conn_entries
+from .emission import GaussianSource, rt_mode
 
 _TINY = 1e-30
 
-# kernel launches made by `raytrace_kernel` on CUDA tensors
-LAUNCHES = 0
+# the kernel's variants by its RT template argument
+VARIANTS = ("march_f32", "march_f32 RT=emission",
+            "march_f32 RT=emission+absorption")
+
+# kernel launches made on CUDA tensors, by variant
+LAUNCHES = dict.fromkeys(VARIANTS, 0)
 
 _LIB = None
 
@@ -79,14 +84,17 @@ def _metric_coeffs(opt_gr, a, r, m):
 
 def march_reference(x, k, f, kt, active0, a, eps0, r_min, r_max, error_stop,
                     error_gate, opt_gr=True, opt_pol=False, max_steps=10000,
-                    max_step_dl=1e9):
+                    max_step_dl=1e9, emissivity=None, absorption=None):
     """Plain torch version of the march kernel, on any device.
 
     x, k, f: (4, N) f32 with x = (t, r, theta, phi); kt: (N,) f32;
     active0: (N,) bool.  The scalars are Python floats, used in f32.
-    Returns (x, k, f, kt, err, steps, active) as the kernel does: x, k, f
-    (4, N) f32, kt and err (N,) f32, steps (N,) int32, active (N,) bool.
+    `emissivity` and `absorption` are `GaussianSource` models (or None).
+    Returns (x, k, f, kt, err, steps, active, I) as the kernel does: x, k, f
+    (4, N) f32, kt and err (N,) f32, steps (N,) int32, active (N,) bool,
+    and the transferred intensity I (N,) f32 (None without emissivity).
     """
+    rt = rt_mode(emissivity, absorption)
     dev = x.device
 
     def f32(v):
@@ -101,6 +109,8 @@ def march_reference(x, k, f, kt, active0, a, eps0, r_min, r_max, error_stop,
     steps = torch.zeros(kt.shape, dtype=torch.int32, device=dev)
     active = torch.isfinite(kt) & active0
     eps = torch.full_like(kt, float(eps0))
+    I = torch.zeros_like(kt)
+    tau = torch.zeros_like(kt)
 
     def accel(xth, kv, fv):
         rr, mm = xth[1], torch.cos(xth[2])
@@ -177,12 +187,28 @@ def march_reference(x, k, f, kt, active0, a, eps0, r_min, r_max, error_stop,
         err = torch.where(acc, e_new, torch.where(fail_floor, 1e30, err))
         steps = steps + active.to(torch.int32)
 
+        if rt:
+            # radiative transfer on accepted steps, at the updated position,
+            # with the trial's dl (the Pallas body's order and thresholds)
+            mm = torch.cos(x[2])
+            j = emissivity(x[0], x[1], mm, x[3])
+            if absorption is not None:
+                al = absorption(x[0], x[1], mm, x[3])
+                dtau = al * dl
+                seff = torch.where(dtau > 1e-6,
+                                   (1.0 - torch.exp(-dtau))
+                                   / torch.maximum(al, f32(_TINY)), dl)
+                I = I + torch.where(acc, j * torch.exp(-tau) * seff, 0.0)
+                tau = tau + torch.where(acc, dtau, 0.0)
+            else:
+                I = I + torch.where(acc, j * dl, 0.0)
+
         rr = x[1]
         active = (active & (rr > r_min) & (rr < r_max)
                   & (err < error_stop) & torch.isfinite(rr))
 
     return (torch.stack(x), torch.stack(k), torch.stack(f), kt, err, steps,
-            active)
+            active, I if rt else None)
 
 
 def _lib():
@@ -192,13 +218,15 @@ def _lib():
         from .._build import load
         lib = load("march")
         p = ctypes.c_void_p
+        gauss = [ctypes.c_float] * 6 + [ctypes.c_int]  # GaussianSource.params()
         lib.sim5_march_f32.argtypes = (
-            [ctypes.c_int, ctypes.c_int]          # gr, pol
+            [ctypes.c_int] * 3                    # gr, pol, rt
             + [p] * 5                             # x, k, f, kt, active0
-            + [p] * 7                             # xo, ko, fo, kto, erro, stepso, acto
+            + [p] * 8                             # xo, ko, fo, kto, erro, stepso, acto, Io
             + [ctypes.c_longlong]                 # n
             + [ctypes.c_float] * 6                # a, eps0, r_min, r_max, error_stop, error_gate
             + [ctypes.c_int, ctypes.c_float]      # max_steps, max_step_dl
+            + gauss + gauss                       # emissivity, absorption
             + [p])                                # stream
         lib.sim5_march_f32.restype = ctypes.c_int
         _LIB = lib
@@ -207,12 +235,12 @@ def _lib():
 
 def _march_cuda(x, k, f, kt, active0, a, eps0, r_min, r_max, error_stop,
                 error_gate, opt_gr=True, opt_pol=False, max_steps=10000,
-                max_step_dl=1e9):
-    """Launch `march_f32<opt_gr, opt_pol>` on the current stream.
+                max_step_dl=1e9, emissivity=None, absorption=None):
+    """Launch `march_f32<opt_gr, opt_pol, rt>` on the current stream.
 
     Same arguments and results as `march_reference`.
     """
-    global LAUNCHES
+    rt = rt_mode(emissivity, absorption)
     n = kt.shape[0]
     dev = x.device
     for name, t, shape, dtype in (("x", x, (4, n), torch.float32),
@@ -235,19 +263,24 @@ def _march_cuda(x, k, f, kt, active0, a, eps0, r_min, r_max, error_stop,
     kto, erro = torch.empty_like(kt), torch.empty_like(kt)
     stepso = torch.empty(n, dtype=torch.int32, device=dev)
     acto = torch.empty(n, dtype=torch.bool, device=dev)
+    Io = torch.empty_like(kt) if rt else None
+    unused = GaussianSource(amp=0.0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().sim5_march_f32(
-        int(opt_gr), int(opt_pol),
+        int(opt_gr), int(opt_pol), rt,
         x.data_ptr(), k.data_ptr(), f.data_ptr(), kt.data_ptr(),
         active0.data_ptr(),
         xo.data_ptr(), ko.data_ptr(), fo.data_ptr(), kto.data_ptr(),
         erro.data_ptr(), stepso.data_ptr(), acto.data_ptr(),
+        Io.data_ptr() if rt else None,
         n, a, eps0, r_min, r_max, error_stop, error_gate,
-        int(max_steps), max_step_dl, stream)
+        int(max_steps), max_step_dl,
+        *(emissivity or unused).params(), *(absorption or unused).params(),
+        stream)
     if rc != 0:
-        raise RuntimeError(f"march_f32 launch failed: cudaError {rc}")
-    LAUNCHES += 1
-    return xo, ko, fo, kto, erro, stepso, acto
+        raise RuntimeError(f"{VARIANTS[rt]} launch failed: cudaError {rc}")
+    LAUNCHES[VARIANTS[rt]] += 1
+    return xo, ko, fo, kto, erro, stepso, acto, Io
 
 
 def _pack(state, r_max, max_steps, error_stop, active0):
@@ -284,8 +317,9 @@ def _pack(state, r_max, max_steps, error_stop, active0):
 
 
 def _unpack(state, outs):
-    """(RaytraceState, still_active) from the kernel's outputs."""
-    xo, ko, fo, kto, erro, stepso, acto = outs
+    """(RaytraceState, still_active) from the kernel's outputs, and the
+    intensity I when the march carried transfer."""
+    xo, ko, fo, kto, erro, stepso, acto, Io = outs
     batch = state.x.shape[:-1]
 
     def un(v):
@@ -296,19 +330,30 @@ def _unpack(state, outs):
     out = state._replace(x=x, k=un(ko), f=un(fo), kt=kto.reshape(batch),
                          error=erro.reshape(batch),
                          steps=stepso.reshape(batch))
-    return out, acto.reshape(batch)
+    if Io is None:
+        return out, acto.reshape(batch)
+    return out, acto.reshape(batch), Io.reshape(batch)
 
 
 def raytrace_kernel(state, r_max=1e4, max_steps=10000, error_stop=1e-2,
-                    active0=None):
-    """f32 kernel equivalent of `raytrace(state, ...)`.
+                    emissivity=None, absorption=None, active0=None):
+    """f32 kernel equivalent of `raytrace(state, ...)`, the counterpart of
+    `raytrace_pallas`.
 
     Marches every ray to termination in one kernel launch and returns
     (final RaytraceState, still_active mask) like `raytrace`.  CUDA tensors
     go to the CUDA kernel (or raise); CPU tensors go to `march_reference`.
     `active0` (optional, bool per ray) starts masked rays inactive.
+
+    `emissivity` (a `GaussianSource`) fuses radiative transfer into the
+    march: each ray accumulates I = int j e^{-tau} dl along its backward
+    march, and the return becomes (state, still_active, I).  `absorption`
+    (a `GaussianSource`, needs `emissivity`) adds the optical depth
+    tau = int alpha dl; without it the transfer is optically thin.  Any
+    other callable raises TypeError, on every device.
     """
     tensors, scalars = _pack(state, r_max, max_steps, error_stop, active0)
+    scalars.update(emissivity=emissivity, absorption=absorption)
     dev = tensors[0].device
     if dev.type == "cuda":
         outs = _march_cuda(*tensors, **scalars)
@@ -320,7 +365,8 @@ def raytrace_kernel(state, r_max=1e4, max_steps=10000, error_stop=1e-2,
 
 
 def raytrace_reference(state, r_max=1e4, max_steps=10000, error_stop=1e-2,
-                       active0=None):
+                       emissivity=None, absorption=None, active0=None):
     """`raytrace_kernel` through the plain version, on any device."""
     tensors, scalars = _pack(state, r_max, max_steps, error_stop, active0)
-    return _unpack(state, march_reference(*tensors, **scalars))
+    return _unpack(state, march_reference(*tensors, emissivity=emissivity,
+                                          absorption=absorption, **scalars))

@@ -61,9 +61,10 @@ class RaytraceState:
         return dataclasses.replace(self, **kw)
 
     @classmethod
-    def from_numpy(cls, d, device="cpu"):
+    def from_numpy(cls, d, device="cuda"):
         """State from a dict of numpy arrays, e.g. the fields of a
-        `sim5_tpu` RaytraceState; dtypes are kept."""
+        `sim5_tpu` RaytraceState, on `device` (the card unless the caller
+        asks for the CPU); dtypes are kept."""
         kw = {name: torch.as_tensor(np.array(d[name]), device=device)
               for name in _TENSOR_FIELDS}
         return cls(**kw, opt_gr=bool(d["opt_gr"]), opt_pol=bool(d["opt_pol"]))
@@ -91,7 +92,7 @@ def _metric(state, r, m):
 def raytrace_prepare(a, x, k, f=None, precision=0.01, options=RTOPT_NONE):
     """Initialize the integration state; checks are soft (NaN-poisoning).
 
-    Dtype and device follow `x` and `k`.
+    Dtype and device follow `x` and `k` (numpy inputs go to the card).
     (reference: raytrace_prepare, sim5raytrace.c:44-94)
     """
     x, k = _as_tensors(x, k)

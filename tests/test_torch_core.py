@@ -33,6 +33,11 @@ def _close(got, want, rtol=1e-12, atol=1e-13):
         f"{np.max(np.abs(got - want) / (np.abs(want) + 1e-300)):.3e}")
 
 
+def _cpu(*arrays):
+    """numpy arrays as CPU tensors (the port's default device is the card)."""
+    return [torch.from_numpy(np.ascontiguousarray(v)) for v in arrays]
+
+
 def _points(seed=0, n=N):
     rng = np.random.default_rng(seed)
     a = rng.uniform(0.05, 0.999, n)
@@ -65,10 +70,10 @@ class TestAgainstJax:
         a, r, m = _points(1)
         if kind == "kerr":
             ej, _ = jmetric._kerr_conn_entries(a, r, m)
-            et, shape = tmetric._kerr_conn_entries(a, r, m)
+            et, shape = tmetric._kerr_conn_entries(*_cpu(a, r, m))
         else:
             ej, _ = jmetric._flat_conn_entries(r, m)
-            et, shape = tmetric._flat_conn_entries(r, m)
+            et, shape = tmetric._flat_conn_entries(*_cpu(r, m))
         assert tuple(shape) == (N,)
         assert list(et) == list(ej)          # same entries, same order
         for key in ej:
@@ -127,6 +132,10 @@ class TestAgainstJax:
         e, _ = tmetric._kerr_conn_entries(0.5, r, m)
         assert all(v.dtype == torch.float32 for v in e.values())
         assert torch.get_default_dtype() == torch.float32
+        # with no tensor among the inputs, new data goes to the card
+        assert tmetric.default_device() == torch.device("cuda")
+        assert tmetric.default_device("cpu") == torch.device("cpu")
+        assert tmetric._as_tensors(0.5, device="cpu")[0].device.type == "cpu"
 
 
 class TestGolden:
@@ -134,12 +143,12 @@ class TestGolden:
 
     def test_golden_metric(self, golden_kerr):
         d = golden_kerr["metric"]
-        g = tcore.kerr_metric(d[:, 0], d[:, 1], d[:, 2])
+        g = tcore.kerr_metric(*_cpu(d[:, 0], d[:, 1], d[:, 2]))
         _close(torch.stack([getattr(g, f) for f in FIELDS], -1), d[:, 3:8])
 
     def test_golden_connection(self, golden_kerr):
         d = golden_kerr["conn"]
-        e, _ = tmetric._kerr_conn_entries(d[:, 0], d[:, 1], d[:, 2])
+        e, _ = tmetric._kerr_conn_entries(*_cpu(d[:, 0], d[:, 1], d[:, 2]))
         # the golden holds the 40 upper-triangle Gamma^i_{jk} (j<=k)
         idx = [(i, j, k) for i in range(4) for j in range(4) for k in range(j, 4)]
         zero = torch.zeros(len(d), dtype=torch.float64)
@@ -148,16 +157,30 @@ class TestGolden:
 
     def test_golden_zamo(self, golden_kerr):
         d = golden_kerr["tzamo"]
-        t = tcore.tetrad_zamo(tcore.kerr_metric(d[:, 0], d[:, 1], d[:, 2]))
+        t = tcore.tetrad_zamo(tcore.kerr_metric(*_cpu(d[:, 0], d[:, 1], d[:, 2])))
         _close(t.e.reshape(len(d), 16), d[:, 3:19])
 
     def test_golden_carter(self, golden_kerr):
         d = golden_kerr["carter"]
         dm = golden_kerr["pmom"]
-        g = tcore.kerr_metric(d[:, 0], d[:, 1], d[:, 2])
+        g = tcore.kerr_metric(*_cpu(d[:, 0], d[:, 1], d[:, 2]))
         _close(tcore.photon_carter_const(torch.from_numpy(dm[:, 5:9]), g),
                d[:, 3], rtol=1e-9)
 
+    def test_golden_photon_momentum(self, golden_kerr):
+        d = golden_kerr["pmom"]
+        k = tcore.photon_momentum(*_cpu(*(d[:, i] for i in range(5))),
+                                  1.0, -1.0)
+        _close(k, d[:, 5:9], rtol=1e-10)
+
+    def test_golden_photon_motion_constants(self, golden_kerr):
+        d = golden_kerr["pmc"]
+        dm = golden_kerr["pmom"]
+        l, q = tcore.photon_motion_constants(*_cpu(dm[:, 0], dm[:, 1],
+                                                   dm[:, 2], dm[:, 5:9]))
+        _close(l, d[:, 3], rtol=1e-8)
+        _close(q, d[:, 4], rtol=1e-8)
+
     def test_golden_r_bh(self, golden_kerr):
         d = golden_kerr["orbit"]
-        _close(tcore.r_bh(d[:, 0]), d[:, 1])
+        _close(tcore.r_bh(torch.from_numpy(d[:, 0])), d[:, 1])

@@ -61,7 +61,7 @@ def _state(variant, n=48, seed=0):
         stj = raytrace_prepare(a32, x, k, f=f0, precision=0.01, options=opts)
     d = {f.name: np.asarray(getattr(stj, f.name))
          for f in dataclasses.fields(stj)}
-    return stj, RaytraceState.from_numpy(d)
+    return stj, RaytraceState.from_numpy(d, device="cpu")
 
 
 class TestAgainstPallas:
@@ -96,7 +96,7 @@ class TestWrapper:
 
     def test_cpu_tensors_take_the_plain_route(self):
         _, st = _state("gr", n=16, seed=1)
-        before = kernel_march.LAUNCHES
+        before = dict(kernel_march.LAUNCHES)
         kw = dict(r_max=30.0, max_steps=20)
         s1, a1 = kernel_march.raytrace_kernel(st, **kw)
         s2, a2 = kernel_march.raytrace_reference(st, **kw)
@@ -126,7 +126,12 @@ class TestWrapper:
             kernel_march._march_cuda(*tensors, **scalars)
 
     def test_package_imports_no_jax(self):
-        code = ("import sys, sim5_tpu_torch, sim5_tpu_torch.march.kernel_march;"
+        code = ("import sys, sim5_tpu_torch, sim5_tpu_torch.march.kernel_march,"
+                " sim5_tpu_torch.march.emission, sim5_tpu_torch.special.polyroots,"
+                " sim5_tpu_torch.special.carlson, sim5_tpu_torch.special.legendre,"
+                " sim5_tpu_torch.special.jacobi, sim5_tpu_torch.geodesic.types,"
+                " sim5_tpu_torch.geodesic.analytic, sim5_tpu_torch.render.image,"
+                " sim5_tpu_torch.render.lightcurve;"
                 "bad = [m for m in sys.modules if m == 'jax' or "
                 "m.startswith(('jax.', 'sim5_tpu.')) or m == 'sim5_tpu'];"
                 "assert not bad, bad")

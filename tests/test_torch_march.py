@@ -53,7 +53,7 @@ def _prepared(variant, n=32, a=0.5, seed=0):
     x, k, f0 = _rays(n, a, seed, flat=variant == "flat")
     stj = jm.raytrace_prepare(a, x, k, f=f0 if variant == "gr+pol" else None,
                               precision=0.01, options=OPTIONS[variant])
-    return stj, tm.RaytraceState.from_numpy(_as_dict(stj))
+    return stj, tm.RaytraceState.from_numpy(_as_dict(stj), device="cpu")
 
 
 def _close(got, want, rtol=1e-12, atol=0.0):
