@@ -7,35 +7,49 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 The march kernel (`sim5_tpu_torch/csrc/march.cu`, all its variants) is
-built into `build/` on first use.  Phases, one line each:
+built into `build/` on first use.  Every main path runs it in segments,
+with the live rays compacted between them; the one-launch schedule of the
+first version (`kernel_march._march_cuda_one_launch`) runs only in the A/B
+timings of phases 5 and 9.  Phases, one line each:
 
-1. device: the card's name and power limit, and the kernel build;
+1. device: the card's name and power limit, the kernel build, its
+   compile-time choices, registers, spills and resident blocks, and its
+   SASS instruction counts where `cuobjdump` is there;
 2. kernel vs its plain torch version on 4096 rays (GR, GR+POL, flat at
    a = 0.3 and 0.9);
 3. the march's main path, 131072 rays at a = 0.9 to r = 500, through
    raytrace_prepare -> raytrace_kernel -> raytrace_error, with the
-   reference's Carter-drift gates and the kernel's launch count;
+   reference's Carter-drift gates, the launch counts (the one-launch
+   schedule's stay 0) and the lane counters (lane-trips == sum of steps);
 4. the f64 torch engine on 16384 rays of the same workload, same gates;
-5. ray-steps/s of the kernel and of its plain version at 131072 rays;
+5. the two schedules in turns at 131072 rays (one-launch, segmented,
+   segmented, one-launch, ...; the minimum of each): ms, ray-steps/s, lane
+   use and the bound, with every output bitwise equal between them and
+   between two segmented runs; the time of each segment; the plain
+   version once;
 6. the transfer variants vs their plain version on the volume seed of
    64^2 pixels (example 11's torus, thin and thick);
 7. the volume path's main path: volume_image(engine="kernel") at 512^2
    for alpha0 = 0 and 1, with the launch counts and the image gates;
 8. the kernel route against the f64 loop engine at 128^2;
-9. the transfer variants' time at 512^2, and their plain version's.
+9. phase 5's A/B and gates for the transfer variants at 512^2, thin and
+   thick, and their plain version once.
 
-Then one JSON line on the kernels, the card's name and power limit, and
-the result as the last line.  Any failed check exits non-zero.  The script
-needs a CUDA device and imports nothing of JAX.
+Then one JSON line on the kernels (both schedules), the card's name and
+power limit, and the result as the last line.  Any failed check exits
+non-zero.  The script needs a CUDA device and imports nothing of JAX.
 """
 
 import contextlib
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -53,15 +67,17 @@ N_VOL_PIX = 512
 N_VOL_CMP = 64
 N_VOL_LOOP = 128
 ALPHA0 = (0.0, 1.0)
+AB_ROUNDS = 3            # rounds of one-launch, segmented, segmented, one-launch
 
 # The least time of a march (bound_ms): FP32 operations per trial step,
 # counted from csrc/march.cu for the GR, no-polarization instance, a
 # multiply-add as two, each division, sqrtf, cosf and expf as one (so the
-# bound is a lower one): 4 connection evaluations of 159 (each with one
-# sqrtf and 7 divisions), 5 cosf, 4 contractions -Gamma k k of 52, the step
-# size 26, the RK4 stage updates and combination 98, the error check 48,
-# accept/reject and termination 14.
-OPS_TRIAL = 4 * 159 + 5 + 4 * 52 + 26 + 98 + 48 + 14
+# bound is a lower one): 4 connection evaluations of 158 (each with one
+# sqrtf and 4 divisions), 4 cosf (m is carried from the last accepted
+# trial), 4 contractions -Gamma k k of 52, the step size 25, the RK4 stage
+# updates and combination 98, the error check 49, accept/reject and
+# termination 14.
+OPS_TRIAL = 4 * 158 + 4 + 4 * 52 + 25 + 98 + 49 + 14
 # per step with transfer: one torus evaluation (19, with its sqrtf and
 # expf) and I += j dl; or two evaluations, dtau, s_eff and I += j e^-tau s
 # (3 expf); counted on every trial, though only accepted ones run them
@@ -137,17 +153,19 @@ def compare(st_k, st_p, pol):
             float(dr[both].max()))
 
 
-def ptxas_summary(build_dir):
-    """'GR=.. POL=.. RT=..: N regs, spills' per kernel instance, from the
-    compiler's -Xptxas -v report kept beside the library."""
-    log = build_dir / "march.log"
-    if not log.exists():
-        return "no report (library was cached)"
+# march_f32<GR, POL, RT> in a mangled name
+INSTANCE = re.compile(r"march_f32ILb([01])ELb([01])ELi([0-9])E")
+
+
+def ptxas_summary(log):
+    """'GR=.. POL=.. RT=..: N regs, stack frame and spills' per kernel
+    instance, from the compiler's -Xptxas -v report kept beside the
+    library."""
+    if not os.path.exists(log):
+        return "no report (library was cached without its log)"
     out, kernel, spill = [], None, ""
-    for ln in log.read_text().splitlines():
-        # mangled march_f32<GR, POL, RT>
-        entry = re.search(r"Compiling entry function.*march_f32ILb([01])"
-                          r"ELb([01])ELi([0-9])E", ln)
+    for ln in open(log).read().splitlines():
+        entry = INSTANCE.search(ln) if "Compiling entry function" in ln else None
         regs = re.search(r"Used (\d+) registers", ln)
         if entry:
             kernel = f"GR={entry[1]} POL={entry[2]} RT={entry[3]}"
@@ -157,6 +175,43 @@ def ptxas_summary(build_dir):
             out.append(f"{kernel}: {regs[1]} regs, {spill}")
             kernel = None
     return "; ".join(out)
+
+
+def sass_counts(lib_path):
+    """{(GR, POL, RT): Counter of SASS opcodes} of each kernel instance in
+    the library (a static count: each instruction of the function once),
+    or None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            m = INSTANCE.search(ln)
+            cur = counts.setdefault(tuple(int(g) for g in m.groups()),
+                                    Counter()) if m else None
+        elif cur is not None:
+            op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                          ln)
+            if op:
+                cur[op[1].split(".")[0]] += 1
+    return counts
+
+
+def sass_summary(counts, key):
+    """Static SASS counts of one instance: all, FP32 arithmetic, MUFU
+    (reciprocal, square-root and exponent seeds), branches and calls."""
+    if counts is None:
+        return "not measured (no cuobjdump)"
+    c = counts[key]
+    fp = sum(c[o] for o in ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP",
+                            "FSEL", "FCHK"))
+    return (f"GR={key[0]} POL={key[1]} RT={key[2]}: {sum(c.values())} "
+            f"instructions, FP32 {fp} (FFMA {c['FFMA']}, FMUL {c['FMUL']}, "
+            f"FADD {c['FADD']}), MUFU {c['MUFU']}, BRA {c['BRA']}, CALL "
+            f"{c['CALL']}")
 
 
 def march_bound(n, ray_steps, rt):
@@ -169,24 +224,117 @@ def march_bound(n, ray_steps, rt):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def warp_efficiency(steps):
-    """Share of the lanes' trips that did work: sum of steps over the sum,
-    over warps of 32 consecutive rays, of 32 x the warp's longest march."""
-    s = steps.long().cpu().numpy()
-    s = np.concatenate([s, np.zeros(-len(s) % 32, s.dtype)]).reshape(-1, 32)
-    return float(s.sum() / (32 * s.max(1)).sum())
+def same_bits(outs_a, outs_b):
+    """Whether two marches' outputs are bitwise equal, NaN included."""
+    for a, b in zip(outs_a, outs_b):
+        if (a is None) != (b is None):
+            return False
+        if a is None:
+            continue
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            return False
+    return True
+
+
+def lane_use(counters):
+    lane_trips, warp_trips, _ = counters
+    return lane_trips / (32 * warp_trips) if warp_trips else float("nan")
+
+
+def check_counters(tag, counters, steps):
+    """lane-trips == sum of steps, and the last launch appended no ray."""
+    lane_trips, _, appended = counters
+    total = int(steps.long().sum())
+    check(lane_trips == total, f"{tag}: lane-trips {lane_trips} != sum of "
+          f"steps {total}")
+    check(appended[-1] == 0, f"{tag}: the last launch appended "
+          f"{appended[-1]} rays")
+
+
+def ab_timing(tensors, kw):
+    """The one-launch and segmented schedules on the same inputs, in turns
+    on one card: one warm-up each, then AB_ROUNDS of one-launch, segmented,
+    segmented, one-launch, each timed by CUDA events.  Returns {schedule:
+    (min ms, outputs of its first timed run, lane counters)} and whether
+    every run of both schedules gave bitwise the outputs of the first."""
+    from sim5_tpu_torch.march import kernel_march
+    fns = {"one-launch": kernel_march._march_cuda_one_launch,
+           "segmented": kernel_march._march_cuda}
+    for fn in fns.values():
+        fn(*tensors, **kw)
+    best, first, counters, same = {}, {}, {}, True
+    for _ in range(AB_ROUNDS):
+        for name in ("one-launch", "segmented", "segmented", "one-launch"):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            outs = fns[name](*tensors, **kw)
+            e1.record()
+            torch.cuda.synchronize()
+            best[name] = min(best.get(name, float("inf")), e0.elapsed_time(e1))
+            counters.setdefault(name, kernel_march.march_counters())
+            if name not in first:
+                first[name] = outs
+            same = same and same_bits(outs, first["one-launch"])
+    return ({k: (best[k], first[k], counters[k]) for k in fns}, same)
+
+
+def segment_profile(tensors, kw, resident_lanes):
+    """One segmented march with a CUDA event after each launch: the ms of
+    each launch, the rays live at its entry, and the ms of the launches
+    entered with fewer live rays than the card keeps resident lanes, than
+    10% and than 1% of the rays."""
+    from sim5_tpu_torch.march import kernel_march
+    events = []
+    kernel_march._march_cuda(*tensors, events=events, **kw)
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    n = tensors[3].shape[0]
+    live = [n] + kernel_march.march_counters()[2][:-1]
+    total = sum(ms)
+    part = {"below resident lanes": resident_lanes,
+            "below 10% of rays": n / 10, "below 1% of rays": n / 100}
+    tails = {k: sum(t for t, v in zip(ms, live) if v < lim)
+             for k, lim in part.items()}
+    text = (f"{len(ms)} launches {total:.3f} ms; " + "; ".join(
+        f"{k}: {t:.3f} ms ({t / total:.3f})" for k, t in tails.items())
+        + f"; first launch {ms[0]:.3f} ms; ms per launch "
+        + " ".join(f"{t:.3f}" for t in ms)
+        + "; live at entry " + " ".join(str(v) for v in live))
+    return text
+
+
+def resident_lanes(rt):
+    """Threads of march_f32<GR, no POL, rt> the card keeps resident."""
+    from sim5_tpu_torch.march import kernel_march
+    att = kernel_march.kernel_attributes(True, False, rt)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return att["blocks_per_sm"] * kernel_march.kernel_config()["threads"] * sms
+
+
+def instance_text(rt):
+    from sim5_tpu_torch.march import kernel_march
+    att = kernel_march.kernel_attributes(True, False, rt)
+    return (f"GR RT={rt}: {att['registers']} registers, {att['local_bytes']} "
+            f"bytes local, {att['blocks_per_sm']} blocks an SM")
 
 
 def phase_device():
-    from sim5_tpu_torch._build import BUILDS, BUILD_DIR
+    from sim5_tpu_torch._build import BUILDS
     from sim5_tpu_torch.march import kernel_march
     name = card()
     kernel_march._lib()
     b = BUILDS["march"]
+    cfg = kernel_march.kernel_config()
     print(f"phase 1 device: {name} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | march build {b['seconds']:.2f} s "
-          f"cached={b['cached']} | ptxas: {ptxas_summary(BUILD_DIR)}",
-          flush=True)
+          f"cached={b['cached']} | {cfg} | "
+          + "; ".join(instance_text(rt) for rt in range(3))
+          + f" | ptxas: {ptxas_summary(b['log'])} | SASS (static): "
+          + "; ".join(sass_summary(sass_counts(b["path"]), (1, 0, rt))
+                      for rt in range(3)), flush=True)
     return name
 
 
@@ -256,18 +404,24 @@ def phase_main(dev):
     st, act = main_path(N_MAIN, torch.float32, dev, raytrace_kernel)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = kernel_march.LAUNCHES["march_f32"]
+    counts = dict(kernel_march.LAUNCHES)
+    launches = counts["march_f32"]
     check(launches >= 1, "main path launched the march kernel 0 times")
+    check(not any(counts[v] for v in kernel_march.ONE_LAUNCH),
+          f"main path launched the one-launch schedule: {counts}")
+    counters = kernel_march.march_counters()
+    check_counters("main path", counters, st.steps)
     g = drift_gates("main path", st, act, MAIN["r_max"], raytrace_error)
     steps = int(st.steps.long().sum())
     print(f"phase 3 main path ({N_MAIN} rays f32, a=0.9, r_max 500, 4000 "
-          f"steps): LAUNCHES={launches} nan_frac={g['nan_frac']} finished="
+          f"steps): LAUNCHES={counts} nan_frac={g['nan_frac']} finished="
           f"{g['finished']:.5f} escaped={g['escaped']:.5f} drift median="
           f"{g['drift_median']:.3e} p99={g['drift_p99']:.3e} ray-steps="
           f"{steps} mean steps={steps / N_MAIN:.1f} max steps="
-          f"{int(st.steps.max())} warp efficiency="
-          f"{warp_efficiency(st.steps):.4f} wall={secs:.3f} s", flush=True)
-    return launches, g
+          f"{int(st.steps.max())} lane-trips={counters[0]} (== sum of "
+          f"steps) warp-trips={counters[1]} lane use="
+          f"{lane_use(counters):.4f} wall={secs:.3f} s", flush=True)
+    return counts, g
 
 
 def phase_f64(dev):
@@ -285,54 +439,71 @@ def phase_f64(dev):
     return g
 
 
+def ab_report(tag, n, rt, ab, same, plain_outs, plain_ms, compare_fn):
+    """Gate and describe one A/B timing: returns (text, {schedule: row})."""
+    check(same, f"{tag}: the segmented and one-launch schedules (or two "
+          f"runs of one) are not bitwise equal")
+    parts, rows = [], {}
+    for sched, (ms, outs, counters) in ab.items():
+        check_counters(f"{tag} {sched}", counters, outs[5])
+        ray_steps = int(outs[5].long().sum())
+        bound_ms, bound_by = march_bound(n, ray_steps, rt)
+        err = compare_fn(outs, plain_outs)
+        rows[sched] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                           bound_ms=bound_ms, bound_by=bound_by)
+        parts.append(f"{sched} {ms:.3f} ms {ray_steps / (ms * 1e-3):.4e} "
+                     f"ray-steps/s lane use {lane_use(counters):.4f} "
+                     f"({bound_ms / ms:.3f} of bound)")
+    text = (" | ".join(parts) + f" | segmented/one-launch "
+            f"{ab['segmented'][0] / ab['one-launch'][0]:.4f} | bound "
+            f"{rows['segmented']['bound_ms']:.3f} ms "
+            f"({rows['segmented']['bound_by']}) | all {4 * AB_ROUNDS} timed "
+            f"runs bitwise equal, steps equal on every ray | plain "
+            f"{plain_ms:.3f} ms")
+    return text, rows
+
+
 def phase_timing(dev, name):
-    """ms per march and ray-steps/s of the kernel (min of 3 after one
-    warm-up) and of its plain version (once: it is host-launch-bound and
-    takes tens of seconds) on the main path's packed inputs, timed with
-    CUDA events.  Also holds the two results against each other."""
+    """The two schedules in turns (CUDA events, min of AB_ROUNDS x 2 each)
+    and the plain version once (it is host-launch-bound and takes tens of
+    seconds) on the main path's packed inputs.  Holds the schedules
+    bitwise equal and the kernel against the plain version."""
     from sim5_tpu_torch.march import raytrace_prepare, kernel_march
     x, k, _ = zamo_rays(N_MAIN, MAIN["a"], SEED_MAIN, torch.float32, dev,
                         outward=1.0)
     st0 = raytrace_prepare(MAIN["a"], x, k, precision=MAIN["precision"])
     tensors, scalars = kernel_march._pack(st0, MAIN["r_max"],
                                           MAIN["max_steps"], 1e-2, None)
-    ms_k, out_k = timed(kernel_march._march_cuda, tensors, scalars, 3)
-    ms_p, out_p = timed(kernel_march.march_reference, tensors, scalars, 1)
-    steps_k = int(out_k[5].long().sum())
-    steps_p = int(out_p[5].long().sum())
-    st_k, _ = kernel_march._unpack(st0, out_k)
+    ab, same = ab_timing(tensors, scalars)
+    ms_p, out_p = timed(kernel_march.march_reference, tensors, scalars)
     st_p, _ = kernel_march._unpack(st0, out_p)
-    eq, rel, dth, _, dr = compare(st_k, st_p, False)
+    st_k, _ = kernel_march._unpack(st0, ab["segmented"][1])
+    eq, rel, _, _, _ = compare(st_k, st_p, False)
     check(eq > 0.9, f"main shape: equal steps on only {eq:.4f} of rays")
     check(rel < 1e-3, f"main shape: relative dr {rel:.3e} >= 1e-3")
-    rate_k = steps_k / (ms_k * 1e-3)
-    rate_p = steps_p / (ms_p * 1e-3)
-    bound_ms, bound_by = march_bound(N_MAIN, steps_k, 0)
+
+    def max_dr(outs, plain):
+        return compare(kernel_march._unpack(st0, outs)[0], st_p, False)[4]
+
+    text, rows = ab_report("main shape", N_MAIN, 0, ab, same, out_p, ms_p,
+                           max_dr)
+    segs = segment_profile(tensors, scalars, resident_lanes(0))
     print(f"phase 5 timing ({N_MAIN} rays f32, a=0.9, r_max 500; {name}): "
-          f"kernel {ms_k:.3f} ms {rate_k:.4e} ray-steps/s | plain "
-          f"{ms_p:.3f} ms {rate_p:.4e} ray-steps/s | speedup "
-          f"{ms_p / ms_k:.2f}x | bound {bound_ms:.3f} ms ({bound_by}) | "
-          f"kernel vs plain: equal steps {eq:.4f} rel dr {rel:.3e} max |dr| "
-          f"{dr:.3e}", flush=True)
-    return dict(ms=ms_k, plain_ms=ms_p, max_abs_err=dr, bound_ms=bound_ms,
-                bound_by=bound_by)
+          f"{text} | kernel vs plain: equal steps {eq:.4f} rel dr "
+          f"{rel:.3e} | segments: {segs}", flush=True)
+    return rows
 
 
-def timed(fn, tensors, scalars, reps):
-    """(ms, outputs) of fn(*tensors, **scalars) by CUDA events: the min of
-    `reps` runs after one warm-up, or the one run when reps is 1."""
-    if reps > 1:
-        fn(*tensors, **scalars)                 # warm-up
-    best = float("inf")
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        outs = fn(*tensors, **scalars)
-        e1.record()
-        torch.cuda.synchronize()
-        best = min(best, e0.elapsed_time(e1))
-    return best, outs
+def timed(fn, tensors, scalars):
+    """(ms, outputs) of one run of fn(*tensors, **scalars), by CUDA
+    events."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    outs = fn(*tensors, **scalars)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1), outs
 
 
 def torus(alpha0=1.0):
@@ -445,7 +616,12 @@ def phase_volume_main(dev):
         variant = kernel_march.VARIANTS[1 if alpha0 == 0.0 else 2]
         check(counts[variant] >= 1,
               f"alpha0={alpha0}: the image launched {variant} 0 times")
+        check(not any(counts[v] for v in kernel_march.ONE_LAUNCH),
+              f"alpha0={alpha0}: the image launched the one-launch "
+              f"schedule: {counts}")
         launches[variant] = counts[variant]
+        for v in kernel_march.ONE_LAUNCH:
+            launches[v] = launches.get(v, 0) + counts[v]
         # the seed alone, warm, on the host clock
         t0 = time.perf_counter()
         lightcurve._volume_seed(
@@ -527,9 +703,8 @@ def phase_volume_loop(dev):
 
 
 def phase_volume_timing(dev, name):
-    """The transfer variants at 512^2: the kernel's min of 3 after a
-    warm-up and its plain version once, both by CUDA events, on the packed
-    inputs of the main path; warp efficiency from the step counts."""
+    """Phase 5's A/B for the transfer variants at 512^2, on the packed
+    inputs of the volume main path, and their plain version once."""
     from sim5_tpu_torch.march import kernel_march
     st0, ok = volume_seed_f32(N_VOL_PIX, dev)
     tensors, scalars = kernel_march._pack(
@@ -538,26 +713,27 @@ def phase_volume_timing(dev, name):
     out, parts = {}, []
     for alpha0 in ALPHA0:
         rt = 1 if alpha0 == 0.0 else 2
+        tag = f"512^2 alpha0={alpha0}"
         kw = dict(scalars, emissivity=torus(), absorption=torus(alpha0))
-        ms_k, out_k = timed(kernel_march._march_cuda, tensors, kw, 3)
-        ms_p, out_p = timed(kernel_march.march_reference, tensors, kw, 1)
-        eq, rel, dI, peak = compare_transfer(out_k, out_p, st0)
-        check(eq > 0.9, f"512^2 alpha0={alpha0}: equal steps {eq:.4f}")
-        check(dI <= 1e-3 * peak, f"512^2 alpha0={alpha0}: |dI| {dI:.3e} > "
-              f"1e-3 of peak {peak:.4e}")
-        steps = out_k[5]
-        ray_steps = int(steps.long().sum())
-        bound_ms, bound_by = march_bound(n, ray_steps, rt)
-        out[kernel_march.VARIANTS[rt]] = dict(
-            ms=ms_k, plain_ms=ms_p, max_abs_err=dI, bound_ms=bound_ms,
-            bound_by=bound_by)
+        ab, same = ab_timing(tensors, kw)
+        ms_p, out_p = timed(kernel_march.march_reference, tensors, kw)
+        eq, rel, dI, peak = compare_transfer(ab["segmented"][1], out_p, st0)
+        check(eq > 0.9, f"{tag}: equal steps {eq:.4f}")
+        check(dI <= 1e-3 * peak, f"{tag}: |dI| {dI:.3e} > 1e-3 of peak "
+              f"{peak:.4e}")
+
+        def max_dI(outs, plain):
+            return compare_transfer(outs, plain, st0)[2]
+
+        text, rows = ab_report(tag, n, rt, ab, same, out_p, ms_p, max_dI)
+        out[rt] = rows
+        steps = ab["segmented"][1][5]
         parts.append(
-            f"alpha0={alpha0}: kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms "
-            f"({ms_p / ms_k:.1f}x), bound {bound_ms:.3f} ms ({bound_by}), "
-            f"ray-steps {ray_steps} (mean {ray_steps / n:.1f}, max "
-            f"{int(steps.max())}) {ray_steps / (ms_k * 1e-3):.4e} "
-            f"ray-steps/s, warp efficiency {warp_efficiency(steps):.4f}, "
-            f"kernel vs plain: equal steps {eq:.4f} |dI| {dI:.3e}")
+            f"alpha0={alpha0}: {text} | ray-steps {int(steps.long().sum())} "
+            f"(mean {float(steps.double().mean()):.1f}, max "
+            f"{int(steps.max())}) | kernel vs plain: equal steps {eq:.4f} "
+            f"|dI| {dI:.3e} | segments: "
+            + segment_profile(tensors, kw, resident_lanes(rt)))
     print(f"phase 9 transfer timing ({N_VOL_PIX}^2 rays f32; {name}): "
           + " | ".join(parts), flush=True)
     return out
@@ -594,8 +770,13 @@ def main():
         return 1
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    rows = [("march_f32", launches, t)] + [
-        (v, vol_launches[v], vol_t[v]) for v in vol_t]
+    from sim5_tpu_torch.march import kernel_march
+    rows = []
+    for rt, timing in {0: t, **vol_t}.items():
+        counts = launches if rt == 0 else vol_launches
+        for sched, names in (("segmented", kernel_march.VARIANTS),
+                             ("one-launch", kernel_march.ONE_LAUNCH)):
+            rows.append((names[rt], counts[names[rt]], timing[sched]))
     print(json.dumps({"kernels": [{
         "name": v, "route": "cuda",
         "source": "sim5_tpu_torch/csrc/march.cu",

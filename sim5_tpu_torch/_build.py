@@ -5,7 +5,8 @@ Each library is compiled by `nvcc` for Hopper (sm_90a) into
 sources and flags, so an unchanged source is built once and reused.  The
 library exposes a plain C interface and is loaded with `ctypes`; the
 caller declares each function's signature.  The compiler's register and
-spill report (`-Xptxas -v`) is kept beside the library as `<name>.log`.
+spill report (`-Xptxas -v`) is kept beside the library as
+`lib<name>_<hash>.log`.
 
 No fast math: the kernels use the IEEE-accurate cosf, sqrtf and division.
 """
@@ -23,7 +24,8 @@ BUILD_DIR = CSRC.parent.parent / "build" / "sim5_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# name -> {"path", "seconds", "cached"} of each library loaded in this process
+# name -> {"path", "log", "seconds", "cached"} of each library loaded in
+# this process
 BUILDS = {}
 
 
@@ -46,6 +48,7 @@ def load(name):
     for p in [src] + headers:
         digest.update(p.read_bytes())
     lib_path = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    log = lib_path.with_suffix(".log")
     t0 = time.perf_counter()
     cached = lib_path.exists()
     if not cached:
@@ -58,9 +61,9 @@ def load(name):
             capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-        (BUILD_DIR / f"{name}.log").write_text(proc.stdout + proc.stderr)
+        log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
-    BUILDS[name] = {"path": str(lib_path), "cached": cached,
+    BUILDS[name] = {"path": str(lib_path), "log": str(log), "cached": cached,
                     "seconds": time.perf_counter() - t0}
     return lib

@@ -1,4 +1,4 @@
-"""The march kernel: every ray marched to termination in one launch.
+"""The march kernel: every ray marched to termination on the card.
 
 Port of `sim5_tpu/march/pallas_march.py`.  `raytrace_kernel` is the
 counterpart of `raytrace_pallas`: it packs the ray state into
@@ -7,12 +7,16 @@ m = cos(theta) (the kernel carries theta through the whole march), and runs
 either
 
 * the CUDA kernel `march_f32<GR, POL, RT>` (`csrc/march.cu`) for CUDA
-  tensors, or
+  tensors, in segments: ceil(max_steps / seg_trips) launches, with the
+  rays still live after each compacted into a dense list for the next, or
 * `march_reference`, its plain torch version, for CPU tensors.
 
 A CUDA tensor always launches the kernel or raises; the plain version runs
 only because the tensors lie on the CPU.  `LAUNCHES` counts kernel
-launches by variant.
+launches by variant, and `march_counters()` reads the lane counters of the
+last march on the card.  `_march_cuda_one_launch` runs the same kernel as
+one launch over the whole march (the first version's schedule); only
+`chip_smoke.py` calls it, to time the two schedules against each other.
 
 `march_reference` is a masked torch loop that mirrors the kernel body
 (`_make_kernel` in the JAX package) operation for operation: theta carried
@@ -36,11 +40,35 @@ _TINY = 1e-30
 # the kernel's variants by its RT template argument
 VARIANTS = ("march_f32", "march_f32 RT=emission",
             "march_f32 RT=emission+absorption")
+# the same variants run as one launch over the whole march
+ONE_LAUNCH = tuple(f"{v} one-launch" for v in VARIANTS)
 
-# kernel launches made on CUDA tensors, by variant
-LAUNCHES = dict.fromkeys(VARIANTS, 0)
+# kernel launches made on CUDA tensors, by variant and schedule
+LAUNCHES = dict.fromkeys(VARIANTS + ONE_LAUNCH, 0)
+
+# the counters of the last march on the card, (2 + launches,) int64 on the
+# device: lane-trips, warp-trips, then the rays each launch appended
+LAST_STATS = None
 
 _LIB = None
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_GAUSS = [_F] * 6 + [_I]                  # GaussianSource.params()
+# (argtypes, restype) of the library's extern "C" functions (csrc/march.cu)
+SIGNATURES = {
+    "sim5_march_f32": (
+        [_I] * 4                          # gr, pol, rt, seg
+        + [_P] * 5                        # x, k, f, kt, active0
+        + [_P] * 8                        # xo, ko, fo, kto, erro, stepso, acto, Io
+        + [_P] * 5                        # lv_in, li_in, lv_out, li_out, stats
+        + [ctypes.c_longlong]             # n
+        + [_F] * 6                        # a, eps0, r_min, r_max, error_stop, error_gate
+        + [_I, _F]                        # max_steps, max_step_dl
+        + _GAUSS + _GAUSS                 # emissivity, absorption
+        + [_P],                           # stream
+        _I),
+    "sim5_march_config": ([_P], None),
+    "sim5_march_attributes": ([_I] * 3 + [_P], _I),
+}
 
 
 def _accel_components(opt_gr, a, r, m, U, V):
@@ -211,35 +239,74 @@ def march_reference(x, k, f, kt, active0, a, eps0, r_min, r_max, error_stop,
             active, I if rt else None)
 
 
+def _declare(lib):
+    """`lib` with the signatures of SIGNATURES declared."""
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib
+
+
 def _lib():
-    """The built march library, with its launcher's signature declared."""
+    """The built march library, with its functions' signatures declared."""
     global _LIB
     if _LIB is None:
         from .._build import load
-        lib = load("march")
-        p = ctypes.c_void_p
-        gauss = [ctypes.c_float] * 6 + [ctypes.c_int]  # GaussianSource.params()
-        lib.sim5_march_f32.argtypes = (
-            [ctypes.c_int] * 3                    # gr, pol, rt
-            + [p] * 5                             # x, k, f, kt, active0
-            + [p] * 8                             # xo, ko, fo, kto, erro, stepso, acto, Io
-            + [ctypes.c_longlong]                 # n
-            + [ctypes.c_float] * 6                # a, eps0, r_min, r_max, error_stop, error_gate
-            + [ctypes.c_int, ctypes.c_float]      # max_steps, max_step_dl
-            + gauss + gauss                       # emissivity, absorption
-            + [p])                                # stream
-        lib.sim5_march_f32.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = _declare(load("march"))
     return _LIB
 
 
-def _march_cuda(x, k, f, kt, active0, a, eps0, r_min, r_max, error_stop,
-                error_gate, opt_gr=True, opt_pol=False, max_steps=10000,
-                max_step_dl=1e9, emissivity=None, absorption=None):
-    """Launch `march_f32<opt_gr, opt_pol, rt>` on the current stream.
+def kernel_config():
+    """The kernel's compile-time choices: threads a block, trips a segment
+    (`seg_trips`) and floats a list entry."""
+    out = (ctypes.c_int * 3)()
+    _lib().sim5_march_config(out)
+    return dict(threads=out[0], seg_trips=out[1], list_floats=out[2])
 
-    Same arguments and results as `march_reference`.
+
+def kernel_attributes(opt_gr, opt_pol, rt):
+    """Registers a thread, local memory a thread (bytes) and resident
+    blocks an SM of `march_f32<opt_gr, opt_pol, rt>` on the current card."""
+    out = (ctypes.c_int * 3)()
+    rc = _lib().sim5_march_attributes(int(opt_gr), int(opt_pol), rt, out)
+    if rc != 0:
+        raise RuntimeError(f"march_f32 attributes: cudaError {rc}")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2])
+
+
+def march_counters():
+    """(lane_trips, warp_trips, appended) of the last march on the card:
+    the live lanes of a warp summed over its trips, the trips the warps
+    issued, and the rays each launch appended to the next list.  Lane use
+    is lane_trips / (32 warp_trips); lane_trips is the sum of the steps.
+    Reads the device."""
+    stats = LAST_STATS.tolist()
+    return stats[0], stats[1], stats[2:]
+
+
+def _march_cuda(*args, events=None, **kw):
+    """The segmented march on CUDA tensors, on the current stream.
+
+    Same arguments and results as `march_reference`.  `events`, if a list,
+    receives a CUDA event recorded before the first launch and one after
+    each launch.
     """
+    return _march(False, *args, events=events, **kw)
+
+
+def _march_cuda_one_launch(*args, **kw):
+    """The same march in one launch, every ray to its end (the first
+    version's schedule); `chip_smoke.py` times it against `_march_cuda`."""
+    return _march(True, *args, **kw)
+
+
+def _march(one_launch, x, k, f, kt, active0, a, eps0, r_min, r_max,
+           error_stop, error_gate, opt_gr=True, opt_pol=False,
+           max_steps=10000, max_step_dl=1e9, emissivity=None,
+           absorption=None, events=None):
+    """Launch `march_f32<opt_gr, opt_pol, rt>`: in segments with the live
+    rays compacted between them, or as one launch."""
+    global LAST_STATS
     rt = rt_mode(emissivity, absorption)
     n = kt.shape[0]
     dev = x.device
@@ -257,29 +324,54 @@ def _march_cuda(x, k, f, kt, active0, a, eps0, r_min, r_max, error_stop,
             raise ValueError(f"{name} is not contiguous")
     if n == 0:
         raise ValueError("empty ray batch")
+    if n >= 2 ** 31:
+        raise ValueError("the kernel indexes rays with an int32")
     if max_steps >= 2 ** 31:
         raise ValueError("max_steps does not fit an int32")
+    lib = _lib()
+    cfg = kernel_config()
+    launches = 1 if one_launch else max(1, -(-max_steps // cfg["seg_trips"]))
     xo, ko, fo = (torch.empty_like(x) for _ in range(3))
     kto, erro = torch.empty_like(kt), torch.empty_like(kt)
     stepso = torch.empty(n, dtype=torch.int32, device=dev)
     acto = torch.empty(n, dtype=torch.bool, device=dev)
     Io = torch.empty_like(kt) if rt else None
+    stats = torch.zeros(2 + launches, dtype=torch.int64, device=dev)
+    if not one_launch:   # the two ping-pong lists of live rays
+        lv = torch.empty((2, cfg["list_floats"], n), dtype=torch.float32,
+                         device=dev)
+        li = torch.empty((2, 2, n), dtype=torch.int32, device=dev)
     unused = GaussianSource(amp=0.0)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().sim5_march_f32(
-        int(opt_gr), int(opt_pol), rt,
-        x.data_ptr(), k.data_ptr(), f.data_ptr(), kt.data_ptr(),
-        active0.data_ptr(),
-        xo.data_ptr(), ko.data_ptr(), fo.data_ptr(), kto.data_ptr(),
-        erro.data_ptr(), stepso.data_ptr(), acto.data_ptr(),
-        Io.data_ptr() if rt else None,
-        n, a, eps0, r_min, r_max, error_stop, error_gate,
-        int(max_steps), max_step_dl,
-        *(emissivity or unused).params(), *(absorption or unused).params(),
-        stream)
-    if rc != 0:
-        raise RuntimeError(f"{VARIANTS[rt]} launch failed: cudaError {rc}")
-    LAUNCHES[VARIANTS[rt]] += 1
+    scalars = (n, a, eps0, r_min, r_max, error_stop, error_gate,
+               int(max_steps), max_step_dl,
+               *(emissivity or unused).params(),
+               *(absorption or unused).params(),
+               torch.cuda.current_stream(dev).cuda_stream)
+    ptrs = [t.data_ptr() for t in (x, k, f, kt, active0, xo, ko, fo, kto,
+                                   erro, stepso, acto)]
+    ptrs.append(Io.data_ptr() if rt else None)
+    name = (ONE_LAUNCH if one_launch else VARIANTS)[rt]
+
+    def record():
+        if events is not None:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+    record()
+    for seg in range(launches):
+        if one_launch:
+            seg, lists = -1, (None, None, None, None)
+        else:
+            src, dst = (seg - 1) % 2, seg % 2
+            lists = (lv[src].data_ptr(), li[src].data_ptr(),
+                     lv[dst].data_ptr(), li[dst].data_ptr())
+        rc = lib.sim5_march_f32(int(opt_gr), int(opt_pol), rt, seg, *ptrs,
+                                *lists, stats.data_ptr(), *scalars)
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+        LAUNCHES[name] += 1
+        record()
+    LAST_STATS = stats
     return xo, ko, fo, kto, erro, stepso, acto, Io
 
 
@@ -340,8 +432,8 @@ def raytrace_kernel(state, r_max=1e4, max_steps=10000, error_stop=1e-2,
     """f32 kernel equivalent of `raytrace(state, ...)`, the counterpart of
     `raytrace_pallas`.
 
-    Marches every ray to termination in one kernel launch and returns
-    (final RaytraceState, still_active mask) like `raytrace`.  CUDA tensors
+    Marches every ray to termination and returns (final RaytraceState,
+    still_active mask) like `raytrace`.  CUDA tensors
     go to the CUDA kernel (or raise); CPU tensors go to `march_reference`.
     `active0` (optional, bool per ray) starts masked rays inactive.
 
