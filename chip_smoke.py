@@ -1,49 +1,64 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port on one GPU: the stepwise Kerr ray march
-and volume radiative transfer.
+"""Drive the PyTorch / CUDA port on one GPU: the stepwise Kerr ray march,
+volume radiative transfer and the Novikov-Thorne disk image.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-The march kernel (`sim5_tpu_torch/csrc/march.cu`, all its variants) is
-built into `build/` on first use.  Every main path runs it in segments,
-with the live rays compacted between them; the one-launch schedule of the
-first version (`kernel_march._march_cuda_one_launch`) runs only in the A/B
-timings of phases 5 and 9.  Phases, one line each:
+The march kernel (`sim5_tpu_torch/csrc/march.cu`, all its variants, run
+in segments with the live rays compacted between them) and the disk image
+kernel (`sim5_tpu_torch/csrc/disk_image.cu`, f64 and f32) are built into
+`build/` on first use, both at once.  Phases, one line each:
 
-1. device: the card's name and power limit, the kernel build, its
-   compile-time choices, registers, spills and resident blocks, and its
-   SASS instruction counts where `cuobjdump` is there;
+1. device: the card's name and power limit, the two builds, the march
+   kernel's compile-time choices, registers, spills and resident blocks of
+   every main-path instance, and the march kernel's SASS instruction
+   counts where `cuobjdump` is there;
 2. kernel vs its plain torch version on 4096 rays (GR, GR+POL, flat at
    a = 0.3 and 0.9);
 3. the march's main path, 131072 rays at a = 0.9 to r = 500, through
    raytrace_prepare -> raytrace_kernel -> raytrace_error, with the
-   reference's Carter-drift gates, the launch counts (the one-launch
-   schedule's stay 0) and the lane counters (lane-trips == sum of steps);
+   reference's Carter-drift gates, the launch counts and the lane
+   counters (lane-trips == sum of steps);
 4. the f64 torch engine on 16384 rays of the same workload, same gates;
-5. the two schedules in turns at 131072 rays (one-launch, segmented,
-   segmented, one-launch, ...; the minimum of each): ms, ray-steps/s, lane
-   use and the bound, with every output bitwise equal between them and
-   between two segmented runs; the time of each segment; the plain
-   version once;
+5. the march timed at 131072 rays (CUDA events, the minimum of
+   TIMED_RUNS): ms, ray-steps/s, lane use and the bound, every run bitwise
+   equal to the first; the time of each segment; the plain version once;
 6. the transfer variants vs their plain version on the volume seed of
    64^2 pixels (example 11's torus, thin and thick);
 7. the volume path's main path: volume_image(engine="kernel") at 512^2
    for alpha0 = 0 and 1, with the launch counts and the image gates;
 8. the kernel route against the f64 loop engine at 128^2;
-9. phase 5's A/B and gates for the transfer variants at 512^2, thin and
-   thick, and their plain version once.
+9. phase 5's timing and gates for the transfer variants at 512^2, thin
+   and thick, and their plain version once;
+10. the disk image against the C goldens on the card (128^2, a = 0 and
+    0.998): the f64 kernel and the f64 plain version, each within 1e-6 of
+    the peak with the golden's footprint (ondevice_f64_err_a0 / a998);
+11. the disk image's main path, bench.py's headline frame (512^2, a =
+    0.998, i = 80 deg, M = 10, mdot = 0.1, alpha = 0.1) through nt_setup ->
+    render_disk_image in f64 and f32: the f64 kernel against the f64 plain
+    version (1e-9 of the peak), the f32 kernel and the f32 plain version
+    against the f64 plain version (4e-6 of the peak, footprint mismatch
+    <= 1e-5 of the pixels: fast_path_err_vs_f64), one launch of each
+    instance;
+12. the disk image timed: one 512^2 frame of each instance (CUDA events,
+    the minimum of IMAGE_RUNS; device_ms_per_frame is the f32 one), a
+    64-frame f32 spin sweep through nt_setup -> render_disk_image on the
+    host clock (frames/s, rays/s, one build for all spins), the plain
+    versions once, and the bound.
 
-Then one JSON line on the kernels (both schedules), the card's name and
-power limit, and the result as the last line.  Any failed check exits
-non-zero.  The script needs a CUDA device and imports nothing of JAX.
+Then one JSON line on the kernels, the card's name and power limit, and
+the result as the last line.  Any failed check exits non-zero.  The script
+needs a CUDA device and imports nothing of JAX.
 """
 
 import contextlib
+import concurrent.futures
 import json
 import math
 import os
+import pathlib
 import re
 import shutil
 import subprocess
@@ -67,7 +82,13 @@ N_VOL_PIX = 512
 N_VOL_CMP = 64
 N_VOL_LOOP = 128
 ALPHA0 = (0.0, 1.0)
-AB_ROUNDS = 3            # rounds of one-launch, segmented, segmented, one-launch
+TIMED_RUNS = 6           # timed runs of each march (the minimum is kept)
+# bench.py's headline frame (bench.py:293-295) and its spin sweep
+NT = dict(M=10.0, a=0.998, mdot=0.1, alpha=0.1, incl=math.radians(80.0))
+N_IMAGE = 512
+N_GOLDEN = 128
+N_SWEEP = 64             # frames of the spin sweep, a = 0.998 - 2e-4 k
+IMAGE_RUNS = 10          # timed frames of each image instance
 
 # The least time of a march (bound_ms): FP32 operations per trial step,
 # counted from csrc/march.cu for the GR, no-polarization instance, a
@@ -86,7 +107,22 @@ OPS_RT = (0, 19 + 2, 2 * 19 + 13)
 # out; and I out with transfer
 BYTES_RAY = 4 * 13 + 1 + 4 * 15 + 1
 H100_FP32 = 67e12        # FP32 FLOP/s outside the tensor cores, 700 W
+H100_FP64 = 34e12        # FP64 FLOP/s outside the tensor cores, 700 W
 H100_BYTES = 3.35e12     # HBM3 bytes/s
+
+# The least time of a disk image frame: operations per pixel counted from
+# csrc/analytic.cuh on the cheapest pixel's path (a four-complex-root ray
+# whose order-0 crossing does not exist), each +, -, *, / and each sqrt,
+# sin, cos, acos, pow, frexp as one (comparisons, selects, abs and
+# negation not counted): the grid 12, init_inf's own 29, T_roots 22, the
+# quartic's coefficients 9, the quartic 117 (f32: + 14 for the rescale),
+# the polish of four complex roots 4 x 78, the CC branch 41, two RF (231
+# f64 with 16 duplications, 114 f32 with 7), two K AGMs (40 f64, 32 f32)
+# and the crossing 5.
+OPS_PIXEL_BASE = 12 + 29 + 22 + 9 + 117 + 4 * 78 + 41 + 5
+OPS_PIXEL = {torch.float64: OPS_PIXEL_BASE + 2 * 231 + 2 * 40,
+             torch.float32: OPS_PIXEL_BASE + 14 + 2 * 114 + 2 * 32}
+PEAK = {torch.float64: H100_FP64, torch.float32: H100_FP32}
 
 
 class PhaseFailed(Exception):
@@ -157,18 +193,23 @@ def compare(st_k, st_p, pol):
 INSTANCE = re.compile(r"march_f32ILb([01])ELb([01])ELi([0-9])E")
 
 
-def ptxas_summary(log):
-    """'GR=.. POL=.. RT=..: N regs, stack frame and spills' per kernel
-    instance, from the compiler's -Xptxas -v report kept beside the
-    library."""
+def march_label(m):
+    return f"GR={m[1]} POL={m[2]} RT={m[3]}"
+
+
+def ptxas_summary(log, instance=INSTANCE, label=march_label):
+    """'<label>: N regs, stack frame and spills' per kernel instance (the
+    march's by default), from the compiler's -Xptxas -v report kept beside
+    the library."""
     if not os.path.exists(log):
         return "no report (library was cached without its log)"
     out, kernel, spill = [], None, ""
     for ln in open(log).read().splitlines():
-        entry = INSTANCE.search(ln) if "Compiling entry function" in ln else None
+        entry = (instance.search(ln) if "Compiling entry function" in ln
+                 else None)
         regs = re.search(r"Used (\d+) registers", ln)
         if entry:
-            kernel = f"GR={entry[1]} POL={entry[2]} RT={entry[3]}"
+            kernel = label(entry)
         elif "spill" in ln and kernel:
             spill = ln.strip()
         elif regs and kernel:
@@ -253,32 +294,26 @@ def check_counters(tag, counters, steps):
           f"{appended[-1]} rays")
 
 
-def ab_timing(tensors, kw):
-    """The one-launch and segmented schedules on the same inputs, in turns
-    on one card: one warm-up each, then AB_ROUNDS of one-launch, segmented,
-    segmented, one-launch, each timed by CUDA events.  Returns {schedule:
-    (min ms, outputs of its first timed run, lane counters)} and whether
-    every run of both schedules gave bitwise the outputs of the first."""
+def march_timing(tensors, kw):
+    """The segmented march on the same inputs: one warm-up, then
+    TIMED_RUNS runs, each timed by CUDA events.  Returns (min ms, outputs
+    of the first timed run, its lane counters) and whether every run gave
+    bitwise the outputs of the first."""
     from sim5_tpu_torch.march import kernel_march
-    fns = {"one-launch": kernel_march._march_cuda_one_launch,
-           "segmented": kernel_march._march_cuda}
-    for fn in fns.values():
-        fn(*tensors, **kw)
-    best, first, counters, same = {}, {}, {}, True
-    for _ in range(AB_ROUNDS):
-        for name in ("one-launch", "segmented", "segmented", "one-launch"):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            outs = fns[name](*tensors, **kw)
-            e1.record()
-            torch.cuda.synchronize()
-            best[name] = min(best.get(name, float("inf")), e0.elapsed_time(e1))
-            counters.setdefault(name, kernel_march.march_counters())
-            if name not in first:
-                first[name] = outs
-            same = same and same_bits(outs, first["one-launch"])
-    return ({k: (best[k], first[k], counters[k]) for k in fns}, same)
+    kernel_march._march_cuda(*tensors, **kw)
+    best, first, counters, same = float("inf"), None, None, True
+    for _ in range(TIMED_RUNS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        outs = kernel_march._march_cuda(*tensors, **kw)
+        e1.record()
+        torch.cuda.synchronize()
+        best = min(best, e0.elapsed_time(e1))
+        if first is None:
+            first, counters = outs, kernel_march.march_counters()
+        same = same and same_bits(outs, first)
+    return (best, first, counters), same
 
 
 def segment_profile(tensors, kw, resident_lanes):
@@ -321,20 +356,43 @@ def instance_text(rt):
             f"bytes local, {att['blocks_per_sm']} blocks an SM")
 
 
+# nt_image<T> in a mangled name (T = d for double, f for float)
+IMAGE_INSTANCE = re.compile(r"nt_imageI([df])E")
+
+
+def image_label(m):
+    return "nt_image<" + ("double" if m[1] == "d" else "float") + ">"
+
+
 def phase_device():
     from sim5_tpu_torch._build import BUILDS
     from sim5_tpu_torch.march import kernel_march
+    from sim5_tpu_torch.render import kernel_image
     name = card()
-    kernel_march._lib()
-    b = BUILDS["march"]
+    # one nvcc for each source, both started together
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(kernel_march._lib),
+                    pool.submit(kernel_image._lib)]:
+            fut.result()
+    build_s = time.perf_counter() - t0
+    b, bi = BUILDS["march"], BUILDS["disk_image"]
     cfg = kernel_march.kernel_config()
+    image_att = "; ".join(
+        f"{kernel_image.VARIANTS[dt]}: {att['registers']} registers, "
+        f"{att['local_bytes']} bytes local, {att['blocks_per_sm']} blocks an "
+        f"SM" for dt, att in ((dt, kernel_image.kernel_attributes(dt))
+                              for dt in kernel_image.VARIANTS))
     print(f"phase 1 device: {name} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | march build {b['seconds']:.2f} s "
-          f"cached={b['cached']} | {cfg} | "
+          f"{torch.version.cuda} | builds {build_s:.2f} s together: march "
+          f"{b['seconds']:.2f} s cached={b['cached']}, disk_image "
+          f"{bi['seconds']:.2f} s cached={bi['cached']} | {cfg} | "
           + "; ".join(instance_text(rt) for rt in range(3))
           + f" | ptxas: {ptxas_summary(b['log'])} | SASS (static): "
           + "; ".join(sass_summary(sass_counts(b["path"]), (1, 0, rt))
-                      for rt in range(3)), flush=True)
+                      for rt in range(3))
+          + f" | image: {image_att} | image ptxas: "
+          + ptxas_summary(bi["log"], IMAGE_INSTANCE, image_label), flush=True)
     return name
 
 
@@ -407,8 +465,6 @@ def phase_main(dev):
     counts = dict(kernel_march.LAUNCHES)
     launches = counts["march_f32"]
     check(launches >= 1, "main path launched the march kernel 0 times")
-    check(not any(counts[v] for v in kernel_march.ONE_LAUNCH),
-          f"main path launched the one-launch schedule: {counts}")
     counters = kernel_march.march_counters()
     check_counters("main path", counters, st.steps)
     g = drift_gates("main path", st, act, MAIN["r_max"], raytrace_error)
@@ -439,45 +495,42 @@ def phase_f64(dev):
     return g
 
 
-def ab_report(tag, n, rt, ab, same, plain_outs, plain_ms, compare_fn):
-    """Gate and describe one A/B timing: returns (text, {schedule: row})."""
-    check(same, f"{tag}: the segmented and one-launch schedules (or two "
-          f"runs of one) are not bitwise equal")
-    parts, rows = [], {}
-    for sched, (ms, outs, counters) in ab.items():
-        check_counters(f"{tag} {sched}", counters, outs[5])
-        ray_steps = int(outs[5].long().sum())
-        bound_ms, bound_by = march_bound(n, ray_steps, rt)
-        err = compare_fn(outs, plain_outs)
-        rows[sched] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                           bound_ms=bound_ms, bound_by=bound_by)
-        parts.append(f"{sched} {ms:.3f} ms {ray_steps / (ms * 1e-3):.4e} "
-                     f"ray-steps/s lane use {lane_use(counters):.4f} "
-                     f"({bound_ms / ms:.3f} of bound)")
-    text = (" | ".join(parts) + f" | segmented/one-launch "
-            f"{ab['segmented'][0] / ab['one-launch'][0]:.4f} | bound "
-            f"{rows['segmented']['bound_ms']:.3f} ms "
-            f"({rows['segmented']['bound_by']}) | all {4 * AB_ROUNDS} timed "
-            f"runs bitwise equal, steps equal on every ray | plain "
+def timing_report(tag, n, rt, timing, same, plain_outs, plain_ms,
+                  compare_fn):
+    """Gate and describe one march timing: returns (text, row)."""
+    check(same, f"{tag}: two runs of the segmented march are not bitwise "
+          f"equal")
+    ms, outs, counters = timing
+    check_counters(tag, counters, outs[5])
+    ray_steps = int(outs[5].long().sum())
+    bound_ms, bound_by = march_bound(n, ray_steps, rt)
+    row = dict(ms=ms, plain_ms=plain_ms, max_abs_err=compare_fn(outs,
+                                                                plain_outs),
+               bound_ms=bound_ms, bound_by=bound_by)
+    text = (f"segmented {ms:.3f} ms (min of {TIMED_RUNS}) "
+            f"{ray_steps / (ms * 1e-3):.4e} ray-steps/s lane use "
+            f"{lane_use(counters):.4f} ({bound_ms / ms:.3f} of bound) | bound "
+            f"{bound_ms:.3f} ms ({bound_by}) | all {TIMED_RUNS} timed runs "
+            f"bitwise equal, steps equal on every ray | plain "
             f"{plain_ms:.3f} ms")
-    return text, rows
+    return text, row
 
 
 def phase_timing(dev, name):
-    """The two schedules in turns (CUDA events, min of AB_ROUNDS x 2 each)
-    and the plain version once (it is host-launch-bound and takes tens of
-    seconds) on the main path's packed inputs.  Holds the schedules
-    bitwise equal and the kernel against the plain version."""
+    """The segmented march (CUDA events, min of TIMED_RUNS) and the plain
+    version once (it is host-launch-bound and takes tens of seconds) on
+    the main path's packed inputs.  Holds the runs bitwise equal and the
+    kernel against the plain version."""
     from sim5_tpu_torch.march import raytrace_prepare, kernel_march
     x, k, _ = zamo_rays(N_MAIN, MAIN["a"], SEED_MAIN, torch.float32, dev,
                         outward=1.0)
     st0 = raytrace_prepare(MAIN["a"], x, k, precision=MAIN["precision"])
     tensors, scalars = kernel_march._pack(st0, MAIN["r_max"],
                                           MAIN["max_steps"], 1e-2, None)
-    ab, same = ab_timing(tensors, scalars)
+    timing, same = march_timing(tensors, scalars)
     ms_p, out_p = timed(kernel_march.march_reference, tensors, scalars)
     st_p, _ = kernel_march._unpack(st0, out_p)
-    st_k, _ = kernel_march._unpack(st0, ab["segmented"][1])
+    st_k, _ = kernel_march._unpack(st0, timing[1])
     eq, rel, _, _, _ = compare(st_k, st_p, False)
     check(eq > 0.9, f"main shape: equal steps on only {eq:.4f} of rays")
     check(rel < 1e-3, f"main shape: relative dr {rel:.3e} >= 1e-3")
@@ -485,13 +538,13 @@ def phase_timing(dev, name):
     def max_dr(outs, plain):
         return compare(kernel_march._unpack(st0, outs)[0], st_p, False)[4]
 
-    text, rows = ab_report("main shape", N_MAIN, 0, ab, same, out_p, ms_p,
-                           max_dr)
+    text, row = timing_report("main shape", N_MAIN, 0, timing, same, out_p,
+                              ms_p, max_dr)
     segs = segment_profile(tensors, scalars, resident_lanes(0))
     print(f"phase 5 timing ({N_MAIN} rays f32, a=0.9, r_max 500; {name}): "
           f"{text} | kernel vs plain: equal steps {eq:.4f} rel dr "
           f"{rel:.3e} | segments: {segs}", flush=True)
-    return rows
+    return row
 
 
 def timed(fn, tensors, scalars):
@@ -616,12 +669,7 @@ def phase_volume_main(dev):
         variant = kernel_march.VARIANTS[1 if alpha0 == 0.0 else 2]
         check(counts[variant] >= 1,
               f"alpha0={alpha0}: the image launched {variant} 0 times")
-        check(not any(counts[v] for v in kernel_march.ONE_LAUNCH),
-              f"alpha0={alpha0}: the image launched the one-launch "
-              f"schedule: {counts}")
         launches[variant] = counts[variant]
-        for v in kernel_march.ONE_LAUNCH:
-            launches[v] = launches.get(v, 0) + counts[v]
         # the seed alone, warm, on the host clock
         t0 = time.perf_counter()
         lightcurve._volume_seed(
@@ -703,7 +751,7 @@ def phase_volume_loop(dev):
 
 
 def phase_volume_timing(dev, name):
-    """Phase 5's A/B for the transfer variants at 512^2, on the packed
+    """Phase 5's timing for the transfer variants at 512^2, on the packed
     inputs of the volume main path, and their plain version once."""
     from sim5_tpu_torch.march import kernel_march
     st0, ok = volume_seed_f32(N_VOL_PIX, dev)
@@ -715,9 +763,9 @@ def phase_volume_timing(dev, name):
         rt = 1 if alpha0 == 0.0 else 2
         tag = f"512^2 alpha0={alpha0}"
         kw = dict(scalars, emissivity=torus(), absorption=torus(alpha0))
-        ab, same = ab_timing(tensors, kw)
+        timing, same = march_timing(tensors, kw)
         ms_p, out_p = timed(kernel_march.march_reference, tensors, kw)
-        eq, rel, dI, peak = compare_transfer(ab["segmented"][1], out_p, st0)
+        eq, rel, dI, peak = compare_transfer(timing[1], out_p, st0)
         check(eq > 0.9, f"{tag}: equal steps {eq:.4f}")
         check(dI <= 1e-3 * peak, f"{tag}: |dI| {dI:.3e} > 1e-3 of peak "
               f"{peak:.4e}")
@@ -725,9 +773,10 @@ def phase_volume_timing(dev, name):
         def max_dI(outs, plain):
             return compare_transfer(outs, plain, st0)[2]
 
-        text, rows = ab_report(tag, n, rt, ab, same, out_p, ms_p, max_dI)
-        out[rt] = rows
-        steps = ab["segmented"][1][5]
+        text, row = timing_report(tag, n, rt, timing, same, out_p, ms_p,
+                                  max_dI)
+        out[rt] = row
+        steps = timing[1][5]
         parts.append(
             f"alpha0={alpha0}: {text} | ray-steps {int(steps.long().sum())} "
             f"(mean {float(steps.double().mean()):.1f}, max "
@@ -737,6 +786,198 @@ def phase_volume_timing(dev, name):
     print(f"phase 9 transfer timing ({N_VOL_PIX}^2 rays f32; {name}): "
           + " | ".join(parts), flush=True)
     return out
+
+
+def nt_disk(dtype, dev, a=NT["a"]):
+    """nt_setup of the headline frame's disk (spin `a`), in `dtype` on the
+    card, from scalars filled on the device (no host copy)."""
+    from sim5_tpu_torch.disk import nt_setup
+    return nt_setup(*(torch.full((), v, dtype=dtype, device=dev)
+                      for v in (NT["M"], a, NT["mdot"], NT["alpha"])))
+
+
+def image_err(got, want):
+    """(max |got - want| over the pixels both hit / peak of want, footprint
+    mismatches, max |got - want| over those pixels) of two images."""
+    got, want = got.double(), want.double()
+    both = (got > 0) & (want > 0)
+    diff = (got - want).abs()[both]
+    d = float(diff.max()) if diff.numel() else 0.0
+    return d / float(want.max()), int(((got > 0) != (want > 0)).sum()), d
+
+
+def check_image(tag, imf, img, npix):
+    check(tuple(imf.shape) == (npix, npix) == tuple(img.shape),
+          f"{tag}: image shape {tuple(imf.shape)}")
+    check(bool(torch.isfinite(imf).all() and torch.isfinite(img).all()),
+          f"{tag}: non-finite pixels")
+    check(bool((imf >= 0).all() and (img >= 0).all()),
+          f"{tag}: negative pixels")
+    check(float(imf.max()) > 0.0, f"{tag}: dark image")
+
+
+def phase_image_golden(dev):
+    """The f64 kernel and the f64 plain version on the card against the C
+    goldens at 128^2: 1e-6 of the peak with the golden's footprint."""
+    from sim5_tpu_torch.render import kernel_image, render_disk_image
+    from sim5_tpu_torch.render.image import render_disk_image_reference
+    golden = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
+    kernel_image.LAUNCHES.update(dict.fromkeys(kernel_image.LAUNCHES, 0))
+    errs, parts = {}, []
+    for tag, fname, a, inc in (("a0", "image128_a0.txt", 0.0, 60.0),
+                               ("a998", "image128_a998.txt", 0.998, 80.0)):
+        d = np.loadtxt(golden / fname)
+        ref = torch.as_tensor(d[:, 2].reshape(N_GOLDEN, N_GOLDEN))
+        disk = nt_disk(torch.float64, dev, a=a)
+        for route, fn in (("kernel", render_disk_image),
+                          ("plain", render_disk_image_reference)):
+            imf, img = fn(disk, math.radians(inc), N_GOLDEN, N_GOLDEN)
+            check_image(f"{tag} {route}", imf, img, N_GOLDEN)
+            imf = imf.cpu()
+            err = float((imf - ref).abs().max() / ref.max())
+            mismatch = int(((imf > 0) != (ref > 0)).sum())
+            check(err <= 1e-6, f"golden {tag} {route}: {err:.3e} of peak > "
+                  f"1e-6")
+            check(mismatch == 0, f"golden {tag} {route}: footprint differs "
+                  f"on {mismatch} pixels")
+            if route == "kernel":
+                errs[tag] = err
+            parts.append(f"{tag} {route} {err:.3e}")
+    counts = dict(kernel_image.LAUNCHES)
+    check(counts == {"nt_image<double>": 2, "nt_image<float>": 0},
+          f"golden renders launched {counts}, not 2 f64 kernel launches")
+    print(f"phase 10 disk image vs C goldens ({N_GOLDEN}^2 f64 on the card; "
+          f"gate 1e-6 of peak, identical footprint): "
+          + " | ".join(parts) + f" | ondevice_f64_err_a0={errs['a0']:.3e} "
+          f"ondevice_f64_err_a998={errs['a998']:.3e} | LAUNCHES={counts}",
+          flush=True)
+    return errs
+
+
+def phase_image_main(dev):
+    """The disk image's main path: the headline frame through nt_setup ->
+    render_disk_image in f64 and f32, held against the plain version."""
+    from sim5_tpu_torch.render import kernel_image, render_disk_image
+    from sim5_tpu_torch.render.image import render_disk_image_reference
+    npix, n = N_IMAGE, N_IMAGE * N_IMAGE
+    kernel_image.LAUNCHES.update(dict.fromkeys(kernel_image.LAUNCHES, 0))
+    t0 = time.perf_counter()
+    kern = {dt: render_disk_image(nt_disk(dt, dev), NT["incl"], npix, npix)
+            for dt in (torch.float64, torch.float32)}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernel_image.LAUNCHES)
+    check(counts == {"nt_image<double>": 1, "nt_image<float>": 1},
+          f"the main path launched {counts}, not each instance once")
+    plain = {dt: render_disk_image_reference(nt_disk(dt, dev), NT["incl"],
+                                             npix, npix)
+             for dt in (torch.float64, torch.float32)}
+    torch.cuda.synchronize()
+    for dt in kern:
+        check_image(f"kernel {dt}", *kern[dt], npix)
+        check_image(f"plain {dt}", *plain[dt], npix)
+        check(kern[dt][0].dtype == dt, f"kernel image is {kern[dt][0].dtype}")
+    f64p, g64p = plain[torch.float64]
+    err_f, mis_f, _ = image_err(kern[torch.float64][0], f64p)
+    err_g, mis_g, _ = image_err(kern[torch.float64][1], g64p)
+    check(err_f <= 1e-9 and err_g <= 1e-9, f"f64 kernel vs plain: image_f "
+          f"{err_f:.3e}, image_g {err_g:.3e} of peak > 1e-9")
+    check(mis_f <= 1e-5 * n, f"f64 kernel vs plain: footprint differs on "
+          f"{mis_f} pixels")
+    fast_k, mis_k, _ = image_err(kern[torch.float32][0], f64p)
+    fast_p, mis_p, _ = image_err(plain[torch.float32][0], f64p)
+    for tag, err, mis in (("f32 kernel", fast_k, mis_k),
+                          ("f32 plain", fast_p, mis_p)):
+        check(err <= 4e-6, f"{tag} vs f64 plain: {err:.3e} of peak > 4e-6")
+        check(mis <= 1e-5 * n, f"{tag} vs f64 plain: footprint differs on "
+              f"{mis} pixels > 1e-5 of {n}")
+    # each kernel against its own plain version (the kernels line)
+    errs = {dt: image_err(kern[dt][0], plain[dt][0])
+            for dt in (torch.float64, torch.float32)}
+    hit = float((f64p > 0).double().mean())
+    print(f"phase 11 disk image main path ({npix}^2, a={NT['a']}, incl 80, "
+          f"M={NT['M']}, mdot={NT['mdot']}, alpha={NT['alpha']}; "
+          f"LAUNCHES={counts}, both frames {wall:.3f} s host clock incl. "
+          f"nt_setup): f64 kernel vs f64 plain image_f {err_f:.3e} image_g "
+          f"{err_g:.3e} of peak, footprint mismatch {mis_f} (gates 1e-9, "
+          f"{1e-5 * n:.2f}) | fast_path_err_vs_f64={fast_k:.3e} (f32 kernel, "
+          f"footprint mismatch {mis_k}) | f32 plain vs f64 plain {fast_p:.3e} "
+          f"(mismatch {mis_p}) (gates 4e-6, {1e-5 * n:.2f}) | f32 kernel vs "
+          f"f32 plain {errs[torch.float32][0]:.3e} of peak (mismatch "
+          f"{errs[torch.float32][1]}) | hit share {hit:.4f} peak "
+          f"{float(f64p.max()):.6e} flux {float(f64p.sum()):.6e}",
+          flush=True)
+    return counts, {dt: e[2] for dt, e in errs.items()}, fast_k
+
+
+def image_bound(dtype, npix):
+    """(bound_ms, bound_by) of one npix^2 frame: operations per pixel on
+    the cheapest pixel's path over the peak rate of the type, or the bytes
+    (two images written, six scalars read) over the memory rate."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    t_ops = npix * npix * OPS_PIXEL[dtype] / PEAK[dtype]
+    t_bytes = (2 * npix * npix + 6) * item / H100_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_image_timing(dev, name, errs):
+    """One frame of each instance (CUDA events, min of IMAGE_RUNS), the
+    f32 spin sweep through the entry points on the host clock, the plain
+    versions once, and the bound."""
+    from sim5_tpu_torch import _build
+    from sim5_tpu_torch.render import kernel_image, render_disk_image
+    from sim5_tpu_torch.render.image import render_disk_image_reference
+    npix, rows, parts = N_IMAGE, {}, []
+    for dt in (torch.float64, torch.float32):
+        disk = nt_disk(dt, dev)
+        render_disk_image(disk, NT["incl"], npix, npix)   # warm-up
+        best = float("inf")
+        for _ in range(IMAGE_RUNS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            render_disk_image(disk, NT["incl"], npix, npix)
+            e1.record()
+            torch.cuda.synchronize()
+            best = min(best, e0.elapsed_time(e1))
+        plain_ms, _ = timed(render_disk_image_reference, (disk, NT["incl"],
+                                                          npix, npix), {})
+        bound_ms, bound_by = image_bound(dt, npix)
+        name_k = kernel_image.VARIANTS[dt]
+        rows[name_k] = dict(ms=best, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, max_abs_err=errs[dt])
+        parts.append(f"{name_k} {best:.3f} ms a frame (min of {IMAGE_RUNS}; "
+                     f"{npix * npix / (best * 1e-3):.4e} rays/s), bound "
+                     f"{bound_ms:.4f} ms ({bound_by}, {OPS_PIXEL[dt]} "
+                     f"operations a pixel; {bound_ms / best:.4f} of bound), "
+                     f"plain {plain_ms:.3f} ms")
+    # the f32 spin sweep, every frame through nt_setup -> render_disk_image
+    lib = kernel_image._lib()
+    before = kernel_image.LAUNCHES["nt_image<float>"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(N_SWEEP):
+        out = render_disk_image(nt_disk(torch.float32, dev,
+                                        a=NT["a"] - 2e-4 * k),
+                                NT["incl"], npix, npix)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    frames = kernel_image.LAUNCHES["nt_image<float>"] - before
+    libs = sorted(_build.BUILD_DIR.glob("libdisk_image_*.so"))
+    check(frames == N_SWEEP, f"the sweep launched {frames} frames")
+    check(kernel_image._lib() is lib and len(libs) == 1,
+          f"the sweep rebuilt the library: {libs}")
+    check_image("sweep last frame", *out, npix)
+    device_ms = rows["nt_image<float>"]["ms"]
+    print(f"phase 12 disk image timing ({npix}^2; {name}): "
+          + " | ".join(parts) + f" | device_ms_per_frame={device_ms:.4f} "
+          f"(f32) | spin sweep of {N_SWEEP} f32 frames (a = 0.998 - 2e-4 k) "
+          f"through nt_setup -> render_disk_image: {secs:.3f} s host clock, "
+          f"{N_SWEEP / secs:.2f} frames/s, {N_SWEEP * npix * npix / secs:.4e} "
+          f"rays/s, {frames} launches, one library ({libs[0].name}) built "
+          f"once for every spin", flush=True)
+    return rows
 
 
 def main():
@@ -765,26 +1006,36 @@ def main():
         torch.cuda.synchronize()
         vol_t = phase_volume_timing(dev, name)
         torch.cuda.synchronize()
+        phase_image_golden(dev)
+        torch.cuda.synchronize()
+        image_launches, image_errs, _ = phase_image_main(dev)
+        torch.cuda.synchronize()
+        image_t = phase_image_timing(dev, name, image_errs)
+        torch.cuda.synchronize()
     except PhaseFailed as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     from sim5_tpu_torch.march import kernel_march
+    march_src = dict(route="cuda", source="sim5_tpu_torch/csrc/march.cu",
+                     replaces="sim5_tpu/march/pallas_march.py:296")
+    image_src = dict(route="cuda",
+                     source="sim5_tpu_torch/csrc/disk_image.cu",
+                     replaces="sim5_tpu/render/image.py:35 (XLA-fused jnp; "
+                              "no Pallas kernel)")
     rows = []
     for rt, timing in {0: t, **vol_t}.items():
-        counts = launches if rt == 0 else vol_launches
-        for sched, names in (("segmented", kernel_march.VARIANTS),
-                             ("one-launch", kernel_march.ONE_LAUNCH)):
-            rows.append((names[rt], counts[names[rt]], timing[sched]))
+        v = kernel_march.VARIANTS[rt]
+        rows.append((v, march_src, (launches if rt == 0 else vol_launches)[v],
+                     timing))
+    rows += [(v, image_src, image_launches[v], image_t[v])
+             for v in image_t]
     print(json.dumps({"kernels": [{
-        "name": v, "route": "cuda",
-        "source": "sim5_tpu_torch/csrc/march.cu",
-        "replaces": "sim5_tpu/march/pallas_march.py:296",
-        "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "name": v, **src, "launches": n, "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None}
-        for v, n, r in rows]}))
+        for v, src, n, r in rows]}))
     print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

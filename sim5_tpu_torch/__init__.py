@@ -1,12 +1,13 @@
 """sim5_tpu_torch -- the PyTorch / CUDA port of sim5_tpu.
 
 The package mirrors `sim5_tpu`'s layout and names, so that each function's
-counterpart sits at the same path.  It holds the stepwise Kerr ray march
-and volume radiative transfer: the spacetime core (`core`), the special
-functions (`special`) and the analytic geodesic engine (`geodesic`) that
-seed the march, the march itself (`march`) with its kernel written in CUDA
-C++ for Hopper (`csrc/march.cu`, built by `_build.py` on first use), and
-the volume renderer (`render`).
+counterpart sits at the same path.  It holds the Novikov-Thorne disk image,
+the stepwise Kerr ray march and volume radiative transfer: the spacetime
+core (`core`), the special functions (`special`, `utils`), the analytic
+geodesic engine (`geodesic`), the thin disk (`disk`), the march (`march`)
+and the renderers (`render`), with two kernels written in CUDA C++ for
+Hopper and built by `_build.py` on first use: the march
+(`csrc/march.cu`) and the disk image (`csrc/disk_image.cu`).
 
 Design notes
 ------------
@@ -22,9 +23,11 @@ Design notes
 """
 
 from . import consts
+from . import utils
 from . import core
 from . import special
 from . import geodesic
+from . import disk
 from . import march
 from . import render
 

@@ -40,11 +40,13 @@ def _nvcc():
     return found
 
 
-def load(name):
-    """Build (if needed) and load `csrc/<name>.cu` as a ctypes library."""
+def load(name, extra_flags=()):
+    """Build (if needed) and load `csrc/<name>.cu` as a ctypes library,
+    with `extra_flags` after NVCC_FLAGS (this library's own options)."""
     src = CSRC / f"{name}.cu"
     headers = sorted(CSRC.glob("*.cuh"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + tuple(extra_flags)
+    digest = hashlib.sha256(" ".join(flags).encode())
     for p in [src] + headers:
         digest.update(p.read_bytes())
     lib_path = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
@@ -57,7 +59,7 @@ def load(name):
         # never load a half-written library
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [_nvcc(), *flags, "-o", str(tmp), str(src)],
             capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")

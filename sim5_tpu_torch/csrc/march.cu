@@ -32,12 +32,10 @@
 // by the first launch and never enter a list.  The kernel allocates
 // nothing; the caller gives it the two ping-pong lists and the counters.
 //
-// The one-launch schedule of the first version (every ray to its end in
-// one launch) is the same kernel with seg = -1 and no trip limit.  It is
-// kept only to time the two schedules against each other.  Both run the
-// one trial step function below, so a ray's arithmetic does not depend on
-// the schedule or on where the ray sits in a list: the results are
-// bitwise those of the one-launch schedule, whatever the append order.
+// Every trip runs the one trial step function below on the ray's own
+// carried state, so a ray's arithmetic does not depend on the launch it
+// runs in or on where it sits in a list: two runs give bitwise the same
+// results, whatever the append order.
 //
 // Counters, summed over the march (stats[0], stats[1]): lane-trips, the
 // live lanes of a warp on each of its trips, and warp-trips, the trips a
@@ -426,11 +424,10 @@ __device__ __forceinline__ void trial_step(Ray& s, const Params& p) {
              isfinite(rr);
 }
 
-// One launch of the march (see the header): segment seg >= 0 of the
-// segmented schedule, or seg = -1, the whole march in one launch.
-// Segment 0 and seg = -1 read the rays from the inputs; segment k >= 1
-// reads the stats[1 + k] rays of lv_in / li_in.  RT: 0 geometry only,
-// 1 emission, 2 emission + absorption; Io is written for RT > 0 only.
+// One launch of the march (see the header): segment seg >= 0.  Segment 0
+// reads the rays from the inputs; segment k >= 1 reads the stats[1 + k]
+// rays of lv_in / li_in.  RT: 0 geometry only, 1 emission, 2 emission +
+// absorption; Io is written for RT > 0 only.
 template <bool GR, bool POL, int RT>
 __global__ void __launch_bounds__(kThreads, min_blocks<GR, POL, RT>())
 march_f32(Buffers io, const float* __restrict__ lv_in,
@@ -439,7 +436,7 @@ march_f32(Buffers io, const float* __restrict__ lv_in,
           int seg, long long n, Params p) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   const int lane = threadIdx.x & 31;
-  const long long count = seg <= 0 ? n : (long long)stats[1 + seg];
+  const long long count = seg == 0 ? n : (long long)stats[1 + seg];
   if (i - lane >= count) return;   // the whole warp is past the list
   const bool in_range = i < count;
 
@@ -447,7 +444,7 @@ march_f32(Buffers io, const float* __restrict__ lv_in,
   long long idx = i;
   s.active = false;
   s.steps = 0;
-  if (in_range && seg <= 0) {
+  if (in_range && seg == 0) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       s.x[c] = io.x[c * n + i];
@@ -481,9 +478,8 @@ march_f32(Buffers io, const float* __restrict__ lv_in,
 
   // a warp makes trips while any lane is live; the ballot keeps the
   // counters exact whatever the compiler does with divergence
-  const int trips = seg < 0 ? p.max_steps : kSegTrips;
   unsigned long long lane_trips = 0, warp_trips = 0;
-  for (int t = 0; t < trips; ++t) {
+  for (int t = 0; t < kSegTrips; ++t) {
     const bool live = in_range && s.active && s.steps < p.max_steps;
     const unsigned mask = __ballot_sync(0xffffffffu, live);
     if (mask == 0) break;
@@ -511,7 +507,7 @@ march_f32(Buffers io, const float* __restrict__ lv_in,
   if (kept != 0) {
     long long base = 0;
     if (lane == 0)
-      base = (long long)atomicAdd(&stats[2 + (seg < 0 ? 0 : seg)],
+      base = (long long)atomicAdd(&stats[2 + seg],
                                   (unsigned long long)__popc(kept));
     base = __shfl_sync(0xffffffffu, base, 0);
     if (keep) {
@@ -557,13 +553,12 @@ Kernel kernel(int gr, int pol, int rt) {
 
 }  // namespace
 
-// Launch one segment (seg >= 0) of march_f32<gr, pol, rt>, or the whole
-// march in one launch (seg = -1), over n rays on `stream`; returns
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue (1) for an
-// rt outside 0..2.  The caller allocates every output, the two lists
-// (kListFloats x n floats and 2 x n ints each; unused for seg = -1) and
-// stats (2 + segments zeroed 64-bit counters).  Io (n floats) is written
-// only for rt > 0.  The emissivity (j_*) and absorption (al_*) parameters
+// Launch segment seg >= 0 of march_f32<gr, pol, rt> over n rays on
+// `stream`; returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue (1) for an rt outside 0..2 or a negative seg.  The
+// caller allocates every output, the two lists (kListFloats x n floats
+// and 2 x n ints each) and stats (2 + segments zeroed 64-bit counters).
+// Io (n floats) is written only for rt > 0.  The emissivity (j_*) and absorption (al_*) parameters
 // are those of GaussianSource.params(); the absorption is read only for
 // rt == 2.
 extern "C" int sim5_march_f32(
@@ -578,7 +573,8 @@ extern "C" int sim5_march_f32(
     float j_inv_d, int j_cyl, float al_amp, float al_center, float al_inv_w,
     float al_inv_h, float al_t_c, float al_inv_d, int al_cyl, void* stream) {
   const Kernel fn = kernel(gr, pol, rt);
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (fn == nullptr || seg < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Buffers io{x, k, f, kt, act0, xo, ko, fo, kto, erro, stepso, acto, Io};
   const Params p{a, 1.0f / a, eps0, 1e-3f / eps0, r_min, r_max, error_stop,
                  error_gate, max_step_dl, max_steps,

@@ -1,7 +1,9 @@
-"""Analytic geodesic engine: the part that seeds the volume march.
+"""Analytic geodesic engine: the part that seeds the volume march and the
+disk image.
 
 Port of `sim5_tpu/geodesic` (initialisation at infinity, the position
-integral and its radial and poloidal inversions, the momentum at P).
+integral and its radial and poloidal inversions, the momentum at P, the
+equatorial-plane crossing).
 """
 
 from .types import (
@@ -15,4 +17,5 @@ from .types import (
 from .analytic import (
     geodesic_init_inf, geodesic_P_int, geodesic_position_rad,
     geodesic_position_pol, geodesic_dm_sign, geodesic_momentum,
+    geodesic_find_midplane_crossing,
 )

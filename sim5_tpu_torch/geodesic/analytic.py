@@ -3,8 +3,9 @@
 Port of `sim5_tpu/geodesic/analytic.py`, the part that seeds the volume
 march: initialisation from impact parameters at infinity, the position
 integral P(r), its radial and poloidal inversions r(P), m(P), the sign of
-dm/dP and the photon momentum at P.  The azimuth and time-delay integrals
-wait for a later slice.
+dm/dP, the photon momentum at P, and the equatorial-plane crossing that
+the disk image uses.  The azimuth and time-delay integrals wait for a
+later slice.
 
 The geodesic equation is solved via the quartic roots of the radial
 potential R(r) (Cadez, Fanton & Calvani 1998) and Jacobi/Carlson elliptic
@@ -580,6 +581,25 @@ def geodesic_dm_sign(g: Geodesic, P):
     _, sign_v = _theta_pol_vortical(g, Pz)
     sign_dm = torch.where(g.q < 0.0, sign_v, sign_dm)
     return torch.where(_live(g) & torch.isfinite(P), sign_dm, torch.nan)
+
+
+def geodesic_find_midplane_crossing(g: Geodesic, order=0):
+    """P value where the geodesic crosses the equatorial plane for the
+    `order`-th time (0 the direct image, 1 the first orbiting one); NaN
+    where there is no such crossing.
+
+    Pure arithmetic on the cached T-integrals: mK K(mm) = Tpp/2 and
+    mK icn(cos_i/sqrt(m2p), mm) = Tip (see the JAX package).
+    (reference: geodesic_find_midplane_crossing, sim5kerr-geod.c:845-885)
+    """
+    u = g.cos_i / torch.sqrt(g.m2p)
+    u_ok = torch.abs(u) <= 1.0 + 1e-4
+    pos = ((2.0 * order + 1.0) * 0.5 * g.Tpp
+           + torch.where(g.beta > 0.0, g.Tip,
+                         torch.where(g.beta < 0.0, -g.Tip, 0.0)))
+    pos = torch.where(pos > 2.0 * g.Rpc, torch.nan, pos)
+    return torch.where((g.q <= 0.0) | ~u_ok | (g.status != GD_OK),
+                       torch.nan, pos)
 
 
 def geodesic_momentum(g: Geodesic, P, r=None, m=None):

@@ -14,9 +14,7 @@ either
 A CUDA tensor always launches the kernel or raises; the plain version runs
 only because the tensors lie on the CPU.  `LAUNCHES` counts kernel
 launches by variant, and `march_counters()` reads the lane counters of the
-last march on the card.  `_march_cuda_one_launch` runs the same kernel as
-one launch over the whole march (the first version's schedule); only
-`chip_smoke.py` calls it, to time the two schedules against each other.
+last march on the card.
 
 `march_reference` is a masked torch loop that mirrors the kernel body
 (`_make_kernel` in the JAX package) operation for operation: theta carried
@@ -40,11 +38,9 @@ _TINY = 1e-30
 # the kernel's variants by its RT template argument
 VARIANTS = ("march_f32", "march_f32 RT=emission",
             "march_f32 RT=emission+absorption")
-# the same variants run as one launch over the whole march
-ONE_LAUNCH = tuple(f"{v} one-launch" for v in VARIANTS)
 
-# kernel launches made on CUDA tensors, by variant and schedule
-LAUNCHES = dict.fromkeys(VARIANTS + ONE_LAUNCH, 0)
+# kernel launches made on CUDA tensors, by variant
+LAUNCHES = dict.fromkeys(VARIANTS, 0)
 
 # the counters of the last march on the card, (2 + launches,) int64 on the
 # device: lane-trips, warp-trips, then the rays each launch appended
@@ -284,28 +280,18 @@ def march_counters():
     return stats[0], stats[1], stats[2:]
 
 
-def _march_cuda(*args, events=None, **kw):
-    """The segmented march on CUDA tensors, on the current stream.
+def _march_cuda(x, k, f, kt, active0, a, eps0, r_min, r_max, error_stop,
+                error_gate, opt_gr=True, opt_pol=False, max_steps=10000,
+                max_step_dl=1e9, emissivity=None, absorption=None,
+                events=None):
+    """The segmented march on CUDA tensors, on the current stream:
+    `march_f32<opt_gr, opt_pol, rt>` in ceil(max_steps / seg_trips)
+    launches, the live rays compacted between them.
 
     Same arguments and results as `march_reference`.  `events`, if a list,
     receives a CUDA event recorded before the first launch and one after
     each launch.
     """
-    return _march(False, *args, events=events, **kw)
-
-
-def _march_cuda_one_launch(*args, **kw):
-    """The same march in one launch, every ray to its end (the first
-    version's schedule); `chip_smoke.py` times it against `_march_cuda`."""
-    return _march(True, *args, **kw)
-
-
-def _march(one_launch, x, k, f, kt, active0, a, eps0, r_min, r_max,
-           error_stop, error_gate, opt_gr=True, opt_pol=False,
-           max_steps=10000, max_step_dl=1e9, emissivity=None,
-           absorption=None, events=None):
-    """Launch `march_f32<opt_gr, opt_pol, rt>`: in segments with the live
-    rays compacted between them, or as one launch."""
     global LAST_STATS
     rt = rt_mode(emissivity, absorption)
     n = kt.shape[0]
@@ -330,17 +316,17 @@ def _march(one_launch, x, k, f, kt, active0, a, eps0, r_min, r_max,
         raise ValueError("max_steps does not fit an int32")
     lib = _lib()
     cfg = kernel_config()
-    launches = 1 if one_launch else max(1, -(-max_steps // cfg["seg_trips"]))
+    launches = max(1, -(-max_steps // cfg["seg_trips"]))
     xo, ko, fo = (torch.empty_like(x) for _ in range(3))
     kto, erro = torch.empty_like(kt), torch.empty_like(kt)
     stepso = torch.empty(n, dtype=torch.int32, device=dev)
     acto = torch.empty(n, dtype=torch.bool, device=dev)
     Io = torch.empty_like(kt) if rt else None
     stats = torch.zeros(2 + launches, dtype=torch.int64, device=dev)
-    if not one_launch:   # the two ping-pong lists of live rays
-        lv = torch.empty((2, cfg["list_floats"], n), dtype=torch.float32,
-                         device=dev)
-        li = torch.empty((2, 2, n), dtype=torch.int32, device=dev)
+    # the two ping-pong lists of live rays
+    lv = torch.empty((2, cfg["list_floats"], n), dtype=torch.float32,
+                     device=dev)
+    li = torch.empty((2, 2, n), dtype=torch.int32, device=dev)
     unused = GaussianSource(amp=0.0)
     scalars = (n, a, eps0, r_min, r_max, error_stop, error_gate,
                int(max_steps), max_step_dl,
@@ -350,7 +336,7 @@ def _march(one_launch, x, k, f, kt, active0, a, eps0, r_min, r_max,
     ptrs = [t.data_ptr() for t in (x, k, f, kt, active0, xo, ko, fo, kto,
                                    erro, stepso, acto)]
     ptrs.append(Io.data_ptr() if rt else None)
-    name = (ONE_LAUNCH if one_launch else VARIANTS)[rt]
+    name = VARIANTS[rt]
 
     def record():
         if events is not None:
@@ -359,12 +345,9 @@ def _march(one_launch, x, k, f, kt, active0, a, eps0, r_min, r_max,
 
     record()
     for seg in range(launches):
-        if one_launch:
-            seg, lists = -1, (None, None, None, None)
-        else:
-            src, dst = (seg - 1) % 2, seg % 2
-            lists = (lv[src].data_ptr(), li[src].data_ptr(),
-                     lv[dst].data_ptr(), li[dst].data_ptr())
+        src, dst = (seg - 1) % 2, seg % 2
+        lists = (lv[src].data_ptr(), li[src].data_ptr(),
+                 lv[dst].data_ptr(), li[dst].data_ptr())
         rc = lib.sim5_march_f32(int(opt_gr), int(opt_pol), rt, seg, *ptrs,
                                 *lists, stats.data_ptr(), *scalars)
         if rc != 0:

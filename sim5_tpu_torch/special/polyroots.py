@@ -11,6 +11,8 @@ import math
 import torch
 
 from ..core.metric import _as_tensors
+from ..utils.fastmath import (_splitter, two_sum as _two_sum,
+                              two_prod as _two_prod)
 
 
 def _cbrt(x):
@@ -153,31 +155,6 @@ def quartic_roots(a3, a2, a1, a0):
     re = torch.cat([re1, re2], -1) * lam[..., None] - sh[..., None]
     im = torch.cat([im1, im2], -1) * lam[..., None]
     return re, im, n1 + n2
-
-
-def _splitter(dtype):
-    return 134217729.0 if dtype == torch.float64 else 4097.0
-
-
-def _two_sum(a, b):
-    """Knuth error-free transform: a + b = s + err exactly."""
-    s = a + b
-    bb = s - a
-    return s, (a - (s - bb)) + (b - bb)
-
-
-def _two_prod(a, b):
-    """Dekker/Veltkamp error-free product: a * b = p + err exactly."""
-    sp = _splitter(a.dtype)
-    ca = a * sp
-    ahi = ca - (ca - a)
-    alo = a - ahi
-    cb = b * sp
-    bhi = cb - (cb - b)
-    blo = b - bhi
-    p = a * b
-    err = ((ahi * bhi - p) + ahi * blo + alo * bhi) + alo * blo
-    return p, err
 
 
 def _split(a):

@@ -1,12 +1,12 @@
 """What the march kernel's segmented schedule relies on, checked on the CPU.
 
 The CUDA kernel (`sim5_tpu_torch/csrc/march.cu`) runs only on the card
-(chip_smoke.py holds its schedules bitwise equal there).  Here: the ctypes
-signatures the wrapper declares match the `extern "C"` functions of the
-source, the plain version's results do not depend on where a ray sits in
-the batch (what compaction of live rays relies on), the CUDA wrappers
-refuse CPU tensors before anything is built, and the build uses no fast
-math.  No test here compiles anything with JAX.
+(chip_smoke.py holds two segmented runs bitwise equal there).  Here: the
+ctypes signatures the wrappers declare match the `extern "C"` functions of
+every source in csrc/, the plain version's results do not depend on where
+a ray sits in the batch (what compaction of live rays relies on), the
+CUDA wrappers refuse CPU tensors before anything is built, and the build
+uses no fast math.  No test here compiles anything with JAX.
 """
 
 import ctypes
@@ -21,10 +21,13 @@ from sim5_tpu_torch.core import kerr_metric, tetrad_zamo, on2bl
 from sim5_tpu_torch.march import (raytrace_prepare, kernel_march,
                                   RTOPT_POLARIZATION)
 from sim5_tpu_torch.march.emission import GaussianSource
+from sim5_tpu_torch.render import kernel_image
 
 # C parameter types of the launchers -> the ctypes type the wrapper must use
 C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
-           "float": ctypes.c_float}
+           "float": ctypes.c_float, "double": ctypes.c_double}
+# every CUDA library's declared signatures, by function
+SIGNATURES = {**kernel_march.SIGNATURES, **kernel_image.SIGNATURES}
 
 
 def _extern_c_functions():
@@ -75,8 +78,8 @@ class TestSchedule:
 
     def test_ctypes_signatures_match_the_extern_c_functions(self):
         found = _extern_c_functions()
-        assert set(found) == set(kernel_march.SIGNATURES)
-        for name, (argtypes, restype) in kernel_march.SIGNATURES.items():
+        assert set(found) == set(SIGNATURES)
+        for name, (argtypes, restype) in SIGNATURES.items():
             c_ret, c_args = found[name]
             assert restype is c_ret, name
             assert len(argtypes) == len(c_args), name
@@ -112,10 +115,8 @@ class TestSchedule:
         st = _rays(8)
         tensors, scalars = kernel_march._pack(st, 50.0, 10, 1e-2, None)
         lib = kernel_march._LIB
-        for launch in (kernel_march._march_cuda,
-                       kernel_march._march_cuda_one_launch):
-            with pytest.raises(ValueError, match="the kernel needs"):
-                launch(*tensors, **scalars)
+        with pytest.raises(ValueError, match="the kernel needs"):
+            kernel_march._march_cuda(*tensors, **scalars)
         assert kernel_march._LIB is lib
         assert kernel_march.LAUNCHES == dict.fromkeys(kernel_march.LAUNCHES, 0)
 
