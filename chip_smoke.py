@@ -11,10 +11,11 @@ in segments with the live rays compacted between them) and the disk image
 kernel (`sim5_tpu_torch/csrc/disk_image.cu`, f64 and f32) are built into
 `build/` on first use, both at once.  Phases, one line each:
 
-1. device: the card's name and power limit, the two builds, the march
-   kernel's compile-time choices, registers, spills and resident blocks of
-   every main-path instance, and the march kernel's SASS instruction
-   counts where `cuobjdump` is there;
+1. device: the card's name and power limit, the builds (with a probe of
+   single-function kernels for the SASS lengths of divisions, square roots
+   and transcendentals), each kernel's compile-time choices, registers,
+   spills and resident blocks of every main-path instance, and the SASS
+   instruction counts where `cuobjdump` is there;
 2. kernel vs its plain torch version on 4096 rays (GR, GR+POL, flat at
    a = 0.3 and 0.9);
 3. the march's main path, 131072 rays at a = 0.9 to r = 500, through
@@ -41,12 +42,18 @@ kernel (`sim5_tpu_torch/csrc/disk_image.cu`, f64 and f32) are built into
     version (1e-9 of the peak), the f32 kernel and the f32 plain version
     against the f64 plain version (4e-6 of the peak, footprint mismatch
     <= 1e-5 of the pixels: fast_path_err_vs_f64), one launch of each
-    instance;
-12. the disk image timed: one 512^2 frame of each instance (CUDA events,
-    the minimum of IMAGE_RUNS; device_ms_per_frame is the f32 one), a
-    64-frame f32 spin sweep through nt_setup -> render_disk_image on the
-    host clock (frames/s, rays/s, one build for all spins), the plain
-    versions once, and the bound.
+    instance, and each launch's in-kernel counters, held against its image;
+12. the disk image timed, by CUDA events around runs of IMAGE_REPS
+    launches (min / median / max of IMAGE_RUNS): one headline frame a
+    launch, 64 frames of the spin sweep (a = 0.998 - 2e-4 k) in one launch
+    (device_ms_per_frame is a frame of the f32 one), the entry point one
+    frame a call; every frame of the 64-frame launch bitwise its
+    single-frame launch, in both instances; the f64 kernel on a batch of
+    three spins at 128^2 against the plain version (1e-9 of the peak); the
+    f32 spin sweep through nt_setup(spins) -> render_disk_image in one
+    launch and as one call a frame, on the host clock (frames/s, one build
+    for all spins); the plain versions once, and the bound from the main
+    path's counters.
 
 Then one JSON line on the kernels, the card's name and power limit, and
 the result as the last line.  Any failed check exits non-zero.  The script
@@ -88,7 +95,11 @@ NT = dict(M=10.0, a=0.998, mdot=0.1, alpha=0.1, incl=math.radians(80.0))
 N_IMAGE = 512
 N_GOLDEN = 128
 N_SWEEP = 64             # frames of the spin sweep, a = 0.998 - 2e-4 k
-IMAGE_RUNS = 10          # timed frames of each image instance
+IMAGE_REPS = 20          # launches between two CUDA events
+IMAGE_RUNS = 5           # event pairs timed (min, median and max kept)
+SWEEP_RUNS = 5           # host-clock runs of each spin sweep
+BATCH_SPINS = (0.998, 0.9, 0.3)   # the f64 batch held against the plain one
+N_BATCH = 128
 
 # The least time of a march (bound_ms): FP32 operations per trial step,
 # counted from csrc/march.cu for the GR, no-polarization instance, a
@@ -110,18 +121,92 @@ H100_FP32 = 67e12        # FP32 FLOP/s outside the tensor cores, 700 W
 H100_FP64 = 34e12        # FP64 FLOP/s outside the tensor cores, 700 W
 H100_BYTES = 3.35e12     # HBM3 bytes/s
 
-# The least time of a disk image frame: operations per pixel counted from
-# csrc/analytic.cuh on the cheapest pixel's path (a four-complex-root ray
-# whose order-0 crossing does not exist), each +, -, *, / and each sqrt,
-# sin, cos, acos, pow, frexp as one (comparisons, selects, abs and
-# negation not counted): the grid 12, init_inf's own 29, T_roots 22, the
-# quartic's coefficients 9, the quartic 117 (f32: + 14 for the rescale),
-# the polish of four complex roots 4 x 78, the CC branch 41, two RF (231
-# f64 with 16 duplications, 114 f32 with 7), two K AGMs (40 f64, 32 f32)
-# and the crossing 5.
-OPS_PIXEL_BASE = 12 + 29 + 22 + 9 + 117 + 4 * 78 + 41 + 5
-OPS_PIXEL = {torch.float64: OPS_PIXEL_BASE + 2 * 231 + 2 * 40,
-             torch.float32: OPS_PIXEL_BASE + 14 + 2 * 114 + 2 * 32}
+# The least time of a disk image frame (image_bound): the operations each
+# pixel class needs, counted from csrc/analytic.cuh, times the pixels of
+# that class in the frame (image_counters()), over the peak rate of the
+# type.  A piece is (flops, {op: count}): flops are +, -, * (comparisons,
+# selects, abs and negation not counted), and each division, square root
+# and transcendental counts as the length of its SASS sequence on this card
+# (op_lengths(): the instructions of a kernel that computes it, before
+# EXIT, less those of x + y).  Where a piece's work depends on data that
+# the counters do not split, the cheaper branch is counted (the Jacobi
+# AGM's backward pass at one level), and a piece of every pixel is counted
+# once a pixel: make_frame's once-a-frame work is left out.  The kernel is
+# built with --fmad=false, so each counted operation is one instruction,
+# while the peak counts an FMA as two: at the instruction issue rate the
+# floor is twice the bound, and phase 12 prints it beside the bound.
+def _piece(flops=0, **ops):
+    return flops, ops
+
+
+def _add(*pieces):
+    flops, ops = 0, Counter()
+    for f, o in pieces:
+        flops += f
+        ops.update(o)
+    return flops, dict(ops)
+
+
+def pixel_pieces(dtype):
+    """{piece: (flops, {op: count})} of one pixel of the disk image in
+    `dtype`, by the depths of csrc/analytic.cuh's Prec<T>."""
+    f64 = dtype == torch.float64
+    rf_dup, k_agm, jac = (16, 9, 13) if f64 else (7, 7, 8)
+    rf = _piece(10 * rf_dup + 18, sqrt=3 * rf_dup + 1, div=5)
+    K = _piece(3 * k_agm + 2, sqrt=k_agm + 1, div=1)
+    sncndn = _piece(4 * jac + 9, sqrt=jac + 1, div=4, sin=1, cos=1)
+    vlog = _piece(1, log1p=1) if f64 else _piece(14, div=3)
+    rescale = _piece() if f64 else _piece(9, div=1, frexp=3, ldexp=1)
+    # the quartic, sort and two-float polish by root pattern, then
+    # R_roots' own branch
+    rr = _add(_piece(79, div=20, sqrt=5, pow=1, acos=1, cos=3),
+              _piece(4 * 107, div=8), _piece(19, sqrt=2, div=4))
+    rc = _add(_piece(84, div=19, sqrt=4, pow=2), _piece(2 * 107 + 2 * 74,
+                                                       div=4),
+              _piece(40, sqrt=4, div=7))
+    cc = _add(_piece(84, div=19, sqrt=4, pow=2), _piece(4 * 74),
+              _piece(37, sqrt=4, div=8))
+    return {
+        # the grid, init_inf's own, T_roots, the quartic's coefficients,
+        # Tpp's K, Tip's rf and the order-0 crossing
+        "pixel": _add(_piece(63, div=10, sqrt=5), K, rf, rescale),
+        "RR": rr, "RC": rc, "CC": cc, "rf": rf, "K": K,
+        "rad_RR": _add(_piece(30, sqrt=1, div=2), sncndn),
+        "rad_RC": _add(_piece(45, sqrt=3, div=6), sncndn),
+        "rad_CC": _add(_piece(38, sqrt=3, div=6), sncndn),
+        "cross": _piece(3, div=1, sqrt=1),
+        # gfactorK, nt_flux with its four vlog, F g^4
+        "shade": _add(_piece(65 + 42 + 3, sqrt=3, div=10), *[vlog] * 4),
+    }
+
+
+def pixel_mix(c):
+    """{piece: pixels} of a frame from its counters (lanes)."""
+    lanes = {k: v[1] for k, v in c.items()}
+    return {
+        "pixel": lanes["pixels"],
+        "RR": lanes["type_RR"] + lanes["type_RR_BH"] + lanes["type_RR_double"],
+        "RC": lanes["type_RC"], "CC": lanes["type_CC"],
+        "rf": lanes["rf_R"], "K": lanes["K_R"],
+        "rad_RR": lanes["rad0_RR"] + lanes["rad1_RR"],
+        "rad_RC": lanes["rad0_RC"] + lanes["rad1_RC"],
+        "rad_CC": lanes["rad0_CC"] + lanes["rad1_CC"],
+        "cross": lanes["order1"], "shade": lanes["shade"]}
+
+
+def image_ops(dtype, counters, lengths):
+    """Operations of the frames the counters describe, each op at its SASS
+    length (`lengths`, {(op, 'd' or 'f'): n}; 1 where not measured)."""
+    t = "d" if dtype == torch.float64 else "f"
+    pieces = pixel_pieces(dtype)
+    total = 0
+    for piece, n in pixel_mix(counters).items():
+        flops, ops = pieces[piece]
+        total += n * (flops + sum(k * lengths.get((op, t), 1)
+                                  for op, k in ops.items()))
+    return total
+
+
 PEAK = {torch.float64: H100_FP64, torch.float32: H100_FP32}
 
 
@@ -218,27 +303,117 @@ def ptxas_summary(log, instance=INSTANCE, label=march_label):
     return "; ".join(out)
 
 
-def sass_counts(lib_path):
-    """{(GR, POL, RT): Counter of SASS opcodes} of each kernel instance in
-    the library (a static count: each instruction of the function once),
-    or None without cuobjdump."""
+SASS_OP = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def _cuobjdump():
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
+    return tool if os.path.exists(tool) else None
+
+
+def sass_counts(lib_path, instance=INSTANCE,
+                key=lambda m: tuple(int(g) for g in m.groups())):
+    """{key: Counter of SASS opcodes} of each kernel instance in the
+    library (the march's by default, keyed (GR, POL, RT)); a static count:
+    each instruction of the function once.  None without cuobjdump."""
+    tool = _cuobjdump()
+    if tool is None:
         return None
     text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     counts, cur = {}, None
     for ln in text.splitlines():
         if "Function :" in ln:
-            m = INSTANCE.search(ln)
-            cur = counts.setdefault(tuple(int(g) for g in m.groups()),
-                                    Counter()) if m else None
+            m = instance.search(ln)
+            cur = counts.setdefault(key(m), Counter()) if m else None
         elif cur is not None:
-            op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-                          ln)
+            op = SASS_OP.match(ln)
             if op:
                 cur[op[1].split(".")[0]] += 1
     return counts
+
+
+def image_sass_summary(counts):
+    """Static SASS counts of each disk image instance: all, FP64, FP32,
+    MUFU, CALL, and local loads and stores."""
+    if counts is None:
+        return "not measured (no cuobjdump)"
+    out = []
+    for name, c in sorted(counts.items()):
+        fp64 = sum(c[o] for o in ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX"))
+        fp32 = sum(c[o] for o in ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP",
+                                  "FSEL", "FCHK"))
+        out.append(f"{name}: {sum(c.values())} instructions, FP64 {fp64}, "
+                   f"FP32 {fp32}, MUFU {c['MUFU']}, CALL {c['CALL']}, BRA "
+                   f"{c['BRA']}, LDL {c['LDL']}, STL {c['STL']}")
+    return "; ".join(out)
+
+
+# kernels that each compute one function of two loaded values, for the
+# SASS length of the function (op_lengths)
+OP_LENGTH_SRC = r"""
+#include <cuda_runtime.h>
+#include <cmath>
+#define K1(NAME, EXPR)                                                      \
+  template <typename T>                                                     \
+  __global__ void NAME(const T* in, T* out) {                               \
+    const T x = in[threadIdx.x], y = in[threadIdx.x + 32];                  \
+    out[threadIdx.x] = EXPR;                                                \
+  }                                                                         \
+  template __global__ void NAME<double>(const double*, double*);            \
+  template __global__ void NAME<float>(const float*, float*);
+__device__ double fr(double x) { int e; double m = frexp(x, &e); return m + e; }
+__device__ float fr(float x) { int e; float m = frexpf(x, &e); return m + e; }
+K1(op_base, x + y)
+K1(op_div, x / y)
+K1(op_sqrt, sqrt(x) + y)
+K1(op_sin, sin(x) + y)
+K1(op_cos, cos(x) + y)
+K1(op_acos, acos(x) + y)
+K1(op_log1p, log1p(x) + y)
+K1(op_pow, pow(x, y))
+K1(op_frexp, fr(x) + y)
+K1(op_ldexp, ldexp(x, (int)y))
+"""
+
+
+def op_lengths():
+    """{(op, 'd' or 'f'): SASS instructions} of each division, square root
+    and transcendental the image kernel calls, built as the kernel is
+    (sm_90a, --fmad=false, no fast math): a one-function kernel's
+    instructions before its EXIT, less those of x + y (plus one for the
+    binary ones, which replace the add).  An out-of-line slow path after
+    EXIT is not counted; one inlined and branched over is.  {} without
+    cuobjdump."""
+    from sim5_tpu_torch import _build
+    tool = _cuobjdump()
+    if tool is None:
+        return {}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / "op_lengths.cu"
+    cubin = src.with_suffix(".cubin")
+    src.write_text(OP_LENGTH_SRC)
+    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-cubin", "--fmad=false", "-o",
+                    str(cubin), str(src)], check=True, capture_output=True,
+                   timeout=300)
+    text = subprocess.run([tool, "-sass", str(cubin)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    raw, cur = {}, None
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            m = re.search(r"op_(\w+?)I([df])E", ln)
+            cur = (m[1], m[2]) if m else None
+            if cur:
+                raw[cur] = 0
+        elif cur is not None:
+            op = SASS_OP.match(ln)
+            if op and op[1].startswith("EXIT"):
+                cur = None
+            elif op:
+                raw[cur] += 1
+    return {(op, t): n - raw[("base", t)] + (op in ("div", "pow", "ldexp"))
+            for (op, t), n in raw.items() if op != "base"}
 
 
 def sass_summary(counts, key):
@@ -356,12 +531,14 @@ def instance_text(rt):
             f"bytes local, {att['blocks_per_sm']} blocks an SM")
 
 
-# nt_image<T> in a mangled name (T = d for double, f for float)
-IMAGE_INSTANCE = re.compile(r"nt_imageI([df])E")
+# nt_image<T, C> in a mangled name (T = d for double, f for float; C = 1
+# for the counted instance)
+IMAGE_INSTANCE = re.compile(r"nt_imageI([df])Lb([01])E")
 
 
 def image_label(m):
-    return "nt_image<" + ("double" if m[1] == "d" else "float") + ">"
+    return ("nt_image<" + ("double" if m[1] == "d" else "float")
+            + (", counted>" if m[2] == "1" else ">"))
 
 
 def phase_device():
@@ -369,20 +546,24 @@ def phase_device():
     from sim5_tpu_torch.march import kernel_march
     from sim5_tpu_torch.render import kernel_image
     name = card()
-    # one nvcc for each source, both started together
+    # one nvcc for each source (and the op-length probe), all started
+    # together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(kernel_march._lib),
-                    pool.submit(kernel_image._lib)]:
-            fut.result()
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        futs = [pool.submit(kernel_march._lib), pool.submit(kernel_image._lib),
+                pool.submit(op_lengths)]
+        lengths = [f.result() for f in futs][2]
     build_s = time.perf_counter() - t0
     b, bi = BUILDS["march"], BUILDS["disk_image"]
     cfg = kernel_march.kernel_config()
     image_att = "; ".join(
-        f"{kernel_image.VARIANTS[dt]}: {att['registers']} registers, "
-        f"{att['local_bytes']} bytes local, {att['blocks_per_sm']} blocks an "
-        f"SM" for dt, att in ((dt, kernel_image.kernel_attributes(dt))
-                              for dt in kernel_image.VARIANTS))
+        f"{names[dt]}: {att['registers']} registers, {att['local_bytes']} "
+        f"bytes local, {att['blocks_per_sm']} blocks an SM"
+        for counted, names in ((False, kernel_image.VARIANTS),
+                               (True, kernel_image.COUNTED))
+        for dt, att in ((dt, kernel_image.kernel_attributes(dt, counted))
+                        for dt in names))
+    image_sass = sass_counts(bi["path"], IMAGE_INSTANCE, image_label)
     print(f"phase 1 device: {name} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | builds {build_s:.2f} s together: march "
           f"{b['seconds']:.2f} s cached={b['cached']}, disk_image "
@@ -391,9 +572,14 @@ def phase_device():
           + f" | ptxas: {ptxas_summary(b['log'])} | SASS (static): "
           + "; ".join(sass_summary(sass_counts(b["path"]), (1, 0, rt))
                       for rt in range(3))
-          + f" | image: {image_att} | image ptxas: "
-          + ptxas_summary(bi["log"], IMAGE_INSTANCE, image_label), flush=True)
-    return name
+          + f" | image: {kernel_image.kernel_config()}; {image_att} | image "
+          f"ptxas: " + ptxas_summary(bi["log"], IMAGE_INSTANCE, image_label)
+          + f" | image SASS (static): {image_sass_summary(image_sass)} | SASS "
+          f"lengths (f64 d, f32 f): "
+          + (", ".join(f"{op}_{t} {n}" for (op, t), n in sorted(
+              lengths.items())) or "not measured (no cuobjdump)"),
+          flush=True)
+    return name, lengths
 
 
 def phase_compare(dev):
@@ -796,6 +982,28 @@ def nt_disk(dtype, dev, a=NT["a"]):
                       for v in (NT["M"], a, NT["mdot"], NT["alpha"])))
 
 
+def sweep_spins():
+    """The spin sweep's spins, a = 0.998 - 2e-4 k, as Python floats."""
+    return [NT["a"] - 2e-4 * k for k in range(N_SWEEP)]
+
+
+def nt_disks(dtype, dev, spins):
+    """nt_setup over a vector of spins: one disk of (n,) tensors, the
+    headline frame's disk at each spin."""
+    from sim5_tpu_torch.disk import nt_setup
+    n = len(spins)
+    return nt_setup(*(torch.full((n,), v, dtype=dtype, device=dev)
+                      for v in (NT["M"],)),
+                    torch.tensor(spins, dtype=torch.float64,
+                                 device=dev).to(dtype),
+                    *(torch.full((n,), v, dtype=dtype, device=dev)
+                      for v in (NT["mdot"], NT["alpha"])))
+
+
+def bits(t):
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
 def image_err(got, want):
     """(max |got - want| over the pixels both hit / peak of want, footprint
     mismatches, max |got - want| over those pixels) of two images."""
@@ -806,8 +1014,8 @@ def image_err(got, want):
     return d / float(want.max()), int(((got > 0) != (want > 0)).sum()), d
 
 
-def check_image(tag, imf, img, npix):
-    check(tuple(imf.shape) == (npix, npix) == tuple(img.shape),
+def check_image(tag, imf, img, npix, batch=()):
+    check(tuple(imf.shape) == tuple(batch) + (npix, npix) == tuple(img.shape),
           f"{tag}: image shape {tuple(imf.shape)}")
     check(bool(torch.isfinite(imf).all() and torch.isfinite(img).all()),
           f"{tag}: non-finite pixels")
@@ -844,8 +1052,10 @@ def phase_image_golden(dev):
                 errs[tag] = err
             parts.append(f"{tag} {route} {err:.3e}")
     counts = dict(kernel_image.LAUNCHES)
-    check(counts == {"nt_image<double>": 2, "nt_image<float>": 0},
-          f"golden renders launched {counts}, not 2 f64 kernel launches")
+    want = {k: 2 if k in ("nt_frames<double>", "nt_image<double>") else 0
+            for k in counts}
+    check(counts == want, f"golden renders launched {counts}, not 2 f64 "
+          f"kernel launches")
     print(f"phase 10 disk image vs C goldens ({N_GOLDEN}^2 f64 on the card; "
           f"gate 1e-6 of peak, identical footprint): "
           + " | ".join(parts) + f" | ondevice_f64_err_a0={errs['a0']:.3e} "
@@ -854,21 +1064,66 @@ def phase_image_golden(dev):
     return errs
 
 
+def check_image_counters(tag, c, n, image_g):
+    """The counters of one launch against its image: every pixel counted
+    once by type, status and hit order, and the shaded pixels are those
+    with g > 0."""
+    lanes = {k: v[1] for k, v in c.items()}
+    hits = int((image_g > 0).sum())
+    check(lanes["pixels"] == n, f"{tag}: counted {lanes['pixels']} pixels, "
+          f"not {n}")
+    for group in ("type_", "status_"):
+        total = sum(v for k, v in lanes.items() if k.startswith(group))
+        check(total == n, f"{tag}: {group}* counters sum to {total}, not {n}")
+    check(lanes["hit0"] + lanes["hit1"] + lanes["dark"] == n,
+          f"{tag}: hit0 + hit1 + dark != {n}")
+    check(lanes["shade"] == lanes["hit0"] + lanes["hit1"] == hits,
+          f"{tag}: shaded {lanes['shade']}, hits {lanes['hit0']} + "
+          f"{lanes['hit1']}, pixels with g > 0 {hits}")
+    for stage, parts in (("rad0", ("rad0_RR", "rad0_RC", "rad0_CC")),
+                         ("order1", ("rad1_RR", "rad1_RC", "rad1_CC"))):
+        check(lanes[stage] == sum(lanes[p] for p in parts),
+              f"{tag}: {stage} != the sum of {parts}")
+
+
+def counters_text(c):
+    """The stages' warps, lanes and lane use, and the nonzero classes."""
+    stages = ("pixels", "rf_R", "K_R", "rad0", "order1", "shade")
+    out = [f"{k} {c[k][0]} warps {c[k][1]} lanes (use "
+           f"{c[k][1] / (32 * c[k][0]) if c[k][0] else float('nan'):.4f})"
+           for k in stages]
+    out += [f"{k} {v[1]}" for k, v in c.items()
+            if k not in stages and v[1]]
+    return ", ".join(out)
+
+
 def phase_image_main(dev):
     """The disk image's main path: the headline frame through nt_setup ->
-    render_disk_image in f64 and f32, held against the plain version."""
+    render_disk_image in f64 and f32, held against the plain version; then
+    the same frames through the counted instance (count_disk_image), whose
+    images must be bitwise the main path's, for the kernel's counters."""
     from sim5_tpu_torch.render import kernel_image, render_disk_image
     from sim5_tpu_torch.render.image import render_disk_image_reference
     npix, n = N_IMAGE, N_IMAGE * N_IMAGE
     kernel_image.LAUNCHES.update(dict.fromkeys(kernel_image.LAUNCHES, 0))
     t0 = time.perf_counter()
-    kern = {dt: render_disk_image(nt_disk(dt, dev), NT["incl"], npix, npix)
-            for dt in (torch.float64, torch.float32)}
+    kern, counters = {}, {}
+    for dt in (torch.float64, torch.float32):
+        kern[dt] = render_disk_image(nt_disk(dt, dev), NT["incl"], npix, npix)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(kernel_image.LAUNCHES)
-    check(counts == {"nt_image<double>": 1, "nt_image<float>": 1},
-          f"the main path launched {counts}, not each instance once")
+    want = {k: 0 if k in kernel_image.COUNTED.values() else 1 for k in counts}
+    check(counts == want, f"the main path launched {counts}, not each "
+          f"instance and its prologue once")
+    for dt in (torch.float64, torch.float32):
+        cf, cg = kernel_image.count_disk_image(nt_disk(dt, dev), NT["incl"],
+                                               npix, npix)
+        counters[dt] = kernel_image.image_counters()
+        check(torch.equal(bits(cf), bits(kern[dt][0]))
+              and torch.equal(bits(cg), bits(kern[dt][1])),
+              f"{kernel_image.COUNTED[dt]}: the images are not bitwise the "
+              f"main path's")
     plain = {dt: render_disk_image_reference(nt_disk(dt, dev), NT["incl"],
                                              npix, npix)
              for dt in (torch.float64, torch.float32)}
@@ -877,6 +1132,8 @@ def phase_image_main(dev):
         check_image(f"kernel {dt}", *kern[dt], npix)
         check_image(f"plain {dt}", *plain[dt], npix)
         check(kern[dt][0].dtype == dt, f"kernel image is {kern[dt][0].dtype}")
+        check_image_counters(kernel_image.COUNTED[dt], counters[dt], n,
+                             kern[dt][1])
     f64p, g64p = plain[torch.float64]
     err_f, mis_f, _ = image_err(kern[torch.float64][0], f64p)
     err_g, mis_g, _ = image_err(kern[torch.float64][1], g64p)
@@ -905,78 +1162,187 @@ def phase_image_main(dev):
           f"(mismatch {mis_p}) (gates 4e-6, {1e-5 * n:.2f}) | f32 kernel vs "
           f"f32 plain {errs[torch.float32][0]:.3e} of peak (mismatch "
           f"{errs[torch.float32][1]}) | hit share {hit:.4f} peak "
-          f"{float(f64p.max()):.6e} flux {float(f64p.sum()):.6e}",
-          flush=True)
-    return counts, {dt: e[2] for dt, e in errs.items()}, fast_k
+          f"{float(f64p.max()):.6e} flux {float(f64p.sum()):.6e} | counted "
+          f"instances bitwise the main path's images | counters "
+          + " | ".join(f"{kernel_image.COUNTED[dt]}: {counters_text(c)}"
+                       for dt, c in counters.items()), flush=True)
+    return counts, {dt: e[2] for dt, e in errs.items()}, fast_k, counters
 
 
-def image_bound(dtype, npix):
-    """(bound_ms, bound_by) of one npix^2 frame: operations per pixel on
-    the cheapest pixel's path over the peak rate of the type, or the bytes
-    (two images written, six scalars read) over the memory rate."""
+def image_bound(dtype, counters, lengths, npix):
+    """(bound_ms, bound_by) of one npix^2 frame whose counters are
+    `counters`: the operations of its pixel classes (image_ops) over the
+    peak rate of the type, or the bytes (two images written, six scalars
+    read) over the memory rate."""
     item = torch.tensor([], dtype=dtype).element_size()
-    t_ops = npix * npix * OPS_PIXEL[dtype] / PEAK[dtype]
+    t_ops = image_ops(dtype, counters, lengths) / PEAK[dtype]
     t_bytes = (2 * npix * npix + 6) * item / H100_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_image_timing(dev, name, errs):
-    """One frame of each instance (CUDA events, min of IMAGE_RUNS), the
-    f32 spin sweep through the entry points on the host clock, the plain
-    versions once, and the bound."""
+def event_runs(fn, reps):
+    """ms a call of fn(), sorted, over IMAGE_RUNS CUDA-event pairs around
+    `reps` calls each, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(IMAGE_RUNS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        out.append(e0.elapsed_time(e1) / reps)
+    return sorted(out)
+
+
+def spread(ms, scale=1.0):
+    return (f"{ms[0] * scale:.4f} / {ms[len(ms) // 2] * scale:.4f} / "
+            f"{ms[-1] * scale:.4f}")
+
+
+def host_runs(fn):
+    """Seconds a call of fn() takes on the host clock, synchronised,
+    sorted over SWEEP_RUNS calls after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(SWEEP_RUNS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return sorted(out)
+
+
+def phase_image_timing(dev, name, errs, counters, lengths):
+    """Each instance timed by CUDA events around runs of IMAGE_REPS
+    launches: one headline frame a launch, and N_SWEEP frames of the spin
+    sweep in one launch; the entry point's time a frame; the plain version
+    once; the bound from the main path's counters.  Gates: every frame of
+    an N_SWEEP-frame launch is bitwise the single-frame launch of its spin,
+    in both instances; the f64 kernel on a batch of three spins at 128^2
+    is within 1e-9 of the plain version's peak.  Then the f32 spin sweep
+    through nt_setup(spins) -> render_disk_image in one launch, and the
+    loop of one call a frame, on the host clock."""
     from sim5_tpu_torch import _build
     from sim5_tpu_torch.render import kernel_image, render_disk_image
     from sim5_tpu_torch.render.image import render_disk_image_reference
     npix, rows, parts = N_IMAGE, {}, []
+    spins = sweep_spins()
     for dt in (torch.float64, torch.float32):
+        name_k = kernel_image.VARIANTS[dt]
         disk = nt_disk(dt, dev)
-        render_disk_image(disk, NT["incl"], npix, npix)   # warm-up
-        best = float("inf")
-        for _ in range(IMAGE_RUNS):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            render_disk_image(disk, NT["incl"], npix, npix)
-            e1.record()
-            torch.cuda.synchronize()
-            best = min(best, e0.elapsed_time(e1))
+        frames = kernel_image.frame_scalars(disk, NT["incl"]).reshape(1, 6)
+        f = torch.empty((1, npix, npix), dtype=dt, device=dev)
+        g = torch.empty_like(f)
+        work = torch.empty((1, kernel_image.FRAME_WORDS), dtype=dt,
+                           device=dev)
+        cnt = kernel_image.new_counters(dev)
+        one = event_runs(lambda: kernel_image._launch(frames, f, g, None,
+                                                      work), IMAGE_REPS)
+        counted = event_runs(lambda: kernel_image._launch(frames, f, g, cnt,
+                                                          work), IMAGE_REPS)
+        entry = event_runs(lambda: render_disk_image(disk, NT["incl"], npix,
+                                                     npix), IMAGE_REPS)
+        # the sweep's frames in one launch, each against its single frame
+        batch = nt_disks(dt, dev, spins)
+        bf, bg = render_disk_image(batch, NT["incl"], npix, npix)
+        check_image(f"{name_k} {N_SWEEP}-frame launch", bf, bg, npix,
+                    (N_SWEEP,))
+        for k, a in enumerate(spins):
+            sf, sg = render_disk_image(nt_disk(dt, dev, a=a), NT["incl"],
+                                       npix, npix)
+            check(torch.equal(bits(bf[k]), bits(sf))
+                  and torch.equal(bits(bg[k]), bits(sg)),
+                  f"{name_k}: frame {k} (a = {a}) of the {N_SWEEP}-frame "
+                  f"launch is not bitwise its single-frame launch")
+        framesN = kernel_image.frame_scalars(batch, NT["incl"])
+        workN = torch.empty((N_SWEEP, kernel_image.FRAME_WORDS), dtype=dt,
+                            device=dev)
+        many = event_runs(lambda: kernel_image._launch(framesN, bf, bg, None,
+                                                       workN), 2)
         plain_ms, _ = timed(render_disk_image_reference, (disk, NT["incl"],
                                                           npix, npix), {})
-        bound_ms, bound_by = image_bound(dt, npix)
-        name_k = kernel_image.VARIANTS[dt]
-        rows[name_k] = dict(ms=best, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, max_abs_err=errs[dt])
-        parts.append(f"{name_k} {best:.3f} ms a frame (min of {IMAGE_RUNS}; "
-                     f"{npix * npix / (best * 1e-3):.4e} rays/s), bound "
-                     f"{bound_ms:.4f} ms ({bound_by}, {OPS_PIXEL[dt]} "
-                     f"operations a pixel; {bound_ms / best:.4f} of bound), "
-                     f"plain {plain_ms:.3f} ms")
-    # the f32 spin sweep, every frame through nt_setup -> render_disk_image
+        bound_ms, bound_by = image_bound(dt, counters[dt], lengths, npix)
+        rows[name_k] = dict(ms=one[0], plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, max_abs_err=errs[dt],
+                            ms_batch=many[0] / N_SWEEP)
+        ops = image_ops(dt, counters[dt], lengths)
+        # --fmad=false: each counted operation is one instruction, issued
+        # at half the FLOP peak (which counts an FMA as two)
+        issue_ms = 2 * ops / PEAK[dt] * 1e3
+        parts.append(
+            f"{name_k}: one frame a launch {spread(one)} ms (min / median / "
+            f"max of {IMAGE_RUNS} runs of {IMAGE_REPS} launches; "
+            f"{npix * npix / (one[0] * 1e-3):.4e} rays/s); {N_SWEEP} frames "
+            f"a launch {spread(many, 1 / N_SWEEP)} ms a frame; "
+            f"{kernel_image.COUNTED[dt]} one frame a launch {spread(counted)}"
+            f" ms ({counted[0] / one[0] - 1:+.2%}); the entry point "
+            f"render_disk_image, one frame a call, {spread(entry)} ms; "
+            f"bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{ops / (npix * npix):.1f} operations a pixel over the frame's "
+            f"classes; {bound_ms / one[0]:.3f} of the one-frame launch, "
+            f"{bound_ms / rows[name_k]['ms_batch']:.3f} of a frame in the "
+            f"{N_SWEEP}-frame launch); at the instruction issue rate "
+            f"{issue_ms:.4f} ms ({issue_ms / one[0]:.3f}, "
+            f"{issue_ms / rows[name_k]['ms_batch']:.3f}); plain "
+            f"{plain_ms:.3f} ms; every frame of the {N_SWEEP}-frame launch "
+            f"bitwise its single-frame launch")
+    # the f64 kernel on a batch of spins against the plain version's batch
+    small = nt_disks(torch.float64, dev, list(BATCH_SPINS))
+    kf, _ = render_disk_image(small, NT["incl"], N_BATCH, N_BATCH)
+    pf, _ = render_disk_image_reference(small, NT["incl"], N_BATCH, N_BATCH)
+    batch_errs = [image_err(kf[k], pf[k]) for k in range(len(BATCH_SPINS))]
+    for a, (err, mis, _) in zip(BATCH_SPINS, batch_errs):
+        check(err <= 1e-9, f"f64 batch, a = {a}: kernel vs plain {err:.3e} "
+              f"of the peak > 1e-9")
+        check(mis <= 1e-5 * N_BATCH * N_BATCH, f"f64 batch, a = {a}: "
+              f"footprint differs on {mis} pixels")
+    # the f32 spin sweep through the entry points: one launch, and the loop
+    # of one call a frame
     lib = kernel_image._lib()
     before = kernel_image.LAUNCHES["nt_image<float>"]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for k in range(N_SWEEP):
-        out = render_disk_image(nt_disk(torch.float32, dev,
-                                        a=NT["a"] - 2e-4 * k),
-                                NT["incl"], npix, npix)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    frames = kernel_image.LAUNCHES["nt_image<float>"] - before
+
+    def sweep_once():
+        return render_disk_image(nt_disks(torch.float32, dev, spins),
+                                 NT["incl"], npix, npix)
+
+    def sweep_loop():
+        for a in spins:
+            out = render_disk_image(nt_disk(torch.float32, dev, a=a),
+                                    NT["incl"], npix, npix)
+        return out
+
+    one_launch = host_runs(sweep_once)
+    mid = kernel_image.LAUNCHES["nt_image<float>"]
+    loop = host_runs(sweep_loop)
+    launches_once = (mid - before) // (SWEEP_RUNS + 1)
+    launches_loop = (kernel_image.LAUNCHES["nt_image<float>"] - mid) // (
+        SWEEP_RUNS + 1)
     libs = sorted(_build.BUILD_DIR.glob("libdisk_image_*.so"))
-    check(frames == N_SWEEP, f"the sweep launched {frames} frames")
+    check(launches_once == 1 and launches_loop == N_SWEEP,
+          f"the sweeps launched {launches_once} and {launches_loop} times")
     check(kernel_image._lib() is lib and len(libs) == 1,
           f"the sweep rebuilt the library: {libs}")
-    check_image("sweep last frame", *out, npix)
-    device_ms = rows["nt_image<float>"]["ms"]
+    check_image("sweep, one launch", *sweep_once(), npix, (N_SWEEP,))
+    device_ms = rows["nt_image<float>"]["ms_batch"]
     print(f"phase 12 disk image timing ({npix}^2; {name}): "
           + " | ".join(parts) + f" | device_ms_per_frame={device_ms:.4f} "
-          f"(f32) | spin sweep of {N_SWEEP} f32 frames (a = 0.998 - 2e-4 k) "
-          f"through nt_setup -> render_disk_image: {secs:.3f} s host clock, "
-          f"{N_SWEEP / secs:.2f} frames/s, {N_SWEEP * npix * npix / secs:.4e} "
-          f"rays/s, {frames} launches, one library ({libs[0].name}) built "
-          f"once for every spin", flush=True)
+          f"(f32, a frame of the {N_SWEEP}-frame launch) | f64 kernel vs "
+          f"plain on a batch of spins {BATCH_SPINS} at {N_BATCH}^2: "
+          + ", ".join(f"{e:.3e} (mismatch {m})" for e, m, _ in batch_errs)
+          + f" of each frame's peak (gate 1e-9) | spin sweep of {N_SWEEP} "
+          f"f32 frames (a = 0.998 - 2e-4 k), host clock, min / median / max "
+          f"of {SWEEP_RUNS}: nt_setup(spins) -> render_disk_image in one "
+          f"launch {spread(one_launch)} s, {N_SWEEP / one_launch[0]:.2f} "
+          f"frames/s ({N_SWEEP * npix * npix / one_launch[0]:.4e} rays/s); "
+          f"one call a frame {spread(loop)} s, {N_SWEEP / loop[0]:.2f} "
+          f"frames/s; one library ({libs[0].name}) for every spin",
+          flush=True)
     return rows
 
 
@@ -988,7 +1354,7 @@ def main():
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     try:
-        name = phase_device()
+        name, lengths = phase_device()
         torch.cuda.synchronize()
         phase_compare(dev)
         torch.cuda.synchronize()
@@ -1008,9 +1374,10 @@ def main():
         torch.cuda.synchronize()
         phase_image_golden(dev)
         torch.cuda.synchronize()
-        image_launches, image_errs, _ = phase_image_main(dev)
+        image_launches, image_errs, _, image_counts = phase_image_main(dev)
         torch.cuda.synchronize()
-        image_t = phase_image_timing(dev, name, image_errs)
+        image_t = phase_image_timing(dev, name, image_errs, image_counts,
+                                     lengths)
         torch.cuda.synchronize()
     except PhaseFailed as e:
         print(f"FAILED: {e}", file=sys.stderr)
@@ -1029,8 +1396,11 @@ def main():
         v = kernel_march.VARIANTS[rt]
         rows.append((v, march_src, (launches if rt == 0 else vol_launches)[v],
                      timing))
-    rows += [(v, image_src, image_launches[v], image_t[v])
-             for v in image_t]
+    from sim5_tpu_torch.render import kernel_image
+    for dt, v in kernel_image.VARIANTS.items():
+        pro = kernel_image.PROLOGUES[dt]
+        rows.append((f"{pro} + {v}", image_src,
+                     image_launches[pro] + image_launches[v], image_t[v]))
     print(json.dumps({"kernels": [{
         "name": v, **src, "launches": n, "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -5,7 +5,12 @@
 // Each function is the per-lane form of its plain torch version in
 // sim5_tpu_torch (named beside it): the same operations in the same order,
 // with the torch version's masked evaluation of every trajectory type
-// replaced by a branch on the lane's own type.  Constants are cast to the
+// replaced by a branch on the lane's own type that selects the arguments
+// of one call site a special function (R_roots' rf and K, position_rad's
+// sncndn), so that a warp holding several types runs each chain once.
+// The disk image's frame constants (make_frame) and pixel (nt_pixel) are
+// at the end; g++ builds this header too (SIM5_HD is inline there), for a
+// host check of the kernel's arithmetic.  Constants are cast to the
 // scalar type T first, as torch casts a Python scalar to the tensor's
 // dtype, so T = float runs the f32 fast path and T = double the f64
 // parity path.  The fixed depths are the port's by dtype (Prec<T>): RF
@@ -483,6 +488,37 @@ enum : int {
   kErrInclRange = 11, kErrSpinRange = 12
 };
 
+// The counters' slots.  A probe is called by every lane of a warp at the
+// same points (in R_roots before its calls, the rest at the end of
+// nt_pixel): probe(slot, p) with whether the lane enters a stage, and
+// probe.classes(slot, k, n) with the lane's class k of n consecutive
+// slots (k < 0: none).  Each stage has one call
+// site, which a warp runs once if any of its lanes enters, so the warps
+// with at least one such lane are the stage's runs.  The kernel's probe
+// counts, per slot, those warps and the lanes; kernel_image.COUNTERS names
+// them in this order.
+enum Slot : int {
+  kSlotPixels,    // the init: every pixel
+  kSlotRfR,       // R_roots' rf
+  kSlotKR,        // R_roots' K
+  kSlotRad0,      // the order-0 inversion (one sncndn)
+  kSlotOrder1,    // the order-1 pass (crossing and inversion)
+  kSlotShade,     // gfactorK and the flux
+  kSlotRad0RR, kSlotRad0RC, kSlotRad0CC,   // order-0 inversions by type
+  kSlotRad1RR, kSlotRad1RC, kSlotRad1CC,   // order-1 inversions by type
+  kSlotTypeRR, kSlotTypeRRBH, kSlotTypeRRDbl, kSlotTypeRC, kSlotTypeCC,
+  kSlotHit0, kSlotHit1, kSlotDark,
+  kSlotStatus0, kSlotStatus3, kSlotStatus4, kSlotStatus7, kSlotStatus8,
+  kSlotStatus9, kSlotStatus10, kSlotStatus11, kSlotStatus12,
+  kSlots
+};
+
+// a probe that counts nothing
+struct NoProbe {
+  SIM5_HD void operator()(int, bool) const {}
+  SIM5_HD void classes(int, int, int) const {}
+};
+
 template <typename T>
 struct Geod {
   T a, alpha, beta, incl, cos_i, l, q;
@@ -540,9 +576,16 @@ SIM5_HD CCMap<T> cc_map(const Geod<T>& g) {
   return c;
 }
 
-// _R_roots: radial roots, type, periastron rp and Rpc for an observer at r0
-template <typename T>
-SIM5_HD void R_roots(Geod<T>& g, T r0) {
+// _R_roots: radial roots, type, periastron rp and Rpc for an observer at r0.
+// Each lane selects the arguments of its one rf and its one K by type (a
+// type that needs neither keeps the dummies, rf(1, 1, 1) and K(1)), the two
+// calls sit outside the type branches, entered by the lanes that need them,
+// and the per-type combination follows: a warp that holds several types
+// runs each chain once.  `probe` counts the lanes that enter each call, at
+// the point where they are chosen: a flag carried to the end of the pixel
+// would hold registers through the whole chain.
+template <typename T, typename Probe>
+SIM5_HD void R_roots(Geod<T>& g, T r0, Probe& probe) {
   const T a = g.a, l = g.l, q = g.q;
   const T a2 = a * a;
   const T c2 = a2 - l * l - q;
@@ -556,6 +599,10 @@ SIM5_HD void R_roots(Geod<T>& g, T r0) {
 
   const T r1 = g.rr[0], r2 = g.rr[1], r3 = g.rr[2];
   g.status = kOk;
+  // rf(x, y, 1) and K(kmc); the combination Rpc of the two results uses
+  // the scalars u and v and, for RC, the sign of z
+  T x = T(1), y = T(1), kmc = T(1), u = T(0), v = T(0);
+  bool need_rf = false, need_k = false, z_pos = true;
   if (g.nrr == 4) {
     const bool dbl = Abs(r1 - r2) < T(1e-8);
     const bool inner = r0 >= r3 && r0 <= r2;
@@ -568,34 +615,60 @@ SIM5_HD void R_roots(Geod<T>& g, T r0) {
     const T c4 = T(2) / Sqrt(d13 * d24);
     if (inner) {
       g.rp = r2;
-      g.Rpc = c4 * elliptic_k_mc(d12 * d34 / (d24 * d13));
+      kmc = d12 * d34 / (d24 * d13);
+      need_k = true;
+      u = c4;                            // Rpc = c4 K
     } else {
       const T z4 = Clamp(Sqrt(d24 / d14), T(0), T(1));
       g.rp = r1;
-      g.Rpc = c4 * z4 * rf(d12 / d14, d12 / d13, T(1));
+      x = d12 / d14;
+      y = d12 / d13;
+      need_rf = true;
+      u = c4 * z4;                       // Rpc = c4 z4 rf
     }
   } else if (g.nrr == 2) {
     g.gtype = kTypeRC;
     T A, B, AmB, mm, mmc;
     rc_geometry(r1, r2, g.rr[2], Abs(g.ri[2]), A, B, AmB, mm, mmc);
-    const T z = AmB / (A + B);
+    const T zr = AmB / (A + B);
     const T feps = T(8.0 * static_cast<double>(Prec<T>::eps()));
-    const T az = Clamp(Abs(z), feps, T(1) - feps);
-    const T rf1 = rf(az * az, mmc + mm * az * az, T(1));
-    const T icn1 = Sqrt(T(1) - az * az) * rf1;
-    const T u = z >= T(0) ? icn1 : T(2) * elliptic_k_mc(mmc) - icn1;
+    const T az = Clamp(Abs(zr), feps, T(1) - feps);
+    x = az * az;
+    y = mmc + mm * az * az;
+    need_rf = true;
+    z_pos = zr >= T(0);
+    need_k = !z_pos;
+    kmc = mmc;
+    u = Sqrt(T(1) - az * az);            // icn1 = u rf
+    v = Sqrt(A * B);                     // Rpc = (icn1 or 2K - icn1) / v
     g.rp = r1;
-    g.Rpc = u / Sqrt(A * B);
   } else {
     g.gtype = kTypeCC;
     const CCMap<T> c = cc_map(g);
     const T zg = T(1) / c.g1;
     const T w2 = zg * zg / (T(1) + zg * zg);
     const T w2c = T(1) / (T(1) + zg * zg);
-    const T rf1 = rf(w2c, c.mmc + c.mm * w2c, T(1));
+    x = w2c;
+    y = c.mmc + c.mm * w2c;
+    kmc = c.mmc;
+    need_rf = need_k = true;
+    u = T(2) / (c.A + c.B);              // Rpc = u (2K - v rf)
+    v = Sqrt(w2);
     g.rp = c.b1 - c.a1 * c.g1;
-    g.Rpc = T(2) / (c.A + c.B) *
-            (T(2) * elliptic_k_mc(c.mmc) - Sqrt(w2) * rf1);
+  }
+  probe(kSlotRfR, need_rf);
+  probe(kSlotKR, need_k);
+  T rfv = T(1);
+  if (need_rf) rfv = rf(x, y, T(1));
+  T kv = T(0);
+  if (need_k) kv = elliptic_k_mc(kmc);
+  if (g.nrr == 4) {
+    g.Rpc = u * (need_k ? kv : rfv);
+  } else if (g.nrr == 2) {
+    const T icn1 = u * rfv;
+    g.Rpc = (z_pos ? icn1 : T(2) * kv - icn1) / v;
+  } else {
+    g.Rpc = u * (T(2) * kv - v * rfv);
   }
 }
 
@@ -631,26 +704,28 @@ SIM5_HD int T_roots(Geod<T>& g, T m0) {
                                   : (!qpos && !qneg) ? kErrQRange : kOk;
 }
 
-// geodesic_init_inf: the geodesic of impact parameters (alpha, beta)
-template <typename T>
-SIM5_HD Geod<T> init_inf(T i, T a, T alpha, T beta) {
+// geodesic_init_inf: the geodesic of impact parameters (alpha, beta) for
+// an observer at inclination i, with cos_i = Cos(i) and sin_i = Sin(i)
+// computed once for the frame
+template <typename T, typename Probe>
+SIM5_HD Geod<T> init_inf(T i, T cos_i, T sin_i, T a, T alpha, T beta,
+                         Probe& probe) {
   Geod<T> g;
   const bool bad_spin = a < T(0) || a > T(1.0 - 1e-6);
   const bool bad_incl = i <= T(0) || i >= T(kPi / 2.0);
   beta = beta == T(0) ? T(1e-6) : beta;
   const T a_eff = ClampMin(a, T(1e-4));
-  const T cos_i = Cos(i);
   g.a = a_eff;
   g.alpha = alpha;
   g.beta = beta;
   g.incl = i;
   g.cos_i = cos_i;
-  g.l = -alpha * Sin(i);
+  g.l = -alpha * sin_i;
   T q = beta * beta + cos_i * cos_i * (alpha * alpha - a_eff * a_eff);
   const bool bad_q = q == T(0);
   g.q = q = bad_q ? T(1) : q;
 
-  R_roots(g, Prec<T>::r_observer());   // the observer at r0 = 1e300
+  R_roots(g, Prec<T>::r_observer(), probe);   // the observer at r0 = 1e300
   const int st_r = g.status;
   const int st_t = T_roots(g, cos_i);
   g.status = bad_spin ? kErrSpinRange
@@ -665,7 +740,7 @@ SIM5_HD Geod<T> init_inf(T i, T a, T alpha, T beta) {
   g.Tpp = T(2) * g.mK * elliptic_k_mc(mm_c);
   // Tip = mK icn(cos_i/sqrt(m2p), mm), 1 - u^2 cancellation-free
   const T denom = a_eff * a_eff * (g.m2m + cos_i * cos_i) * g.m2p;
-  const T bs = beta * Sin(i);
+  const T bs = beta * sin_i;
   const T eps_ident = denom > T(0) ? bs * bs / denom : T(0.5);
   const T eps_direct = (g.m2p - cos_i * cos_i) / g.m2p;
   const T eps = Clamp(eps_direct > T(1e-6) ? eps_direct : eps_ident,
@@ -695,7 +770,10 @@ SIM5_HD T find_midplane_crossing(const Geod<T>& g, int order) {
   return pos;
 }
 
-// geodesic_position_rad: r(P), NaN outside the valid range
+// geodesic_position_rad: r(P), NaN outside the valid range.  Each lane
+// selects the argument u and parameter of its one sncndn by type, makes
+// the one call, then applies its type's formula to (sn, cn) and the three
+// scalars p0-p2 its branch kept.
 template <typename T>
 SIM5_HD T position_rad(const Geod<T>& g, T P) {
   const bool is_rr = g.gtype == kTypeRR, is_bh = g.gtype == kTypeRRBH;
@@ -705,41 +783,54 @@ SIM5_HD T position_rad(const Geod<T>& g, T P) {
   const T Pf = is_bh ? Pz - T(2) * g.Rpc * Floor(Pz / (T(2) * g.Rpc)) : Pz;
   const bool P_valid = finite && Pf > T(0) && Pf < T(2) * g.Rpc;
   const T Ps = P_valid ? Pf : T(0.5) * g.Rpc;
-  T r = Nan<T>(), sn, cn, dn;
+  T u = T(0), m = T(1), p0 = T(0), p1 = T(0), p2 = T(0);
   if (is_rr || is_bh) {
-    const T r1 = g.rr[0], r2 = g.rr[1];
     const T d12 = g.root_diff(0, 1), d13 = g.root_diff(0, 2);
     const T d23 = g.root_diff(1, 2), d24 = g.root_diff(1, 3);
     const T d34 = g.root_diff(2, 3);
     const T m4c = Clamp(d12 * d34 / (d24 * d13), Prec<T>::tiny(), T(1));
-    const T x4 = T(0.5) * Abs(Ps - g.Rpc) * Sqrt(d13 * d24);
-    sncndn(x4, m4c <= T(0) ? T(1e-9) : m4c, sn, cn, dn);
-    const T sn2 = sn * sn;
-    if (is_rr) {
-      // r = r2 + d12 d24 / (d24 cn^2 - d12 sn^2), no cancellation in r - r2
-      const T D = d24 * (cn * cn) - d12 * sn2;
-      r = r2 + d12 * d24 / (D != T(0) ? D : Prec<T>::tiny());
-    } else {
-      const T w = sn2 * d23 / d13;
-      r = (r2 - w * r1) / (T(1) - w);
-    }
+    u = T(0.5) * Abs(Ps - g.Rpc) * Sqrt(d13 * d24);
+    m = m4c <= T(0) ? T(1e-9) : m4c;
+    p0 = is_rr ? d12 : d23;
+    p1 = is_rr ? d24 : d13;
   } else if (is_rc) {
-    const T t1 = g.rr[0], t2 = g.rr[1];
     T A, B, AmB, m2, m2c;
-    rc_geometry(t1, t2, g.rr[2], Abs(g.ri[2]), A, B, AmB, m2, m2c);
+    rc_geometry(g.rr[0], g.rr[1], g.rr[2], Abs(g.ri[2]), A, B, AmB, m2, m2c);
     const T Ps_rc = (P_valid && Pf < g.Rpc) ? Ps : T(0.5) * g.Rpc;
-    sncndn(Sqrt(A * B) * (g.Rpc - Ps_rc), m2c <= T(0) ? T(1e-9) : m2c, sn,
-           cn, dn);
-    r = (t2 * A - t1 * B - (t2 * A + t1 * B) * cn) / (AmB - (A + B) * cn);
-    if (Pf > g.Rpc) r = Nan<T>();   // no turning point
+    u = Sqrt(A * B) * (g.Rpc - Ps_rc);
+    m = m2c <= T(0) ? T(1e-9) : m2c;
+    p0 = A;
+    p1 = B;
+    p2 = AmB;
   } else if (is_cc) {
     const CCMap<T> c = cc_map(g);
     const T Ps_cc = (P_valid && Pf <= g.Rpc) ? Ps : T(0.5) * g.Rpc;
-    sncndn(T(0.5) * (c.A + c.B) * (g.Rpc - Ps_cc),
-           c.mmc <= T(0) ? T(1e-9) : c.mmc, sn, cn, dn);
+    u = T(0.5) * (c.A + c.B) * (g.Rpc - Ps_cc);
+    m = c.mmc <= T(0) ? T(1e-9) : c.mmc;
+    p0 = c.a1;
+    p1 = c.b1;
+    p2 = c.g1;
+  }
+  T sn = T(0), cn = T(1), dn = T(1);
+  if (is_rr || is_bh || is_rc || is_cc) sncndn(u, m, sn, cn, dn);
+  T r = Nan<T>();
+  if (is_rr) {
+    // r = r2 + d12 d24 / (d24 cn^2 - d12 sn^2), no cancellation in r - r2
+    const T sn2 = sn * sn;
+    const T D = p1 * (cn * cn) - p0 * sn2;
+    r = g.rr[1] + p0 * p1 / (D != T(0) ? D : Prec<T>::tiny());
+  } else if (is_bh) {
+    const T w = sn * sn * p0 / p1;
+    r = (g.rr[1] - w * g.rr[0]) / (T(1) - w);
+  } else if (is_rc) {
+    const T t1 = g.rr[0], t2 = g.rr[1];
+    r = (t2 * p0 - t1 * p1 - (t2 * p0 + t1 * p1) * cn) /
+        (p2 - (p0 + p1) * cn);
+    if (Pf > g.Rpc) r = Nan<T>();   // no turning point
+  } else if (is_cc) {
     const T cs = Abs(cn) > T(1e-30) ? cn : (cn >= T(0) ? T(1e-30) : T(-1e-30));
     const T z = sn / cs;
-    r = (z * (c.a1 + c.b1 * c.g1) + c.b1 - c.a1 * c.g1) / (T(1) + c.g1 * z);
+    r = (z * (p0 + p1 * p2) + p1 - p0 * p2) / (T(1) + p2 * z);
     if (Pf > g.Rpc) r = Nan<T>();   // no turning point
   }
   if (Pf <= T(0) || Pf >= T(2) * g.Rpc || !finite) r = Nan<T>();
@@ -770,58 +861,152 @@ SIM5_HD T gfactorK(T r, T a, T l) {
   return Sqrt(ClampMin(s3 * kep, T(0))) / (s3 + a - l);
 }
 
-// nt_flux's per-disk constants (the partial-fraction weights, x0 - x_i,
-// the linear coefficient C1), computed once per thread
+// ---------------------------------------------------------------------------
+// the disk image (render/image.py:render_disk_image_reference), one pixel
+// ---------------------------------------------------------------------------
+
+// A frame's constants: its six scalars, what the pixels derive from them
+// alone (cos i, sin i, the reference's r_ms), and nt_flux's per-disk
+// constants (the partial-fraction weights c1-c3, x0 = sqrt(rms) as
+// x0h + x0l, x0 - x_i, the linear coefficient C1).  make_frame computes
+// it once; every pixel of the frame reads it.
 template <typename T>
-struct NTFlux {
-  T a, rms, M, mdot, x0h, x0l, x0mx1, x0mx2, x0mx3, c1, c2, c3, C1;
-
-  SIM5_HD NTFlux(T a_, T rms_, T M_, T mdot_)
-      : a(a_), rms(rms_), M(M_), mdot(mdot_) {
-    const T th = Acos(Clamp(a, T(-1), T(1))) / T(3);
-    const T x1 = T(2) * Cos(th - T(kPi / 3.0));
-    const T x2 = T(2) * Cos(th + T(kPi / 3.0));
-    const T x3 = T(-2) * Cos(th);
-    const T s3 = T(kSqrt3);
-    const T sth = Sin(th), s2th = Sin(T(2) * th), cth = Cos(th);
-    const T d12x = T(2.0 * kSqrt3) * sth;
-    const T d13x = T(3) * cth + s3 * sth;
-    const T d23x = T(3) * cth - s3 * sth;
-    const T x1ma = sth * (s3 + T(2) * s2th);
-    const T x3ma = x3 - a;
-    const T x2ma =
-        a * (T(1) - a) * (T(1) + a) / ((x1ma == T(0) ? T(1) : x1ma) * x3ma);
-    const T x2s = x2 == T(0) ? Prec<T>::guard_1e300() : x2;
-    c1 = T(3) * (x1ma * x1ma) / (x1 * d12x * d13x);
-    c2 = T(-3) * (x2ma * x2ma) / (x2s * d12x * d23x);
-    c3 = T(3) * (x3ma * x3ma) / (x3 * (x3 - x1) * (x3 - x2));
-    sqrt_df(rms, x0h, x0l);
-    const T x0 = x0h;
-    const T rms1 = rms - T(1);
-    x0mx1 = (rms1 - T(2) * sth * sth - s3 * s2th) / (x0 + x1);
-    x0mx2 = (rms1 - T(2) * sth * sth + s3 * s2th) / (x0 + x2);
-    x0mx3 = x0 + T(2) * cth;
-    C1 = T(1) - T(1.5) * a / x0 - c1 / x0mx1 - c2 / x0mx2 - c3 / x0mx3;
-  }
-
-  // nt_flux(disk, r) [erg cm-2 s-1], in the delta form
-  SIM5_HD T operator()(T r) const {
-    const bool inside = r <= rms;
-    const T rs = inside ? rms * T(1.0001) : r;
-    T xh, xl;
-    sqrt_df(rs, xh, xl);
-    const T x0 = x0h;
-    const T delta = (xh - x0h) + (xl - x0l);
-    const T B = delta * C1 + T(1.5) * a * vlog(delta / x0) +
-                c1 * vlog(delta / x0mx1) + c2 * vlog(delta / x0mx2) +
-                c3 * vlog(delta / x0mx3);
-    const T F = T(1) / (T(4.0 * kPi) * rs) * T(1.5) /
-                (xh * xh *
-                 ((x0mx1 + delta) * (x0mx2 + delta) * (x0mx3 + delta))) *
-                B;
-    const T out = T(9.1721376255e+28) * F * mdot / M;
-    return inside ? T(0) : out;
-  }
+struct Frame {
+  T a, incl, cos_i, sin_i, M, mdot, rms_disk, rms, rmax;
+  T x0h, x0l, x0mx1, x0mx2, x0mx3, c1, c2, c3, C1;
 };
+
+// the frame of the six scalars s = (a, incl, M, mdot, rms_disk, rmax),
+// rms_disk being the disk's edge, ISCO + 1e-3
+template <typename T>
+SIM5_HD Frame<T> make_frame(const T* s) {
+  Frame<T> d;
+  d.a = s[0];
+  d.incl = s[1];
+  d.M = s[2];
+  d.mdot = s[3];
+  d.rms_disk = s[4];
+  d.rmax = s[5];
+  d.cos_i = Cos(d.incl);
+  d.sin_i = Sin(d.incl);
+  // the reference compares against r_ms(a), not rms + 1e-3
+  d.rms = d.rms_disk - T(1e-3);
+  const T a = d.a, rms = d.rms_disk;
+  const T th = Acos(Clamp(a, T(-1), T(1))) / T(3);
+  const T x1 = T(2) * Cos(th - T(kPi / 3.0));
+  const T x2 = T(2) * Cos(th + T(kPi / 3.0));
+  const T x3 = T(-2) * Cos(th);
+  const T s3 = T(kSqrt3);
+  const T sth = Sin(th), s2th = Sin(T(2) * th), cth = Cos(th);
+  const T d12x = T(2.0 * kSqrt3) * sth;
+  const T d13x = T(3) * cth + s3 * sth;
+  const T d23x = T(3) * cth - s3 * sth;
+  const T x1ma = sth * (s3 + T(2) * s2th);
+  const T x3ma = x3 - a;
+  const T x2ma =
+      a * (T(1) - a) * (T(1) + a) / ((x1ma == T(0) ? T(1) : x1ma) * x3ma);
+  const T x2s = x2 == T(0) ? Prec<T>::guard_1e300() : x2;
+  d.c1 = T(3) * (x1ma * x1ma) / (x1 * d12x * d13x);
+  d.c2 = T(-3) * (x2ma * x2ma) / (x2s * d12x * d23x);
+  d.c3 = T(3) * (x3ma * x3ma) / (x3 * (x3 - x1) * (x3 - x2));
+  sqrt_df(rms, d.x0h, d.x0l);
+  const T x0 = d.x0h;
+  const T rms1 = rms - T(1);
+  d.x0mx1 = (rms1 - T(2) * sth * sth - s3 * s2th) / (x0 + x1);
+  d.x0mx2 = (rms1 - T(2) * sth * sth + s3 * s2th) / (x0 + x2);
+  d.x0mx3 = x0 + T(2) * cth;
+  d.C1 = T(1) - T(1.5) * a / x0 - d.c1 / d.x0mx1 - d.c2 / d.x0mx2 -
+         d.c3 / d.x0mx3;
+  return d;
+}
+
+// nt_flux(disk, r) [erg cm-2 s-1], in the delta form, from the frame's
+// constants
+template <typename T>
+SIM5_HD T nt_flux(const Frame<T>& d, T r) {
+  const T rms = d.rms_disk;
+  const bool inside = r <= rms;
+  const T rs = inside ? rms * T(1.0001) : r;
+  T xh, xl;
+  sqrt_df(rs, xh, xl);
+  const T x0 = d.x0h;
+  const T delta = (xh - d.x0h) + (xl - d.x0l);
+  const T B = delta * d.C1 + T(1.5) * d.a * vlog(delta / x0) +
+              d.c1 * vlog(delta / d.x0mx1) + d.c2 * vlog(delta / d.x0mx2) +
+              d.c3 * vlog(delta / d.x0mx3);
+  const T F = T(1) / (T(4.0 * kPi) * rs) * T(1.5) /
+              (xh * xh *
+               ((d.x0mx1 + delta) * (d.x0mx2 + delta) * (d.x0mx3 + delta))) *
+              B;
+  const T out = T(9.1721376255e+28) * F * d.mdot / d.M;
+  return inside ? T(0) : out;
+}
+
+// One pixel (ix, iy) of an nx x ny frame with aspect ny / nx: image_f =
+// F g^4 and image_g = g, 0 where the ray misses the disk.  The reference
+// control flow (disk-image.c:73-104): no order-0 crossing leaves the pixel
+// dark; order 1 only where order 0 fell inside the ISCO; the hit, of
+// either order, is shaded once.  Every lane runs the probes in the same
+// order whatever its path.
+template <typename T, typename Probe>
+SIM5_HD void nt_pixel(const Frame<T>& d, int ix, int iy, int nx, int ny,
+                      T aspect, Probe& probe, T& f_out, T& g_out) {
+  // image_grid: pixel centres, [0, 0] at the image centre
+  const T fx = (T(ix) + T(0.5)) / T(nx) - T(0.5);
+  const T fy = (T(iy) + T(0.5)) / T(ny) - T(0.5);
+  const T alpha = fx * T(2) * d.rmax;
+  const T beta = fy * T(2) * d.rmax * aspect;
+  const Geod<T> g =
+      init_inf(d.incl, d.cos_i, d.sin_i, d.a, alpha, beta, probe);
+  const bool ok = g.status == kOk;
+
+  const T P0 = find_midplane_crossing(g, 0);
+  const bool has0 = IsFinite(P0);
+  T r = Nan<T>();
+  if (has0) r = position_rad(g, P0);
+  const bool hit0 = IsFinite(r) && r >= d.rms && ok;
+  const bool use1 = has0 && !hit0;
+  if (use1) r = position_rad(g, find_midplane_crossing(g, 1));
+  const bool hit1 = use1 && IsFinite(r) && r >= d.rms && ok;
+  const bool hit = hit0 || hit1;
+  T f = T(0), gf = T(0);
+  if (hit) {
+    gf = gfactorK(r, d.a, g.l);
+    const T g2 = gf * gf;
+    f = nt_flux(d, r) * (g2 * g2);
+  }
+  f_out = f;
+  g_out = gf;
+
+  // the counters, once the pixel is done (R_roots counts its two calls)
+  probe(kSlotPixels, true);
+  probe(kSlotRad0, has0);
+  probe(kSlotOrder1, use1);
+  probe(kSlotShade, hit);
+  // the inversion's type: RR (or RR_BH), RC, CC, or none (RR double)
+  const bool is_rc = g.gtype == kTypeRC, is_cc = g.gtype == kTypeCC;
+  const int inv = g.gtype == kTypeRR || g.gtype == kTypeRRBH ? 0
+                  : is_rc                                     ? 1
+                  : is_cc                                     ? 2
+                                                              : -1;
+  probe.classes(kSlotRad0RR, has0 ? inv : -1, 3);
+  probe.classes(kSlotRad1RR, use1 ? inv : -1, 3);
+  const int type = g.gtype == kTypeRR      ? 0
+                   : g.gtype == kTypeRRBH  ? 1
+                   : g.gtype == kTypeRRDbl ? 2
+                   : is_rc                 ? 3
+                   : is_cc                 ? 4
+                                           : -1;
+  probe.classes(kSlotTypeRR, type, 5);
+  probe.classes(kSlotHit0, hit0 ? 0 : hit1 ? 1 : 2, 3);
+  // the error codes, rare, apart from kOk
+  const int codes[8] = {kErrUnknownSolution, kErrRRDouble, kErrQRange,
+                        kErrMuPlusRange, kErrMu0Range, kErrMMRange,
+                        kErrInclRange, kErrSpinRange};
+  int err = -1;
+  for (int k = 0; k < 8; ++k) err = g.status == codes[k] ? k : err;
+  probe(kSlotStatus0, ok);
+  probe.classes(kSlotStatus3, err, 8);
+}
 
 }  // namespace sim5

@@ -6,7 +6,9 @@ initialised, intersected with the equatorial plane (orders 0 and 1, the
 direct and the first orbiting image) and shaded by the NT flux and the
 Keplerian g-factor.  `render_disk_image` runs one launch of the CUDA
 kernel `csrc/disk_image.cu` for a disk on the card, and its plain torch
-version `render_disk_image_reference` for a disk on the CPU.
+version `render_disk_image_reference` for a disk on the CPU.  A disk of
+(n,) tensors (`nt_setup` over n spins) renders n frames at once, the
+port's form of `jax.vmap` over the JAX package's `render_disk_image`.
 """
 
 import torch
@@ -16,7 +18,7 @@ from ..core.metric import default_device
 from ..disk import NTDisk, nt_flux
 from ..geodesic import (geodesic_init_inf, geodesic_find_midplane_crossing,
                         geodesic_position_rad)
-from .kernel_image import render_disk_image_cuda
+from .kernel_image import batch_shape, render_disk_image_cuda
 
 
 def image_grid(npix_x, npix_y, rmax, dtype=torch.float64, device=None):
@@ -35,10 +37,21 @@ def image_grid(npix_x, npix_y, rmax, dtype=torch.float64, device=None):
 def render_disk_image_reference(disk: NTDisk, incl, npix_x=512, npix_y=512,
                                 rmax=None):
     """The plain torch version of `render_disk_image`, on the disk's device
-    and in its dtype; differentiable (every masked branch keeps its
-    NaN-safe dummy)."""
+    and in its dtype, for one frame or a batch (`kernel_image.batch_shape`);
+    differentiable (every masked branch keeps its NaN-safe dummy)."""
+    shape = batch_shape(disk, incl, rmax)
+    incl = torch.as_tensor(incl, dtype=disk.a.dtype, device=disk.a.device)
+    if shape:
+        # one frame a row: each frame's scalars broadcast over its pixels
+        def frames(v):
+            return v.broadcast_to(shape).reshape(tuple(shape) + (1, 1))
+
+        disk = disk._replace(M=frames(disk.M), a=frames(disk.a),
+                             mdot=frames(disk.mdot), rms=frames(disk.rms))
+        incl = frames(incl)
+        if isinstance(rmax, torch.Tensor):
+            rmax = frames(rmax.to(dtype=disk.a.dtype, device=disk.a.device))
     a = disk.a
-    incl = torch.as_tensor(incl, dtype=a.dtype, device=a.device)
     rms = disk.rms - 1e-3  # reference compares against r_ms(a), not rms+1e-3
     if rmax is None:
         rmax = rms + 8.0
@@ -74,20 +87,23 @@ def render_disk_image(disk: NTDisk, incl, npix_x=512, npix_y=512, rmax=None):
 
     Args:
       disk: NTDisk (`nt_setup`); its device and dtype (f64 parity or f32
-        fast path) are the image's.
-      incl: observer inclination [rad].
+        fast path) are the image's.  Fields of shape (n,) (`nt_setup` over
+        n spins) are n frames.
+      incl: observer inclination [rad], a scalar or one value a frame.
       npix_x, npix_y: image dimensions.
-      rmax: half-width of the field of view [rg]; default rms + 8
-        (reference example default, disk-image.c:42).
+      rmax: half-width of the field of view [rg], a scalar or one value a
+        frame; default rms + 8 (reference example default,
+        disk-image.c:42).
 
     Returns:
-      (image_f, image_g): (npix_y, npix_x) tensors; image_f = F * g^4
-      [erg cm-2 s-1], image_g = g-factor (0 where the ray misses the disk).
+      (image_f, image_g): (npix_y, npix_x) tensors for one frame, (n,
+      npix_y, npix_x) for n; image_f = F * g^4 [erg cm-2 s-1], image_g =
+      g-factor (0 where the ray misses the disk).
 
-    A disk on the card renders in one launch of the CUDA kernel
-    (`kernel_image.render_disk_image_cuda`, forward only: a disk that
-    requires grad raises there); a disk on the CPU takes the plain torch
-    version.
+    A disk on the card renders in one launch of the CUDA kernel, all its
+    frames at once (`kernel_image.render_disk_image_cuda`, forward only: a
+    disk that requires grad raises there); a disk on the CPU takes the
+    plain torch version.
     """
     dev = disk.a.device
     if dev.type == "cuda":

@@ -84,5 +84,7 @@ class TestWrapper:
         assert not any("fast" in f for f in kernel_image.NVCC_EXTRA)
         src = (_build.CSRC / "disk_image.cu").read_text()
         assert '#include "analytic.cuh"' in src
-        assert set(kernel_image.LAUNCHES) == {"nt_image<double>",
-                                              "nt_image<float>"}
+        assert set(kernel_image.LAUNCHES) == {
+            f"{k}<{t}>" for k in ("nt_frames", "nt_image")
+            for t in ("double", "float")} | {"nt_image<double, counted>",
+                                             "nt_image<float, counted>"}
