@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port on one GPU: the stepwise Kerr ray march,
-volume radiative transfer and the Novikov-Thorne disk image.
+volume radiative transfer, the Novikov-Thorne disk image, the analytic
+azimuth and travel time, and the hot-spot light curve.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -22,7 +23,7 @@ kernel (`sim5_tpu_torch/csrc/disk_image.cu`, f64 and f32) are built into
    raytrace_prepare -> raytrace_kernel -> raytrace_error, with the
    reference's Carter-drift gates, the launch counts and the lane
    counters (lane-trips == sum of steps);
-4. the f64 torch engine on 16384 rays of the same workload, same gates;
+4. the f64 torch engine on 8192 rays of the same workload, same gates;
 5. the march timed at 131072 rays (CUDA events, the minimum of
    TIMED_RUNS): ms, ray-steps/s, lane use and the bound, every run bitwise
    equal to the first; the time of each segment; the plain version once;
@@ -30,7 +31,7 @@ kernel (`sim5_tpu_torch/csrc/disk_image.cu`, f64 and f32) are built into
    64^2 pixels (example 11's torus, thin and thick);
 7. the volume path's main path: volume_image(engine="kernel") at 512^2
    for alpha0 = 0 and 1, with the launch counts and the image gates;
-8. the kernel route against the f64 loop engine at 128^2;
+8. the kernel route against the f64 loop engine at 96^2;
 9. phase 5's timing and gates for the transfer variants at 512^2, thin
    and thick, and their plain version once;
 10. the disk image against the C goldens on the card (128^2, a = 0 and
@@ -53,7 +54,29 @@ kernel (`sim5_tpu_torch/csrc/disk_image.cu`, f64 and f32) are built into
     f32 spin sweep through nt_setup(spins) -> render_disk_image in one
     launch and as one call a frame, on the host clock (frames/s, one build
     for all spins); the plain versions once, and the bound from the main
-    path's counters.
+    path's counters;
+13. the analytic azimuth and travel time on the card: phi against the C
+    golden's position samples (geod.txt, at least 97% within rtol 1e-4,
+    atol 1e-6), the time delay against timedelay.txt (95% within rtol
+    1e-5, atol 1e-7); then the card against the same torch code on the
+    CPU in f64 at 64^2, for the volume seed's azimuth and the crossing
+    map's (r, phi, g, delay): r and g within 1e-12 relative, phi and the
+    delay within their per-pixel bounds (`phi_bound`, `time_bound`);
+14. the volume path with its default azimuth stage and an orbiting
+    source (example 07's spot as a 3-D `GaussianSource`: a = 0.5, 70 deg,
+    r = 7, width, height and arc 0.7, omega = OmegaK(7, 0.5)):
+    volume_image(engine="kernel") at 512^2 thin and thick with the
+    launch counts and phase 7's gates, the seed's three stages timed
+    apart, phase 8's gates at 128^2, the flux one orbital period later
+    equal to 1e-3 (volume_lightcurve), and the march timed on the 512^2
+    seed and held against its plain version on the same inputs, as in
+    phase 9;
+15. example 07's hot-spot light curve at its full size
+    (hotspot_lightcurve at 192^2, orders 0 and 1, 96 samples over two
+    periods): each crossing map, the curve given the maps and the entry
+    point timed, and the crossing map at 512^2; finite and positive,
+    sample k equal to sample k + 48 to 1e-9, delays of the hit pixels
+    from exactly 0.
 
 Then one JSON line on the kernels, the card's name and power limit, and
 the result as the last line.  Any failed check exits non-zero.  The script
@@ -79,7 +102,7 @@ import torch
 SEED_MAIN = 3
 N_CMP = 4096
 N_MAIN = 131072
-N_F64 = 16384
+N_F64 = 8192             # cut from 16384 to keep the script near 600 s
 MAIN = dict(a=0.9, precision=0.01, r_max=500.0, max_steps=4000)
 # example 11's translucent torus (examples/11_thick_volume_transfer.py),
 # axisymmetric seed, at bench.py's headline resolution
@@ -87,8 +110,21 @@ VOL = dict(a=0.9, incl=math.radians(70.0), rmax=16.0, r_start=40.0,
            max_steps=2000, precision=0.02, axisymmetric=True)
 N_VOL_PIX = 512
 N_VOL_CMP = 64
-N_VOL_LOOP = 128
+N_VOL_LOOP = 128         # the orbiting source against the f64 loop engine
+N_VOL_LOOP_TORUS = 96    # the torus (cut from 128 to keep the script near
+                         # 600 s)
 ALPHA0 = (0.0, 1.0)
+# example 07's hot spot (examples/07_hotspot_lightcurve.py: a = 0.5, 70 deg,
+# r_spot = 7, size 0.7, two periods in 96 samples at 192^2, orders 0 and 1)
+SPOT = dict(a=0.5, incl=math.radians(70.0), r_spot=7.0, size=0.7)
+N_HOTSPOT = 192
+HOTSPOT_T = 96
+N_MAP = 512              # the crossing map at the volume path's resolution
+N_ANALYTIC = 64          # the analytic engine, card against the CPU
+# the same spot as a 3-D source orbiting at OmegaK(7, 0.5) (width, height
+# and arc 0.7), through the volume path with its azimuth stage
+VOL_SPOT = dict(a=SPOT["a"], incl=SPOT["incl"], rmax=17.5, r_start=40.0,
+                max_steps=2000, precision=0.02, axisymmetric=False)
 TIMED_RUNS = 6           # timed runs of each march (the minimum is kept)
 # bench.py's headline frame (bench.py:293-295) and its spin sweep
 NT = dict(M=10.0, a=0.998, mdot=0.1, alpha=0.1, incl=math.radians(80.0))
@@ -755,14 +791,14 @@ def torus(alpha0=1.0):
                           inv_height=1.0 / 1.5, cylindrical=True)
 
 
-def volume_seed_f32(npix, dev):
-    """The f64 analytic seed of the volume configuration at npix^2, cast to
+def volume_seed_f32(npix, dev, cfg=VOL):
+    """The f64 analytic seed of a volume configuration at npix^2, cast to
     f32 as the kernel route does, and the valid mask, as a flat batch of
     npix^2 rays."""
     from sim5_tpu_torch.render import lightcurve
-    kw = {k: VOL[k] for k in ("rmax", "r_start", "precision",
+    kw = {k: cfg[k] for k in ("rmax", "r_start", "precision",
                               "axisymmetric")}
-    st, ok = lightcurve._volume_seed(VOL["a"], VOL["incl"], 0.0, npix=npix,
+    st, ok = lightcurve._volume_seed(cfg["a"], cfg["incl"], 0.0, npix=npix,
                                      device=dev, **kw)
     st = lightcurve._as_f32(st)
     flat = {f: getattr(st, f).flatten(0, 1) for f in (
@@ -832,22 +868,31 @@ def phase_transfer_compare(dev):
           f"peak): " + " | ".join(parts), flush=True)
 
 
-def phase_volume_main(dev):
-    """The volume path's main path: volume_image(engine="kernel") at
-    512^2, thin then thick, through the entry point a user calls."""
+def volume_kw(cfg, npix):
+    """volume_image's keywords of a volume configuration at npix^2."""
+    return dict(npix=npix, rmax=cfg["rmax"], r_start=cfg["r_start"],
+                max_steps=cfg["max_steps"], precision=cfg["precision"],
+                axisymmetric=cfg["axisymmetric"])
+
+
+def volume_main(dev, cfg=VOL, source=None):
+    """A volume main path: volume_image(engine="kernel") at 512^2 of
+    `source` (alpha0 -> model or None; the torus by default), thin then
+    thick, through the entry point a user calls, each with the launch
+    counts set to 0 just before it.  Returns (images, launches a
+    variant, march ms a variant, text of each, text of the thick-thin
+    gate)."""
     from sim5_tpu_torch.march import kernel_march
     from sim5_tpu_torch.render import lightcurve, volume_image
-    images, launches, parts = {}, {}, []
+    source = source or torus
+    images, launches, march, parts = {}, {}, {}, []
     for alpha0 in ALPHA0:
         kernel_march.LAUNCHES.update(dict.fromkeys(kernel_march.LAUNCHES, 0))
         t0 = time.perf_counter()
         with launch_events() as events:
-            I = volume_image(VOL["a"], VOL["incl"], torus(), npix=N_VOL_PIX,
-                             rmax=VOL["rmax"], r_start=VOL["r_start"],
-                             max_steps=VOL["max_steps"],
-                             precision=VOL["precision"], engine="kernel",
-                             absorption_fn=torus(alpha0),
-                             axisymmetric=VOL["axisymmetric"])
+            I = volume_image(cfg["a"], cfg["incl"], source(),
+                             engine="kernel", absorption_fn=source(alpha0),
+                             **volume_kw(cfg, N_VOL_PIX))
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(kernel_march.LAUNCHES)
@@ -856,12 +901,13 @@ def phase_volume_main(dev):
         check(counts[variant] >= 1,
               f"alpha0={alpha0}: the image launched {variant} 0 times")
         launches[variant] = counts[variant]
+        march[variant] = march_ms
         # the seed alone, warm, on the host clock
         t0 = time.perf_counter()
         lightcurve._volume_seed(
-            VOL["a"], VOL["incl"], 0.0, npix=N_VOL_PIX, rmax=VOL["rmax"],
-            r_start=VOL["r_start"], precision=VOL["precision"],
-            axisymmetric=VOL["axisymmetric"], device=dev)
+            cfg["a"], cfg["incl"], 0.0, npix=N_VOL_PIX, rmax=cfg["rmax"],
+            r_start=cfg["r_start"], precision=cfg["precision"],
+            axisymmetric=cfg["axisymmetric"], device=dev)
         torch.cuda.synchronize()
         seed_s = time.perf_counter() - t0
         Id = I.double()
@@ -885,39 +931,46 @@ def phase_volume_main(dev):
     # f32: expf's error of up to 2 ulp near 1 lets s_eff exceed dl by up to
     # 2^-23 / alpha on an accepted step with dtau > 1e-6, so a thick pixel
     # may exceed its thin one by 2^-23 j / alpha a step (j / alpha =
-    # 1 / alpha0 for this torus), on at most max_steps steps.
-    allow = 1e-6 * peak + VOL["max_steps"] * 2.0 ** -23 / ALPHA0[1]
+    # 1 / alpha0 for the torus and the spot), on at most max_steps steps.
+    allow = 1e-6 * peak + cfg["max_steps"] * 2.0 ** -23 / ALPHA0[1]
     check(excess <= allow, f"thick exceeds thin by {excess:.3e} > "
           f"{allow:.3e} (1e-6 of peak {peak:.4e} + f32 rounding of s_eff)")
     check(float(thick.sum()) < float(thin.sum()),
           "thick total flux is not below thin")
+    gate = (f"thick - thin <= {excess:.3e} = {excess / peak:.3e} of peak "
+            f"(gate {allow:.3e}: 1e-6 of peak + max_steps 2^-23 / alpha0), "
+            f"flux ratio thick/thin "
+            f"{float(thick.sum()) / float(thin.sum()):.5f}")
+    return images, launches, march, parts, gate
+
+
+def phase_volume_main(dev):
+    """The volume path's main path for example 11's torus."""
+    _, launches, march, parts, gate = volume_main(dev)
     print(f"phase 7 volume main path ({N_VOL_PIX}^2, a={VOL['a']}, incl "
           f"{math.degrees(VOL['incl']):.0f}, r_start {VOL['r_start']}, "
           f"{VOL['max_steps']} steps, f64 seed -> f32 kernel): "
-          + " | ".join(parts) + f" | thick - thin <= {excess:.3e} = "
-          f"{excess / peak:.3e} of peak (gate {allow:.3e}: 1e-6 of peak + "
-          f"max_steps 2^-23 / alpha0), flux ratio thick/thin "
-          f"{float(thick.sum()) / float(thin.sum()):.5f}", flush=True)
+          + " | ".join(parts) + f" | {gate}", flush=True)
     return launches
 
 
-def phase_volume_loop(dev):
-    """The kernel route against the f64 loop engine at 128^2, and the loop
-    engine's thick image against its thin one pixel by pixel, at the JAX
-    package's gate for that engine (test_pallas_march.py)."""
+def volume_loop(dev, npix, cfg=VOL, source=None):
+    """The kernel route against the f64 loop engine at npix^2 for `source`
+    (the torus by default), and the loop engine's thick image against its
+    thin one pixel by pixel, at the JAX package's gate for that engine
+    (test_pallas_march.py): returns the text."""
     from sim5_tpu_torch.render import volume_image
-    kw = dict(npix=N_VOL_LOOP, rmax=VOL["rmax"], r_start=VOL["r_start"],
-              max_steps=VOL["max_steps"], precision=VOL["precision"],
-              axisymmetric=VOL["axisymmetric"])
+    source = source or torus
+    kw = volume_kw(cfg, npix)
     parts, loop = [], {}
     for alpha0 in ALPHA0:
         t0 = time.perf_counter()
-        I_l = volume_image(VOL["a"], VOL["incl"], torus(), engine="loop",
-                           absorption_fn=torus(alpha0), **kw).double()
+        I_l = volume_image(cfg["a"], cfg["incl"], source(), engine="loop",
+                           absorption_fn=source(alpha0), **kw).double()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        I_k = volume_image(VOL["a"], VOL["incl"], torus(), engine="kernel",
-                           absorption_fn=torus(alpha0), **kw).double()
+        I_k = volume_image(cfg["a"], cfg["incl"], source(), engine="kernel",
+                           absorption_fn=source(alpha0), **kw).double()
         peak = float(I_l.max())
         err = float((I_k - I_l).abs().max())
         check(peak > 0.0, f"alpha0={alpha0}: loop peak I {peak}")
@@ -931,9 +984,14 @@ def phase_volume_loop(dev):
     excess = float((loop[1.0] - loop[0.0]).max())
     check(excess <= 1e-6 * peak, f"f64 loop: thick exceeds thin by "
           f"{excess:.3e} > 1e-6 of peak {peak:.4e}")
-    print(f"phase 8 kernel route vs f64 loop engine ({N_VOL_LOOP}^2; gate "
-          f"2e-2 of peak): " + " | ".join(parts) + f" | f64 loop thick - "
-          f"thin <= {excess:.3e} (gate 1e-6 of peak)", flush=True)
+    return " | ".join(parts) + (f" | f64 loop thick - thin <= {excess:.3e} "
+                                f"(gate 1e-6 of peak)")
+
+
+def phase_volume_loop(dev):
+    print(f"phase 8 kernel route vs f64 loop engine ({N_VOL_LOOP_TORUS}^2; "
+          f"gate 2e-2 of peak): " + volume_loop(dev, N_VOL_LOOP_TORUS),
+          flush=True)
 
 
 def phase_volume_timing(dev, name):
@@ -1346,6 +1404,347 @@ def phase_image_timing(dev, name, errs, counters, lengths):
     return rows
 
 
+# --- phases 13-15: the analytic azimuth and travel time, the orbiting
+# source through the volume path, and example 07's hot-spot light curve
+
+EPS64 = float(np.finfo(np.float64).eps)
+
+
+def phi_bound(g, phi):
+    """The bound on phi between two evaluations of the same f64 algebra
+    whose sin/cos round differently by an ulp (the card's and the CPU's):
+    near a poloidal turning point x -> b = sqrt(m2p) the theta term's
+    integrand goes as 1 / ((1 - b^2) sqrt(a^2 + b^2) sqrt(2b (b - x))),
+    so an ulp of cn moves phi by about sqrt(eps) |l/a| / ((1 - m2p)
+    sqrt(m2m + m2p)) (tests/test_torch_azimuth.py measures 1-2 x that
+    between the JAX package's jitted and op-by-op programs)."""
+    S = (g.l / g.a).abs() / ((1.0 - g.m2p).abs()
+                              * (g.m2m + g.m2p).abs().sqrt())
+    return 8.0 * math.sqrt(EPS64) * S + 1e-12 * (1.0 + phi.abs())
+
+
+def time_bound(g, t, t_far=0.0):
+    """The same for a travel time: its poloidal part a integral_T_m2 has
+    the same turning point, sqrt(eps) a m2p / sqrt(m2m + m2p); its radial
+    part from a far radius t_far in is a sum of Byrd & Friedman terms of
+    size ~t_far that cancel down to the result, and loses up to 1.1e-11
+    t_far (the jitted JAX program against the port from R_FAR = 1e4,
+    tests/test_torch_slow_parity.py): 1e-10 t_far."""
+    return (8.0 * math.sqrt(EPS64) * g.a * g.m2p
+            / (g.m2m + g.m2p).abs().sqrt() + 1e-12 * (1.0 + t.abs())
+            + 1e-10 * t_far)
+
+
+def golden_rows(fname, tag):
+    """The rows of one tag of a golden file in tests/golden."""
+    path = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
+    return np.asarray([[float(v) for v in line.split()[1:]] for line in
+                       (path / fname).read_text().splitlines()
+                       if line.split()[:1] == [tag]])
+
+
+def gpos_rows():
+    """(a, incl, alpha, beta, P, phi) of geod.txt's position samples of the
+    geodesics the reference initialized."""
+    path = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
+    rows, cur = [], None
+    for line in (path / "geod.txt").read_text().splitlines():
+        parts = line.split()
+        if not parts:
+            continue
+        vals = [float(v) for v in parts[1:]]
+        if parts[0] == "ginit":
+            cur = vals if vals[4] == 1 else None
+        elif parts[0] == "gpos" and cur is not None:
+            rows.append(cur[:4] + [vals[0], vals[3]])
+    return np.asarray(rows)
+
+
+def worst(err, bound, sel):
+    """(max err / bound, max err, the bound there) over `sel`."""
+    ratio = torch.where(sel, err / bound, 0.0)
+    i = int(ratio.flatten().argmax())
+    return (float(ratio.flatten()[i]), float(err[sel].max()),
+            float(bound.flatten()[i]))
+
+
+def analytic_f64(device):
+    """The seed's azimuth (VOL_SPOT at N_ANALYTIC^2) and the crossing map
+    (order 0, N_ANALYTIC^2) on `device`, and the image grid's geodesic."""
+    from sim5_tpu_torch import geodesic as gd
+    from sim5_tpu_torch.render import lightcurve, image_grid
+    c = VOL_SPOT
+    g, ok, P0s, r0, m0 = lightcurve._volume_seed_geom(
+        c["a"], c["incl"], N_ANALYTIC, c["rmax"], c["r_start"],
+        torch.float64, device)
+    phi = lightcurve._volume_seed_azm(g, ok, P0s, r0, m0)
+    m = lightcurve.equatorial_crossing_map(c["a"], c["incl"], N_ANALYTIC,
+                                           2.5 * SPOT["r_spot"], 0,
+                                           device=device)
+    alpha, beta = image_grid(N_ANALYTIC, N_ANALYTIC, 2.5 * SPOT["r_spot"],
+                             device=device)
+    gm = gd.geodesic_init_inf(c["incl"], c["a"], alpha, beta)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return g, ok, phi, m, gm
+
+
+def phase_analytic(dev):
+    """The analytic azimuth and travel time on the card: against the C
+    goldens, and against the same torch code on the CPU in f64."""
+    from sim5_tpu_torch import geodesic as gd
+    from sim5_tpu_torch.render import lightcurve
+    d = gpos_rows()
+    t = [torch.tensor(d[:, i], device=dev) for i in range(6)]
+    g = gd.geodesic_init_inf(t[1], t[0], t[2], t[3])
+    r = gd.geodesic_position_rad(g, t[4])
+    m = gd.geodesic_position_pol(g, t[4])
+    phi = gd.geodesic_position_azm(g, r, m, t[4])
+    ok = (torch.isfinite(t[5]) & torch.isfinite(phi) & torch.isfinite(r)
+          & torch.isfinite(m))
+    close = ((phi - t[5]).abs() <= 1e-6 + 1e-4 * t[5].abs())[ok]
+    frac = float(close.double().mean())
+    check(int(ok.sum()) > 100 and frac > 0.97,
+          f"azimuth vs C golden: {frac:.4f} of {int(ok.sum())} within "
+          f"rtol 1e-4 atol 1e-6 (gate > 0.97)")
+    d = golden_rows("timedelay.txt", "td")
+    t = [torch.tensor(d[:, i], device=dev) for i in range(10)]
+    g = gd.geodesic_init_inf(t[1], t[0], t[2], t[3])
+    dt = gd.geodesic_timedelay(g, t[4], t[5], t[6], t[7], t[8],
+                               torch.zeros_like(t[8]))
+    fin = torch.isfinite(dt) == torch.isfinite(t[9])
+    both = torch.isfinite(dt) & torch.isfinite(t[9])
+    td_ok = ((dt - t[9]).abs() <= 1e-7 + 1e-5 * t[9].abs())[both]
+    td_frac = float(td_ok.double().mean())
+    check(float(fin.double().mean()) > 0.95 and td_frac > 0.95,
+          f"time delay vs C golden: finiteness agrees on "
+          f"{float(fin.double().mean()):.4f}, {td_frac:.4f} within rtol "
+          f"1e-5 atol 1e-7 (gates > 0.95)")
+    # the card against the CPU, f64, the same torch code
+    t0 = time.perf_counter()
+    gk, okk, phik, mk, gmk = analytic_f64(dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gc, okc, phic, mc, gmc = analytic_f64("cpu")
+    cpu_s = time.perf_counter() - t0
+    okc = okc & torch.isfinite(phic)
+    check(torch.equal(okk.cpu() & torch.isfinite(phik.cpu()), okc),
+          "seed: valid pixels differ between the card and the CPU")
+    seed_w = worst((phik.cpu() - phic).abs(), phi_bound(gc, phic), okc)
+    hit = mc["hit"]
+    check(torch.equal(mk["hit"].cpu(), hit),
+          "crossing map: hit pixels differ between the card and the CPU")
+    rel = {k: float(((mk[k].cpu() - mc[k]).abs() / mc[k].abs())[hit].max())
+           for k in ("r", "g")}
+    map_phi = worst((mk["phi"].cpu() - mc["phi"]).abs(),
+                    phi_bound(gmc, mc["phi"]), hit)
+    tb = time_bound(gmc, mc["delay"], lightcurve.R_FAR)
+    tb = tb + tb[hit][int(mc["delay"][hit].argmin())]   # the anchor pixel
+    map_dt = worst((mk["delay"].cpu() - mc["delay"]).abs(), tb, hit)
+    for k, v in rel.items():
+        check(v <= 1e-12, f"crossing map {k}: card vs CPU {v:.3e} > 1e-12")
+    for tag, w in (("seed phi", seed_w), ("map phi", map_phi),
+                   ("map delay", map_dt)):
+        check(w[0] <= 1.0, f"{tag}: card vs CPU {w[1]:.3e} exceeds its "
+              f"bound ({w[0]:.3f} of it)")
+    print(f"phase 13 analytic azimuth and delay: vs C goldens on the card: "
+          f"phi {frac:.4f} of {int(ok.sum())} samples within rtol 1e-4 "
+          f"atol 1e-6 (gate > 0.97), time delay {td_frac:.4f} within rtol "
+          f"1e-5 atol 1e-7 (gate > 0.95) | card vs CPU, f64, "
+          f"{N_ANALYTIC}^2 (card {card_s:.2f} s, CPU {cpu_s:.2f} s): "
+          f"crossing map r {rel['r']:.3e}, g {rel['g']:.3e} relative (gate "
+          f"1e-12); phi and delay against their per-pixel bounds "
+          f"(8 sqrt(eps) times the turning-point factor; + 1e-10 R_FAR for "
+          f"the delay's radial part): seed phi max "
+          f"{seed_w[1]:.3e} rad ({seed_w[0]:.3f} of its bound, bound there "
+          f"{seed_w[2]:.3e}), map phi max {map_phi[1]:.3e} rad "
+          f"({map_phi[0]:.3f}, {map_phi[2]:.3e}), map delay max "
+          f"{map_dt[1]:.3e} ({map_dt[0]:.3f}, {map_dt[2]:.3e})", flush=True)
+
+
+def spot(alpha0=1.0):
+    """Example 07's spot as a 3-D source orbiting at OmegaK(7, 0.5) (alpha0
+    = 1), or its absorption alpha0 * j (None for alpha0 = 0)."""
+    from sim5_tpu_torch.core import OmegaK
+    from sim5_tpu_torch.march.emission import GaussianSource
+    if alpha0 == 0.0:
+        return None
+    om = float(OmegaK(torch.tensor(SPOT["r_spot"], dtype=torch.float64),
+                      SPOT["a"]))
+    w = 1.0 / SPOT["size"]
+    return GaussianSource(amp=alpha0, center=SPOT["r_spot"], inv_width=w,
+                          inv_height=w, cylindrical=True, omega=om,
+                          inv_arc=w)
+
+
+def seed_stages(dev, cfg, npix):
+    """Seconds of each stage of the f64 seed (geometry / azimuth /
+    packing) at npix^2, warm, on the synchronised host clock."""
+    from sim5_tpu_torch.render import lightcurve
+    secs = []
+
+    def lap(t0):
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        return time.perf_counter()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g, ok, P0s, r0, m0 = lightcurve._volume_seed_geom(
+        cfg["a"], cfg["incl"], npix, cfg["rmax"], cfg["r_start"],
+        torch.float64, dev)
+    t0 = lap(t0)
+    phi0 = lightcurve._volume_seed_azm(g, ok, P0s, r0, m0)
+    t0 = lap(t0)
+    lightcurve._volume_seed_pack(g, ok, P0s, r0, m0, phi0, cfg["a"], 0.0,
+                                 cfg["r_start"], cfg["precision"])
+    lap(t0)
+    return secs
+
+
+def phase_orbit_volume(dev, name):
+    """The volume path with its default azimuth stage and an orbiting
+    source, through the march kernel: the 512^2 main path thin and thick,
+    the seed's stages, the kernel against the f64 loop engine (128^2),
+    the light curve's periodicity, and the march timed on the 512^2 seed
+    and held against its plain version there (phase 9's gates).  Returns
+    the launches and the kernels line's row of each variant."""
+    from sim5_tpu_torch.core import OmegaK
+    from sim5_tpu_torch.march import kernel_march
+    from sim5_tpu_torch.render import volume_lightcurve
+    cfg = VOL_SPOT
+    images, launches, march, parts, gate = volume_main(dev, cfg, spot)
+    for v, n in launches.items():
+        check(n >= 1, f"orbiting source: {v} launched {n} times")
+    stages = seed_stages(dev, cfg, N_VOL_PIX)   # warm: the images ran it
+    loop_text = volume_loop(dev, N_VOL_LOOP, cfg, spot)
+    # the source is periodic in t and the spacetime stationary: one period
+    # later the light curve repeats
+    period = 2.0 * math.pi / float(OmegaK(torch.tensor(
+        SPOT["r_spot"], dtype=torch.float64), SPOT["a"]))
+    flux = volume_lightcurve(cfg["a"], cfg["incl"], spot(), [0.0, period],
+                             engine="kernel", device=dev,
+                             **volume_kw(cfg, N_VOL_PIX))
+    lc_rel = abs(flux[1] - flux[0]) / abs(flux[0])
+    check(flux[0] > 0.0 and lc_rel <= 1e-3, f"orbiting source: flux at t0 "
+          f"= 0 and one period later differ by {lc_rel:.3e} > 1e-3")
+    # the march timed on the 512^2 seed and held against its plain
+    # version on the same inputs, as phase 9
+    st0, ok = volume_seed_f32(N_VOL_PIX, dev, cfg)
+    tensors, scalars = kernel_march._pack(
+        st0, 1.2 * cfg["r_start"], cfg["max_steps"], 1e-2, ok)
+    n = N_VOL_PIX * N_VOL_PIX
+    rows, timed_parts = {}, []
+    for alpha0 in ALPHA0:
+        rt = 1 if alpha0 == 0.0 else 2
+        tag = f"orbiting {N_VOL_PIX}^2 alpha0={alpha0}"
+        kw = dict(scalars, emissivity=spot(), absorption=spot(alpha0))
+        timing, same = march_timing(tensors, kw)
+        ms_p, out_p = timed(kernel_march.march_reference, tensors, kw)
+        eq, rel, dI, peak_p = compare_transfer(timing[1], out_p, st0)
+        check(peak_p > 0.0, f"{tag}: plain peak I is {peak_p}")
+        check(eq > 0.9, f"{tag}: equal steps {eq:.4f}")
+        check(dI <= 1e-3 * peak_p, f"{tag}: |dI| {dI:.3e} > 1e-3 of peak "
+              f"{peak_p:.4e}")
+
+        def max_dI(outs, plain):
+            return compare_transfer(outs, plain, st0)[2]
+
+        text, rows[rt] = timing_report(tag, n, rt, timing, same, out_p,
+                                       ms_p, max_dI)
+        timed_parts.append(
+            f"alpha0={alpha0}: {text} | kernel vs plain: equal steps "
+            f"{eq:.4f} rel dr {rel:.3e} |dI| {dI:.3e} ({dI / peak_p:.3e} of "
+            f"peak {peak_p:.4e})")
+    # the azimuth's share of one image, from this phase's own stage and
+    # march times
+    image_s = sum(stages) + rows[1]["ms"] * 1e-3
+    peak = float(images[0.0].max())
+    print(f"phase 14 orbiting source through the volume path ({N_VOL_PIX}^2, "
+          f"a={cfg['a']}, incl {math.degrees(cfg['incl']):.0f}, spot at r="
+          f"{SPOT['r_spot']} of width, height and arc {SPOT['size']}, omega "
+          f"{2 * math.pi / period:.6f}, r_start {cfg['r_start']}, "
+          f"{cfg['max_steps']} steps, default axisymmetric=False; {name}): "
+          + " | ".join(parts) + f" | {gate} | seed stages (f64, host clock, "
+          f"warm): geometry {stages[0]:.3f} s, azimuth {stages[1]:.3f} s, "
+          f"packing {stages[2]:.3f} s; the azimuth is {stages[1] / image_s:.4f}"
+          f" of seed + thin march ({image_s:.3f} s) | vs f64 loop "
+          f"({N_VOL_LOOP}^2; gate "
+          f"2e-2 of peak): {loop_text} | light curve t0 = 0 / one period: "
+          f"{flux[0]:.9e} / {flux[1]:.9e}, relative {lc_rel:.3e} (gate "
+          f"1e-3) | march timed on the {N_VOL_PIX}^2 seed (gates: equal "
+          f"steps > 0.9, "
+          f"|dI| <= 1e-3 of peak): " + " | ".join(timed_parts)
+          + f" | peak {peak:.4e}", flush=True)
+    return launches, rows
+
+
+def phase_hotspot(dev):
+    """Example 07 at its full size: the crossing maps at 192^2 (orders 0
+    and 1), the light curve over two orbital periods in 96 samples given
+    the maps, the entry point, and the crossing map at 512^2."""
+    from sim5_tpu_torch.core import OmegaK
+    from sim5_tpu_torch.render import (equatorial_crossing_map,
+                                       hotspot_lightcurve, lightcurve)
+    a, incl, rs, size = (SPOT[k] for k in ("a", "incl", "r_spot", "size"))
+    Om = OmegaK(torch.tensor(rs, dtype=torch.float64, device=dev), a)
+    period = 2.0 * math.pi / float(Om)
+    t_obs = np.arange(HOTSPOT_T) / HOTSPOT_T * 2 * period
+    maps, map_s = [], []
+    for order in (0, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        maps.append(equatorial_crossing_map(a, incl, N_HOTSPOT, 2.5 * rs,
+                                            order, device=dev))
+        torch.cuda.synchronize()
+        map_s.append(time.perf_counter() - t0)
+    t = torch.as_tensor(t_obs, device=dev)
+    t0 = time.perf_counter()
+    lc = sum(lightcurve.spot_flux(m, Om, rs, size, t) for m in maps)
+    torch.cuda.synchronize()
+    lc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lc_entry = hotspot_lightcurve(a, incl, rs, size, t_obs, npix=N_HOTSPOT,
+                                  n_orders=2, device=dev)
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    check(torch.equal(lc, lc_entry), "the light curve composed from the "
+          "maps is not bitwise the entry point's")
+    check(bool(torch.isfinite(lc).all()) and bool((lc > 0).all()),
+          "light curve not finite and positive")
+    half = HOTSPOT_T // 2
+    per_rel = float(((lc[half:] - lc[:half]).abs() / lc[:half]).max())
+    check(per_rel <= 1e-9, f"light curve: sample k vs k + {half} (one "
+          f"period) {per_rel:.3e} > 1e-9")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big = equatorial_crossing_map(a, incl, N_MAP, 2.5 * rs, 0, device=dev)
+    torch.cuda.synchronize()
+    big_s = time.perf_counter() - t0
+    hits = []
+    for tag, m in ((f"{N_HOTSPOT}^2 order 0", maps[0]),
+                   (f"{N_HOTSPOT}^2 order 1", maps[1]),
+                   (f"{N_MAP}^2 order 0", big)):
+        d = m["delay"][m["hit"]]
+        check(d.numel() > 0 and float(d.min()) == 0.0 and bool(
+            torch.isfinite(d).all()), f"{tag}: delays over hits not finite "
+              f"with minimum exactly 0")
+        hits.append(f"{tag} {float(m['hit'].double().mean()):.4f} (delays "
+                    f"0 to {float(d.max()):.4f})")
+    lcn = lc.cpu().numpy()
+    print(f"phase 15 hot-spot light curve (example 07: a={a}, incl "
+          f"{math.degrees(incl):.0f}, r_spot {rs}, size {size}, "
+          f"{N_HOTSPOT}^2, orders 0 and 1, {HOTSPOT_T} samples over two "
+          f"periods of {period:.4f}): crossing maps {map_s[0]:.3f} / "
+          f"{map_s[1]:.3f} s, the light curve given the maps {lc_s * 1e3:.3f}"
+          f" ms, the entry point {entry_s:.3f} s (host clock, synchronised) "
+          f"| crossing map at {N_MAP}^2 {big_s:.3f} s | hit fractions: "
+          + ", ".join(hits) + f" | flux min {lcn.min():.6e} max "
+          f"{lcn.max():.6e} (modulation {lcn.max() / lcn.min():.3f}x), one "
+          f"period apart within {per_rel:.3e} (gate 1e-9)", flush=True)
+    return dict(map_s=map_s, lc_s=lc_s, entry_s=entry_s, big_s=big_s)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1379,6 +1778,12 @@ def main():
         image_t = phase_image_timing(dev, name, image_errs, image_counts,
                                      lengths)
         torch.cuda.synchronize()
+        phase_analytic(dev)
+        torch.cuda.synchronize()
+        orbit_launches, orbit_rows = phase_orbit_volume(dev, name)
+        torch.cuda.synchronize()
+        phase_hotspot(dev)
+        torch.cuda.synchronize()
     except PhaseFailed as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
@@ -1394,8 +1799,13 @@ def main():
     rows = []
     for rt, timing in {0: t, **vol_t}.items():
         v = kernel_march.VARIANTS[rt]
-        rows.append((v, march_src, (launches if rt == 0 else vol_launches)[v],
-                     timing))
+        extra = ({} if rt == 0 else {
+            f"orbiting_{k}": orbit_rows[rt][k] for k in (
+                "ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by")})
+        if rt:
+            extra["orbiting_launches"] = orbit_launches[v]
+        rows.append((v, dict(march_src, **extra),
+                     (launches if rt == 0 else vol_launches)[v], timing))
     from sim5_tpu_torch.render import kernel_image
     for dt, v in kernel_image.VARIANTS.items():
         pro = kernel_image.PROLOGUES[dt]

@@ -9,7 +9,8 @@
 // Pallas kernel calls the user's jnp emissivity and absorption; a CUDA
 // kernel cannot call Python, so j and alpha come from one compiled-in
 // family (sim5_tpu_torch/march/emission.py:GaussianSource) whose
-// parameters are kernel arguments.
+// parameters are kernel arguments: a Gaussian in the radius, the height,
+// the time and, for a source that orbits, the azimuth.
 //
 // What bounds it: FP32 ALU work, issue slots lost to idle lanes, and
 // register pressure.  A trial step is four connection evaluations (<= 20
@@ -67,6 +68,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kSegTrips = 128;
 constexpr float kTiny = 1e-30f;
+constexpr float kPi = 3.14159265358979f;
 
 // Blocks of kThreads that each instance asks to keep resident on an SM
 // (__launch_bounds__' second argument; 1 leaves the registers free).  The
@@ -96,9 +98,11 @@ __device__ __forceinline__ float nan_max(float x, float y) {
 
 // One model of the GaussianSource family (emission.py), by value:
 // j = amp exp(-[((rho - center) inv_w)^2 + (r m inv_h)^2
-//               + ((t - t_c) inv_d)^2] / 2),  rho = r or r sqrt(1 - m^2).
+//               + ((t - t_c) inv_d)^2 + (rho dphi inv_arc)^2] / 2),
+// rho = r or r sqrt(1 - m^2), dphi = phi - phi_c - omega t wrapped into
+// [-pi, pi): a spot orbiting at the angular velocity omega.
 struct Gauss {
-  float amp, center, inv_w, inv_h, t_c, inv_d;
+  float amp, center, inv_w, inv_h, t_c, inv_d, phi_c, omega, inv_arc;
   int cyl;
 };
 
@@ -220,13 +224,24 @@ __device__ __forceinline__ Conn flat_conn(float r, float m) {
   return g;
 }
 
+// The arc term is a branch on a kernel parameter, uniform across the
+// launch: a source that does not orbit (inv_arc == 0) runs the arithmetic
+// of the family without it, bit for bit.
 __device__ __forceinline__ float gauss(const Gauss& g, float t, float r,
-                                       float m) {
+                                       float m, float phi) {
   const float rho = g.cyl ? r * sqrtf(fmaxf(1.0f - m * m, 0.0f)) : r;
   const float d = (rho - g.center) * g.inv_w;
   const float z = r * m * g.inv_h;
   const float w = (t - g.t_c) * g.inv_d;
-  return g.amp * expf(-0.5f * (d * d + z * z + w * w));
+  float s = d * d + z * z + w * w;
+  if (g.inv_arc != 0.0f) {
+    // floored modulo, exact: fmodf, then into [0, 2 pi)
+    float dp = fmodf(phi - g.phi_c - g.omega * t + kPi, 2.0f * kPi);
+    if (dp < 0.0f) dp += 2.0f * kPi;
+    const float e = rho * (dp - kPi) * g.inv_arc;
+    s = s + e * e;
+  }
+  return g.amp * expf(-0.5f * s);
 }
 
 template <bool GR>
@@ -402,9 +417,9 @@ __device__ __forceinline__ void trial_step(Ray& s, const Params& p) {
     // Thick branch: the Pallas body's 1e-6 threshold, 1 - exp (not expm1)
     // and 1e-30 floor.
     if constexpr (RT > 0) {
-      const float j = gauss(p.jm, s.x[0], s.x[1], mn);
+      const float j = gauss(p.jm, s.x[0], s.x[1], mn, s.x[3]);
       if constexpr (RT == 2) {
-        const float al = gauss(p.am, s.x[0], s.x[1], mn);
+        const float al = gauss(p.am, s.x[0], s.x[1], mn, s.x[3]);
         const float dtau = al * dl;
         const float seff =
             dtau > 1e-6f ? (1.0f - expf(-dtau)) / nan_max(al, kTiny) : dl;
@@ -570,8 +585,10 @@ extern "C" int sim5_march_f32(
     float a, float eps0, float r_min, float r_max, float error_stop,
     float error_gate, int max_steps, float max_step_dl, float j_amp,
     float j_center, float j_inv_w, float j_inv_h, float j_t_c,
-    float j_inv_d, int j_cyl, float al_amp, float al_center, float al_inv_w,
-    float al_inv_h, float al_t_c, float al_inv_d, int al_cyl, void* stream) {
+    float j_inv_d, float j_phi_c, float j_omega, float j_inv_arc, int j_cyl,
+    float al_amp, float al_center, float al_inv_w, float al_inv_h,
+    float al_t_c, float al_inv_d, float al_phi_c, float al_omega,
+    float al_inv_arc, int al_cyl, void* stream) {
   const Kernel fn = kernel(gr, pol, rt);
   if (fn == nullptr || seg < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -579,9 +596,9 @@ extern "C" int sim5_march_f32(
   const Params p{a, 1.0f / a, eps0, 1e-3f / eps0, r_min, r_max, error_stop,
                  error_gate, max_step_dl, max_steps,
                  Gauss{j_amp, j_center, j_inv_w, j_inv_h, j_t_c, j_inv_d,
-                       j_cyl},
+                       j_phi_c, j_omega, j_inv_arc, j_cyl},
                  Gauss{al_amp, al_center, al_inv_w, al_inv_h, al_t_c,
-                       al_inv_d, al_cyl}};
+                       al_inv_d, al_phi_c, al_omega, al_inv_arc, al_cyl}};
   const unsigned int blocks = (unsigned int)((n + kThreads - 1) / kThreads);
   fn<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       io, lv_in, li_in, lv_out, li_out, stats, seg, n, p);

@@ -1,11 +1,12 @@
 """Closed-form (analytic) null-geodesic engine for Kerr spacetime.
 
-Port of `sim5_tpu/geodesic/analytic.py`, the part that seeds the volume
-march: initialisation from impact parameters at infinity, the position
-integral P(r), its radial and poloidal inversions r(P), m(P), the sign of
-dm/dP, the photon momentum at P, and the equatorial-plane crossing that
-the disk image uses.  The azimuth and time-delay integrals wait for a
-later slice.
+Port of `sim5_tpu/geodesic/analytic.py`: initialisation from impact
+parameters at infinity, the position integral P(r), its radial and
+poloidal inversions r(P), m(P), the sign of dm/dP, the photon momentum at
+P, the equatorial-plane crossing, the azimuth phi(P) and the travel time
+between two positions (radial, and with the poloidal term).  Still to
+port: `geodesic_init_src`, `geodesic_is_captured`, `geodesic_follow` and
+`geodesic_position_pol_sign_k_theta`.
 
 The geodesic equation is solved via the quartic roots of the radial
 potential R(r) (Cadez, Fanton & Calvani 1998) and Jacobi/Carlson elliptic
@@ -25,15 +26,24 @@ Position along a geodesic is parametrized by the monotonic position
 integral P (Bursa 2017, eq. 34/43), increasing from 0 at infinity.
 """
 
+import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from ..core import photon_momentum
 from ..core.metric import _as_tensors
-from ..special import (quartic_roots, sort_quartic_roots,
-                       polish_quartic_real_roots_df, rf, elliptic_k_mc,
-                       jacobi_sncndn)
+from ..special import (
+    quartic_roots, sort_quartic_roots, polish_quartic_real_roots_df, rf,
+    elliptic_k_mc, jacobi_sncndn, jacobi_icn,
+    integral_R_rp_re, integral_R_rp_re_inf,
+    integral_R_rp_cc2_inf, integral_R_rp_cc2,
+    integral_R_r0_re, integral_R_r1_re, integral_R_r2_re,
+    integral_R_r0_cc, integral_R_r1_cc, integral_R_r2_cc,
+    integral_R_r0_bh, integral_R_r1_bh, integral_R_r2_bh, integral_R_rp_bh,
+    integral_T_mp, integral_T_mp_dn, integral_T_m2, integral_T_m2_dn,
+)
 from .types import (
     Geodesic,
     GEOD_TYPE_RR, GEOD_TYPE_RR_DBL, GEOD_TYPE_RR_BH, GEOD_TYPE_RC, GEOD_TYPE_CC,
@@ -62,6 +72,15 @@ def _live(g):
             | (g.gtype == GEOD_TYPE_CC) | (g.gtype == GEOD_TYPE_RR_BH))
 
 
+def _theta_int(g: Geodesic, x):
+    """T-integral from m=x to mu_plus:  mK * icn(x/sqrt(m2p), mm).
+
+    (reference macro theta_int, sim5kerr-geod.c:29)
+    """
+    u = torch.clamp(x / torch.sqrt(g.m2p), -1.0, 1.0)
+    return g.mK * jacobi_icn(u, g.mm)
+
+
 def _theta_inv(g: Geodesic, x):
     """Inverse of the T-integral: m(x) = sqrt(m2p) * cn(x/mK, mm).
 
@@ -82,6 +101,75 @@ def _theta_pol_vortical(g: Geodesic, P):
     # dm/dP = hemi*sqrt(m2p) * dn'(u)/mK,  dn' = -mm*sn*cn
     dm_sign = -hemi * torch.sign(sn * cn)
     return m, dm_sign
+
+
+def _theta_fold(g: Geodesic, P):
+    """Closed-form oscillation folding shared by the cumulative theta
+    integrals: returns (n, dT) with n completed half-oscillations since the
+    fold base T0 (the most recent m = +-sqrt(m2p) touch at or below P=0)
+    and dT = P - T0 - n*Tpp in (0, Tpp]."""
+    sign0 = torch.where(g.beta >= 0.0, 1.0, -1.0)
+    T0 = torch.where(sign0 > 0.0, -(g.Tpp - g.Tip), -g.Tip)
+    n = torch.clamp(torch.ceil((P - T0) / g.Tpp) - 1.0, min=0.0)
+    return n, P - T0 - n * g.Tpp
+
+
+def _vortical_fold(g: Geodesic, P):
+    """The dn-band fold of vortical (q < 0) rays, anchored at u = 0
+    (m = +-sqrt(m2p)) and odd in u: returns (s, j, v, c2, b2, xv) with s
+    the sign of the anchored P, j completed oscillations of length Tpp,
+    v in [0, Tpp) the remainder, (c2, b2) the band's dummy-safe squared
+    edges and xv = b dn(v/mK) clipped to the band."""
+    qneg = g.q < 0.0
+    c2 = torch.where(qneg, -g.m2m, 0.2)
+    b2 = torch.where(qneg, g.m2p, 0.7)
+    sign0 = torch.where(g.beta >= 0.0, 1.0, -1.0)
+    Pu = P - sign0 * g.Tip
+    s = torch.sign(Pu)
+    A = torch.abs(Pu)
+    j = torch.floor(A / g.Tpp)
+    v = A - j * g.Tpp                     # in [0, Tpp)
+    xv = torch.sqrt(b2) * jacobi_sncndn(v / g.mK, g.mm)[2]   # b*dn
+    xv = torch.minimum(torch.maximum(xv, torch.sqrt(c2)), torch.sqrt(b2))
+    return s, j, v, c2, b2, xv
+
+
+def _theta_phi_cum(g: Geodesic, P):
+    """Cumulative azimuthal theta-term  l * int dP' / (1 - m(P')^2), measured
+    from the oscillation base point, monotone in P (sign of l).
+
+    Equator-crossing rays (q > 0, cn-form): per half-oscillation of length
+    Tpp the term grows by the complete integral; the in-segment remainder
+    is integral_T_mp at the signed m (its negative-X branch is the
+    monotone continuation past the equator).  Vortical rays (q < 0,
+    dn-form): segments of length Tpp/2 alternate between the dn-band
+    integrals.  This full folding replaces the reference's single-break
+    while loop (sim5kerr-geod.c:538-547), which truncates after one
+    oscillation.
+    """
+    # --- q > 0 (cn-form)
+    qpos = g.q > 0.0
+    m2m = torch.where(qpos, g.m2m, 1.0)
+    m2p_c = torch.where(qpos, g.m2p, 0.5)
+    n, dT = _theta_fold(g, P)
+    # in-segment descending variable x = sqrt(m2p)*cn(dT/mK): runs from
+    # +sqrt(m2p) monotonically to -sqrt(m2p)
+    sq = torch.sqrt(m2p_c)
+    x = jacobi_sncndn(torch.where(qpos, dT, 0.5 * g.Tpp) / g.mK, g.mm)[1]
+    x = torch.minimum(torch.maximum(sq * x, -sq), sq)
+    one = torch.ones_like(g.a)
+    seg = integral_T_mp(m2m, m2p_c, one, x)
+    full = integral_T_mp(m2m, m2p_c, one, -sq)
+    cum_cn = (g.l / g.a) * (n * full + seg)
+
+    # --- q < 0 (dn-form)
+    s, j, v, c2, b2, xv = _vortical_fold(g, P)
+    seg_dn = integral_T_mp_dn(c2, b2, one, xv)
+    full_dn = 2.0 * integral_T_mp_dn(c2, b2, one, torch.sqrt(c2))
+    segv = torch.where(v <= 0.5 * g.Tpp, seg_dn, full_dn - seg_dn)
+    cum_dn = (g.l / g.a) * s * (j * full_dn + segv)
+
+    return torch.where(g.q < 0.0, cum_dn, cum_cn)
 
 
 # ---------------------------------------------------------------------------
@@ -627,3 +715,424 @@ def geodesic_momentum(g: Geodesic, P, r=None, m=None):
                         torch.where(torch.isfinite(dm), dm, 1.0))
     bad = ~_live(g) | ~torch.isfinite(r) | ~torch.isfinite(m)
     return torch.where(bad[..., None], torch.nan, k)
+
+
+# ---------------------------------------------------------------------------
+# azimuth and travel time
+# ---------------------------------------------------------------------------
+
+def _as_f64(g: Geodesic):
+    """`g` with every floating field in f64: the azimuth and the travel
+    time are computed in f64 whatever the geodesic's dtype (their RR
+    radial terms are differences of large integrals)."""
+    return g._replace(**{f.name: getattr(g, f.name).double()
+                         for f in dataclasses.fields(g)
+                         if getattr(g, f.name) is not None
+                         and getattr(g, f.name).is_floating_point()})
+
+
+def _on_lanes(g: Geodesic, mask, fn, *args):
+    """fn(g', *args') on the lanes where `mask` holds, scattered into
+    zeros of the broadcast shape (the other lanes): g' and args' are `g`
+    and `args` gathered to those lanes, as 1-D batches.  Elementwise, so
+    every lane gets the value a full-batch evaluation would give; no work
+    is done when no lane is selected."""
+    shape = torch.broadcast_shapes(mask.shape, g.Rpc.shape,
+                                   *(a.shape for a in args))
+    mask = mask.expand(shape)
+    out = torch.zeros(shape, dtype=g.Rpc.dtype, device=g.Rpc.device)
+    if not bool(mask.any()):
+        return out
+
+    def take(v):
+        if v is None:
+            return None
+        if v.ndim > g.Rpc.ndim:          # the (..., 4) root arrays
+            return v.expand(shape + v.shape[-1:])[mask]
+        return v.expand(shape)[mask]
+
+    sub = g._replace(**{f.name: take(getattr(g, f.name))
+                        for f in dataclasses.fields(g)})
+    out[mask] = fn(sub, *(take(a) for a in args))
+    return out
+
+
+# --- CC (four complex roots) radial integrals: the tangent half-map of
+# P_int/position_rad makes u an affine function of P, so any radial
+# integrand becomes a smooth integral in u, evaluated by composite
+# end-refined Gauss-Legendre in u (see the JAX package).  The reference
+# NaNs the CC type in both azm and timedelay (sim5kerr-geod.c:516-521,
+# 703-707).  The rule runs on the CC lanes only (`_on_lanes`), where the
+# JAX package skips it at run time when a batch has none.
+
+_GL16_X, _GL16_W = np.polynomial.legendre.leggauss(16)
+# panel edges geometrically refined toward both ends: the horizon pole sits
+# just below u_lo and the far-field structure just above u_hi
+_CC_PANELS = np.array([0.0, 1.0 / 64, 1.0 / 8, 1.0 / 2,
+                       7.0 / 8, 63.0 / 64, 1.0])
+
+
+def _cc_quad(lo, hi):
+    """(u_nodes, weights) of shape (..., 96) for int_lo^hi."""
+    L = (hi - lo)[..., None]
+    edges = lo[..., None] + L * _like(_CC_PANELS, lo)
+    a, b = edges[..., :-1], edges[..., 1:]
+    mid, half = 0.5 * (a + b), 0.5 * (b - a)
+    u = mid[..., None] + half[..., None] * _like(_GL16_X, lo)
+    w = half[..., None] * _like(_GL16_W, lo) * torch.ones_like(u)
+    return (u.reshape(*u.shape[:-2], 96), w.reshape(*w.shape[:-2], 96))
+
+
+def _cc_setup(g: Geodesic):
+    """Masked CC map parameters (dummy-safe on non-CC lanes)."""
+    is_cc = g.gtype == GEOD_TYPE_CC
+    b1 = torch.where(is_cc, g.rr[..., 0], 0.0)
+    a1 = torch.where(is_cc, torch.abs(g.ri[..., 0]), 1.0)
+    b2 = torch.where(is_cc, g.rr[..., 2], 1.0)
+    a2_ = torch.where(is_cc, torch.abs(g.ri[..., 2]), 2.0)
+    A_cc = torch.sqrt((b1 - b2) ** 2 + (a1 + a2_) ** 2)
+    B_cc = torch.sqrt((b1 - b2) ** 2 + (a1 - a2_) ** 2)
+    g1num = torch.clamp(4.0 * a1 * a1 - (A_cc - B_cc) ** 2, min=1e-30)
+    g1den = torch.clamp((A_cc + B_cc) ** 2 - 4.0 * a1 * a1, min=1e-30)
+    g1 = torch.sqrt(g1num / g1den)
+    mm_cc = 4.0 * A_cc * B_cc / (A_cc + B_cc) ** 2
+    return b1, a1, b2, a2_, A_cc, B_cc, g1, mm_cc
+
+
+def _cc_r_of_u(cc, u):
+    """r(u) through the continued tangent half-map (cf. position_rad)."""
+    b1, a1, _, _, _, _, g1, mm_cc = cc
+    sn, cn, _ = jacobi_sncndn(u, mm_cc[..., None])
+    cn = torch.where(torch.abs(cn) > 1e-30, cn,
+                     torch.where(cn >= 0, 1e-30, -1e-30))
+    z = sn / cn
+    g1e = g1[..., None]
+    return ((z * (a1 + b1 * g1)[..., None] + (b1 - a1 * g1)[..., None])
+            / (1.0 + g1e * z))
+
+
+def _cc_u_of_P(g: Geodesic, cc, P):
+    """Affine P -> u: P = Rpc - 2u/(A+B)."""
+    A_cc, B_cc = cc[4], cc[5]
+    return (g.Rpc - P) * 0.5 * (A_cc + B_cc)
+
+
+def _horizon_poles(a):
+    """(a^2, outer horizon, inner horizon, sqrt(1 - a^2))."""
+    a2 = a ** 2
+    sq = torch.sqrt(1.0 - a2)
+    return a2, 1.0 + sq, 1.0 - sq, sq
+
+
+def _cc_phi_radial(g: Geodesic, cc, P):
+    """Cumulative radial phi term from infinity (P=0) to P for CC rays."""
+    A_cc, B_cc = cc[4], cc[5]
+    a2, rph, rmh, sq = _horizon_poles(g.a)
+    u_pt = _cc_u_of_P(g, cc, torch.where(torch.isfinite(P), P, 0.5 * g.Rpc))
+    u_inf = _cc_u_of_P(g, cc, torch.zeros_like(g.Rpc))
+    lo = torch.minimum(u_pt, u_inf)
+    un, w = _cc_quad(lo, u_inf)
+    r = _cc_r_of_u(cc, un)
+    cp = (g.a * rph - g.l * a2 / 2.0) / sq
+    cm = (g.a * rmh - g.l * a2 / 2.0) / sq
+    f = (cp[..., None] / (r - rph[..., None])
+         - cm[..., None] / (r - rmh[..., None]))
+    return (2.0 / (A_cc + B_cc)) * torch.sum(f * w, dim=-1)
+
+
+def _cc_time_radial(g: Geodesic, cc, P1, P2):
+    """Radial travel time between P1 < P2 for CC rays.
+
+    The far-field growth (dt ~ dr + 2 dlnr) is extracted exactly as the
+    elementary part E(r) = r + 2 ln r; the Gauss sum handles only the
+    bounded remainder W(u) (cancellation-free via the 1/r-series form of
+    f_t - (1+2/r) sqrt(R), regular because the quartic has no cubic term).
+    """
+    b1, a1, b2, a2_, A_cc, B_cc, _, _ = cc
+    a2, rph, rmh, sq = _horizon_poles(g.a)
+    Ac = (-g.a * g.l + 4.0) * rph - 2.0 * a2
+    Bc = (g.a * g.l - 4.0) * rmh + 2.0 * a2
+    u1 = _cc_u_of_P(g, cc, P1)
+    u2 = _cc_u_of_P(g, cc, P2)
+    lo, hi = torch.minimum(u1, u2), torch.maximum(u1, u2)
+    un, w = _cc_quad(lo, hi)
+    r = _cc_r_of_u(cc, un)
+    s = 1.0 / r
+    # Q1*Q2 = 1 + q1 s + q2 s^2 + q3 s^3 + q4 s^4 (qi real); q1 = -2(b1+b2)
+    # vanishes identically for the geodesic quartic (no cubic term)
+    c1r = b1 * b1 + a1 * a1
+    c2r = b2 * b2 + a2_ * a2_
+    q1 = -2.0 * (b1 + b2)
+    q2 = c1r + c2r + 4.0 * b1 * b2
+    q3 = -2.0 * (b1 * c2r + b2 * c1r)
+    q4 = c1r * c2r
+    Q1 = 1.0 + s * (-2.0 * b1[..., None] + s * c1r[..., None])
+    Q2 = 1.0 + s * (-2.0 * b2[..., None] + s * c2r[..., None])
+    S = torch.sqrt(torch.clamp(Q1 * Q2, min=_tinyf(Q1)))
+    poly = (q1[..., None] / s + q2[..., None]
+            + s * (q3[..., None] + s * q4[..., None]))
+    W = (4.0
+         + (Ac[..., None] / (r - rph[..., None])
+            + Bc[..., None] / (r - rmh[..., None])) / sq[..., None]
+         - (1.0 + 2.0 * s) * poly / (1.0 + S))
+    quad = (2.0 / (A_cc + B_cc)) * torch.sum(W * w, dim=-1)
+    r_lo = _cc_r_of_u(cc, hi[..., None])[..., 0]   # larger u = larger r
+    r_hi_ = _cc_r_of_u(cc, lo[..., None])[..., 0]
+    r_a = torch.minimum(r_lo, r_hi_)
+    r_b = torch.maximum(r_lo, r_hi_)
+    r_a = torch.clamp(r_a, min=1e-6)
+    elem = (r_b - r_a) + 2.0 * torch.log(r_b / r_a)
+    return torch.abs(quad) + elem
+
+
+def geodesic_position_azm(g: Geodesic, r, m, P):
+    """Azimuthal angle change between [r,m] and the anchor point.
+
+    Anchor: infinity for the from-infinity types (RR/RC/CC -- the
+    reference's convention); the apastron passage at P=Rpc for bound
+    RR_BH rays (which have no infinity).
+
+    Beyond the reference (geodesic_position_azm, sim5kerr-geod.c:462-555,
+    which implements RR and RC only and truncates the poloidal
+    oscillation bookkeeping after one fold): RR_BH via the bound-band Z1
+    integrals, CC via the end-refined Gauss rule in the elliptic
+    parameter, and the fully folded closed-form theta term for q > 0 and
+    vortical q < 0 rays alike.  Computed in f64 whatever the dtype of `g`
+    (the JAX package does the same); the result is f64.
+    """
+    g = _as_f64(g)
+    r = _like(r, g.a)
+    P = _like(P, g.a)
+    is_rr = g.gtype == GEOD_TYPE_RR
+    is_rc = g.gtype == GEOD_TYPE_RC
+    is_bh = g.gtype == GEOD_TYPE_RR_BH
+    is_cc = g.gtype == GEOD_TYPE_CC
+
+    a2, rph, rmh, sq = _horizon_poles(g.a)
+    ppc = (g.nrr > 0) & (P > g.Rpc)
+    cp = (g.a * rph - g.l * a2 / 2.0) / sq
+    cm = (g.a * rmh - g.l * a2 / 2.0) / sq
+
+    # RR radial part
+    r1 = torch.where(is_rr, g.rr[..., 0], 8.0)
+    r2 = torch.where(is_rr, g.rr[..., 1], 6.0)
+    r3 = torch.where(is_rr, g.rr[..., 2], 4.0)
+    r4 = torch.where(is_rr, g.rr[..., 3], 2.0)
+    rs = torch.where(is_rr & (r >= r1), r, 10.0)
+    sgn = torch.where(ppc, 1.0, -1.0)
+    A_rr = (integral_R_rp_re_inf(r1, r2, r3, r4, rph)
+            + sgn * integral_R_rp_re(r1, r2, r3, r4, rph, rs))
+    B_rr = (integral_R_rp_re_inf(r1, r2, r3, r4, rmh)
+            + sgn * integral_R_rp_re(r1, r2, r3, r4, rmh, rs))
+    phi_rr = A_rr * cp - B_rr * cm
+
+    # RC radial part
+    t1 = torch.where(is_rc, g.rr[..., 0], 6.0)
+    t2 = torch.where(is_rc, g.rr[..., 1], 2.0)
+    tu = torch.where(is_rc, g.rr[..., 2], 0.0)
+    tv = torch.where(is_rc, torch.abs(g.ri[..., 2]), 1.0)
+    rs_rc = torch.where(is_rc & (r >= t1), r, 10.0)
+    A_rc = integral_R_rp_cc2_inf(t1, t2, tu, tv, rph, rs_rc)
+    B_rc = integral_R_rp_cc2_inf(t1, t2, tu, tv, rmh, rs_rc)
+    phi_rc = A_rc * cp - B_rc * cm
+
+    # RR_BH radial part: cumulative from the apastron passage at P=Rpc,
+    # folded over the 2*Rpc radial period (k full cycles cost 2*Jc each;
+    # Jc diverges iff the band straddles a horizon -- physical winding)
+    b1 = torch.where(is_bh, g.rr[..., 0], 8.0)
+    b2 = torch.where(is_bh, g.rr[..., 1], 6.0)
+    b3 = torch.where(is_bh, g.rr[..., 2], 4.0)
+    b4 = torch.where(is_bh, g.rr[..., 3], 2.0)
+    Pz = torch.where(torch.isfinite(P), P, g.Rpc)
+    k_cyc = torch.floor(Pz / (2.0 * g.Rpc))
+    Pf = Pz - 2.0 * g.Rpc * k_cyc
+    y_bh = torch.minimum(torch.maximum(
+        torch.where(is_bh & torch.isfinite(r), r, 5.0), b3 + 1e-14), b2)
+    J_y = (integral_R_rp_bh(b1, b2, b3, b4, rph, y_bh) * cp
+           - integral_R_rp_bh(b1, b2, b3, b4, rmh, y_bh) * cm)
+    need_jc = is_bh & (k_cyc != 0.0)
+    # dummy pole below the band on untaken lanes
+    p_hi = torch.where(need_jc, rph, b3 - 1.0)
+    p_lo = torch.where(need_jc, rmh, b3 - 1.0)
+    Jc = torch.where(
+        need_jc,
+        integral_R_rp_bh(b1, b2, b3, b4, p_hi, b3 + 1e-14) * cp
+        - integral_R_rp_bh(b1, b2, b3, b4, p_lo, b3 + 1e-14) * cm, 0.0)
+    phi_bh = 2.0 * k_cyc * Jc + torch.where(Pf <= g.Rpc, -J_y, J_y)
+
+    # CC radial part (cumulative from infinity, Gauss in the elliptic u),
+    # on the CC lanes only
+    phi_cc = _on_lanes(g, is_cc,
+                       lambda gc, P_: _cc_phi_radial(gc, _cc_setup(gc), P_),
+                       Pz)
+
+    phi = torch.where(is_rr, phi_rr,
+          torch.where(is_rc, phi_rc,
+          torch.where(is_bh, phi_bh,
+          torch.where(is_cc, phi_cc, torch.nan))))
+
+    # theta part: fully folded closed-form cumulative; anchored at P=0
+    # (infinity) for from-infinity types, at the apastron P=Rpc for bound
+    # RR_BH rays
+    P_anchor = torch.where(is_bh, g.Rpc, torch.zeros_like(g.Rpc))
+    phi = phi + (_theta_phi_cum(g, Pz) - _theta_phi_cum(g, P_anchor))
+    return torch.where(torch.isfinite(P), phi, torch.nan)
+
+
+def geodesic_timedelay(g: Geodesic, P1, r1c, m1c, P2, r2c, m2c):
+    """Travel time between positions P1 and P2 (radial part, as in the
+    reference whose theta part is disabled, sim5kerr-geod.c:663-702).
+
+    Beyond the reference (geodesic_timedelay, sim5kerr-geod.c:559-731,
+    which implements RR and RC only): bound RR_BH rays via the band
+    Z1/Z2 integrals (cumulative over the 2*Rpc radial period) and CC
+    plunging rays via the Gauss rule with exact far-field extraction.
+    Computed in f64 whatever the dtype of `g`; the result is f64.
+    """
+    g = _as_f64(g)
+    P1, P2 = _like(P1, g.a), _like(P2, g.a)
+    r1c, r2c = _like(r1c, g.a), _like(r2c, g.a)
+    swap = P1 > P2
+    P1s, P2s = torch.where(swap, P2, P1), torch.where(swap, P1, P2)
+    x1 = torch.where(swap, r2c, r1c)
+    x2 = torch.where(swap, r1c, r2c)
+
+    a2, rph, rmh, sq = _horizon_poles(g.a)
+    is_rr = g.gtype == GEOD_TYPE_RR
+    is_rc = g.gtype == GEOD_TYPE_RC
+    is_bh = g.gtype == GEOD_TYPE_RR_BH
+    is_cc = g.gtype == GEOD_TYPE_CC
+
+    ra = torch.where(is_rr, g.rr[..., 0], 8.0)
+    rb = torch.where(is_rr, g.rr[..., 1], 6.0)
+    rc_ = torch.where(is_rr, g.rr[..., 2], 4.0)
+    rd_ = torch.where(is_rr, g.rr[..., 3], 2.0)
+    x1s = torch.where(is_rr & (x1 >= ra), x1, 10.0)
+    x2s = torch.where(is_rr & (x2 >= ra), x2, 12.0)
+    s = torch.where(((P1s > g.Rpc) & (P2s < g.Rpc))
+                    | ((P1s < g.Rpc) & (P2s > g.Rpc)), 1.0, -1.0)
+
+    def both(fn, *args):
+        return fn(ra, rb, rc_, rd_, *args, x1s) + s * fn(ra, rb, rc_, rd_,
+                                                         *args, x2s)
+
+    R0 = both(integral_R_r0_re)
+    R1_ = both(integral_R_r1_re)
+    R2_ = both(integral_R_r2_re)
+    RA = both(integral_R_rp_re, rph)
+    RB = both(integral_R_rp_re, rmh)
+    A = (-g.a * g.l + 4.0) * rph - 2.0 * a2
+    B = (g.a * g.l - 4.0) * rmh + 2.0 * a2
+    t_rr = (4.0 * torch.abs(R0) + 2.0 * torch.abs(R1_) + torch.abs(R2_)
+            + (A * torch.abs(RA) + B * torch.abs(RB)) / sq)
+
+    ta = torch.where(is_rc, g.rr[..., 0], 6.0)
+    tb = torch.where(is_rc, g.rr[..., 1], 2.0)
+    tu = torch.where(is_rc, g.rr[..., 2], 0.0)
+    tv = torch.where(is_rc, torch.abs(g.ri[..., 2]), 1.0)
+    lo = torch.where(is_rc, torch.minimum(x1, x2), 10.0)
+    hi = torch.where(is_rc, torch.maximum(x1, x2), 12.0)
+    R0c = (integral_R_r0_cc(ta, tb, tu, tv, lo)
+           - integral_R_r0_cc(ta, tb, tu, tv, hi))
+    R1c = integral_R_r1_cc(ta, tb, tu, tv, lo, hi)
+    R2c = integral_R_r2_cc(ta, tb, tu, tv, lo, hi)
+    RAc = integral_R_rp_cc2(ta, tb, tu, tv, rph, lo, hi)
+    RBc = integral_R_rp_cc2(ta, tb, tu, tv, rmh, lo, hi)
+    t_rc = (4.0 * torch.abs(R0c) + 2.0 * torch.abs(R1c) + torch.abs(R2c)
+            + (A * torch.abs(RAc) + B * torch.abs(RBc)) / sq)
+
+    # RR_BH: cumulative band time relative to the apastron passage, folded
+    # over the 2*Rpc radial period (same structure as the azm band term)
+    b1 = torch.where(is_bh, g.rr[..., 0], 8.0)
+    b2 = torch.where(is_bh, g.rr[..., 1], 6.0)
+    b3 = torch.where(is_bh, g.rr[..., 2], 4.0)
+    b4 = torch.where(is_bh, g.rr[..., 3], 2.0)
+
+    def t_band_J(y):
+        """int_y^r2 (r^2 + 2r + 4 + horizon poles) dr/sqrt(R) on the band."""
+        return (4.0 * integral_R_r0_bh(b1, b2, b3, b4, y)
+                + 2.0 * integral_R_r1_bh(b1, b2, b3, b4, y)
+                + integral_R_r2_bh(b1, b2, b3, b4, y)
+                + (A * integral_R_rp_bh(b1, b2, b3, b4,
+                                        torch.where(is_bh, rph, b3 - 1.0), y)
+                   + B * integral_R_rp_bh(b1, b2, b3, b4,
+                                          torch.where(is_bh, rmh, b3 - 1.0),
+                                          y))
+                / sq)
+
+    def t_band_cum(P, rc_):
+        Pz = torch.where(torch.isfinite(P), P, g.Rpc)
+        k_cyc = torch.floor(Pz / (2.0 * g.Rpc))
+        Pf = Pz - 2.0 * g.Rpc * k_cyc
+        y = torch.minimum(torch.maximum(
+            torch.where(is_bh & torch.isfinite(rc_), rc_, 5.0),
+            b3 + 1e-14), b2)
+        Jy = t_band_J(y)
+        need = is_bh & (k_cyc != 0.0)
+        Jc = torch.where(need, t_band_J(b3 + 1e-14), 0.0)
+        return 2.0 * k_cyc * Jc + torch.where(Pf <= g.Rpc, -Jy, Jy)
+
+    t_bh = torch.abs(t_band_cum(P2s, x2) - t_band_cum(P1s, x1))
+
+    # CC: Gauss in the elliptic parameter with far-field extraction, on
+    # the CC lanes only
+    P1z = torch.where(torch.isfinite(P1s), P1s, 0.4 * g.Rpc)
+    P2z = torch.where(torch.isfinite(P2s), P2s, 0.6 * g.Rpc)
+    t_cc = _on_lanes(
+        g, is_cc,
+        lambda gc, p1, p2: _cc_time_radial(gc, _cc_setup(gc), p1, p2),
+        P1z, P2z)
+
+    t = torch.where(is_rr, t_rr,
+        torch.where(is_rc, t_rc,
+        torch.where(is_bh, t_bh,
+        torch.where(is_cc, t_cc, torch.nan))))
+    return torch.where(torch.isfinite(P1) & torch.isfinite(P2), t, torch.nan)
+
+
+def _theta_time_cum(g: Geodesic, P):
+    """Cumulative poloidal time integral  t_theta(P) = a^2 * int m(P')^2 dP'
+    from the oscillation-fold base point to P (monotone increasing in P).
+
+    From Carter's equations (E=1), the theta part of the travel time is
+    int a^2 m^2 dP; each monotone segment contributes
+    a * int m^2 dm / sqrt((m2m+m^2)(m2p-m^2)) = a * integral_T_m2
+    (BF 213.06), folded in closed form like `_fold_pol`.  (The reference's
+    own disabled draft, sim5kerr-geod.c:663-702, has a^2 * integral_T_m2,
+    which counts one factor of a twice.)  Vortical rays (q < 0) use the
+    dn-band integral_T_m2_dn.
+    """
+    qpos = g.q > 0.0
+    n, dT = _theta_fold(g, P)
+    m_abs = torch.abs(_theta_inv(g, torch.where(qpos, dT, 0.5 * g.Tpp)))
+
+    m2m = torch.where(qpos, g.m2m, 1.0)             # dummy-safe
+    m2p = torch.where(qpos, g.m2p, 0.5)
+    x = torch.minimum(m_abs, torch.sqrt(m2p))
+    M2x = integral_T_m2(m2m, m2p, x)
+    M20 = integral_T_m2(m2m, m2p, torch.zeros_like(x))
+    seg = torch.where(dT <= 0.5 * g.Tpp, M2x, 2.0 * M20 - M2x)
+    cum_cn = g.a * (n * 2.0 * M20 + seg)
+
+    # vortical branch: the dn-band fold of `_theta_phi_cum`
+    s, j, v, c2, b2, xv = _vortical_fold(g, P)
+    seg_dn = integral_T_m2_dn(c2, b2, xv)
+    full_dn = 2.0 * integral_T_m2_dn(c2, b2, torch.sqrt(c2))
+    segv = torch.where(v <= 0.5 * g.Tpp, seg_dn, full_dn - seg_dn)
+    cum_dn = g.a * s * (j * full_dn + segv)
+
+    return torch.where(g.q < 0.0, cum_dn, cum_cn)
+
+
+def geodesic_timedelay_full(g: Geodesic, P1, r1c, m1c, P2, r2c, m2c):
+    """Travel time between positions P1 and P2 including the poloidal
+    (theta) term the reference leaves disabled (sim5kerr-geod.c:663-702),
+    which makes light-curve delays exact at any inclination.  Vortical
+    rays (q < 0) use the dn-band form of the theta term.  f64, like
+    `geodesic_timedelay`.
+    """
+    t_rad = geodesic_timedelay(g, P1, r1c, m1c, P2, r2c, m2c)
+    g = _as_f64(g)
+    t_th = torch.abs(_theta_time_cum(g, _like(P2, g.a))
+                     - _theta_time_cum(g, _like(P1, g.a)))
+    return t_rad + t_th

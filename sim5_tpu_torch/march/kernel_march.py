@@ -48,7 +48,7 @@ LAST_STATS = None
 
 _LIB = None
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_GAUSS = [_F] * 6 + [_I]                  # GaussianSource.params()
+_GAUSS = [_F] * 9 + [_I]                  # GaussianSource.params()
 # (argtypes, restype) of the library's extern "C" functions (csrc/march.cu)
 SIGNATURES = {
     "sim5_march_f32": (

@@ -1,10 +1,18 @@
-"""Volume radiative transfer: images and light curves of a 3-D source.
+"""Time-dependent observables: orbiting hot-spot light curves, and
+images and light curves of a 3-D source by volume radiative transfer.
 
-Port of `sim5_tpu/render/lightcurve.py` (the volume path, BASELINE config
-#4): the analytic engine supplies exact initial conditions on a sphere
-r = r_start (position and momentum of each pixel's geodesic), and the
-stepwise engine marches every ray inward, accumulating
-I = int j e^{-tau} dl with tau = int alpha dl toward the observer.
+Port of `sim5_tpu/render/lightcurve.py`.
+
+* `hotspot_lightcurve` uses the analytic engine: every image-plane ray's
+  equatorial crossing (radius, azimuth, g-factor, travel-time delay) is
+  computed once (`equatorial_crossing_map`); a light curve for a spot
+  trajectory is then a reduction over pixels.
+* `volume_image` / `volume_lightcurve` (BASELINE config #4) use both
+  engines: the analytic engine supplies exact initial conditions on a
+  sphere r = r_start (position, azimuth and momentum of each pixel's
+  geodesic), and the stepwise engine marches every ray inward,
+  accumulating I = int j e^{-tau} dl with tau = int alpha dl toward the
+  observer.
 
 Two march engines:
 
@@ -14,22 +22,107 @@ Two march engines:
   transfer (`march.kernel_march.raytrace_kernel`), whose emissivity and
   absorption are `march.emission.GaussianSource` models.
 
-Still to port: the azimuth stage of the seed (`axisymmetric=False`), the
-differentiable "scan" engine and `hotspot_lightcurve`.
+Still to port: the differentiable "scan" engine.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
-from ..core import r_bh
+from ..core import gfactorK, OmegaK, r_bh, r_ms
 from ..core.metric import default_device
-from ..geodesic import (geodesic_init_inf, geodesic_P_int,
-                        geodesic_position_rad, geodesic_position_pol,
-                        geodesic_momentum)
+from ..geodesic import (geodesic_init_inf, geodesic_find_midplane_crossing,
+                        geodesic_P_int, geodesic_position_rad,
+                        geodesic_position_pol, geodesic_position_azm,
+                        geodesic_timedelay_full, geodesic_momentum)
 from ..march import raytrace_prepare, raytrace_step, raytrace_kernel
 from .image import image_grid
+
+R_FAR = 1e4   # the far-field sphere the crossing map's delays are anchored at
+
+
+def equatorial_crossing_map(a, incl, npix, rmax, order=0, device=None):
+    """For every image-plane pixel, the equatorial crossing of `order`
+    (0 the direct image, 1 the first orbiting one): a dict of (npix, npix)
+    tensors r, phi, g (the Keplerian g-factor), delay (the relative time
+    delay) and hit (the mask), and the scalar pixel_area.
+
+    phi follows geodesic_position_azm (angle change from infinity); delays
+    are relative to the earliest-arriving hit pixel.  Crossings inside the
+    marginally stable orbit, where there is no circular orbit, are no hit.
+    The map is f64, as the JAX function's; `device=None` means the card.
+    """
+    alpha, beta = image_grid(npix, npix, rmax, dtype=torch.float64,
+                             device=default_device(device))
+    g = geodesic_init_inf(incl, a, alpha, beta)
+    P = geodesic_find_midplane_crossing(g, order)
+    r = geodesic_position_rad(g, P)
+    hit = torch.isfinite(r) & (g.status == 0)
+    r_s = torch.where(hit, r, 10.0)
+    m0 = torch.zeros_like(r_s)
+    phi = geodesic_position_azm(g, r_s, m0, torch.where(hit, P, 1.0))
+    gf = gfactorK(r_s, a, g.l)
+    hit = hit & torch.isfinite(gf) & (r_s > r_ms(torch.as_tensor(
+        a, dtype=torch.float64, device=alpha.device)))
+    gf = torch.where(hit, gf, 1.0)
+    phi = torch.where(hit & torch.isfinite(phi), phi, 0.0)
+    # Travel time to the crossing, anchored at a common far-field sphere
+    # r = R_FAR plus the plane-wavefront correction: along an incoming ray
+    # with impact parameter b, t(r) = r + 2 ln r + (4 + b^2/2 + ...)/r +
+    # const, so relative to a plane wavefront the ray reaches R_FAR late by
+    # b^2/(2 R_FAR).  The delay is the full time integral (radial +
+    # poloidal); the reference disables the theta part
+    # (sim5kerr-geod.c:663-702), which is wrong at high inclination.
+    P_far = geodesic_P_int(g, torch.full_like(r_s, R_FAR), 0)
+    P_far = torch.where(torch.isfinite(P_far), P_far, 1e-4)
+    r_far = geodesic_position_rad(g, P_far)
+    m_far = geodesic_position_pol(g, P_far)
+    dt = geodesic_timedelay_full(g, torch.where(hit, P, 1.0), r_s, m0,
+                                 P_far, r_far, m_far)
+    dt = dt + (alpha ** 2 + beta ** 2) / (2.0 * R_FAR)
+    dt = torch.where(hit & torch.isfinite(dt), dt, 0.0)
+    dt = dt - torch.min(torch.where(hit, dt, math.inf))
+    return dict(r=r_s, phi=phi, g=gf, delay=dt, hit=hit,
+                pixel_area=(2.0 * rmax / npix) ** 2)
+
+
+def hotspot_lightcurve(a, incl, r_spot, spot_size, t_obs, npix=256,
+                       rmax=None, n_orders=2, device=None):
+    """Bolometric light curve of a Gaussian hot spot on a circular
+    Keplerian orbit at radius r_spot, with the Doppler and gravitational
+    g-factor (g^4 boost), lensing (image orders 0 .. n_orders - 1) and
+    time delays.
+
+    t_obs: observer times [GM/c^3].  Returns the flux at each, (n_t,) f64
+    (arbitrary units, normalized to spot intensity 1), on `device` (the
+    card unless the caller asks for the CPU).
+    """
+    if rmax is None:
+        rmax = r_spot * 2.5
+    dev = default_device(device)
+    Om = OmegaK(torch.as_tensor(r_spot, dtype=torch.float64, device=dev), a)
+    t = torch.as_tensor(np.asarray(t_obs, dtype=np.float64), device=dev)
+    total = torch.zeros_like(t)
+    for order in range(n_orders):
+        m = equatorial_crossing_map(a, incl, npix, rmax, order, device=dev)
+        total = total + spot_flux(m, Om, r_spot, spot_size, t)
+    return total
+
+
+def spot_flux(m, Om, r_spot, spot_size, t):
+    """The spot's flux over one crossing map `m` at observer times t (n_t,):
+    one broadcast over a leading time axis."""
+    # spot centre at the emission (retarded) time of each pixel
+    phi_spot = Om * (t[:, None, None] - m["delay"])
+    dphi = torch.remainder(m["phi"] - phi_spot + math.pi,
+                           2.0 * math.pi) - math.pi
+    # distance on the disk plane
+    d2 = (m["r"] - r_spot) ** 2 + (m["r"] * dphi) ** 2
+    I_loc = torch.exp(-0.5 * d2 / spot_size ** 2)
+    return torch.sum(torch.where(m["hit"], I_loc * m["g"] ** 4, 0.0)
+                     * m["pixel_area"], dim=(-2, -1))
 
 
 def _volume_seed_geom(a, incl, npix, rmax, r_start, dtype, device):
@@ -45,6 +138,13 @@ def _volume_seed_geom(a, incl, npix, rmax, r_start, dtype, device):
     r0 = geodesic_position_rad(g, P0s)
     m0 = geodesic_position_pol(g, P0s)
     return g, ok, P0s, r0, m0
+
+
+def _volume_seed_azm(g, ok, P0s, r0, m0):
+    """The azimuth stage of the seed: phi at r = r_start (f64 whatever the
+    seed's dtype, see geodesic_position_azm), cast to the seed's dtype."""
+    return geodesic_position_azm(g, torch.where(ok, r0, 40.0),
+                                 torch.where(ok, m0, 0.0), P0s).to(r0.dtype)
 
 
 def _volume_seed_pack(g, ok, P0s, r0, m0, phi0, a, t0, r_start, precision):
@@ -69,17 +169,13 @@ def _volume_seed_pack(g, ok, P0s, r0, m0, phi0, a, t0, r_start, precision):
 def _volume_seed(a, incl, t0, npix, rmax, r_start, precision,
                  axisymmetric=False, dtype=torch.float64, device=None):
     """Seed every pixel's ray on its analytic geodesic at r = r_start:
-    returns (march state, valid mask).  axisymmetric=True starts every ray
-    at phi = 0 and skips the azimuth stage (see volume_image)."""
-    if not axisymmetric:
-        raise NotImplementedError(
-            "the azimuth stage of the volume seed (geodesic_position_azm) "
-            "is not ported yet: it comes with the slice that ports the "
-            "analytic azimuth and time-delay integrals; pass "
-            "axisymmetric=True for a source that does not depend on phi")
+    returns (march state, valid mask).  Three stages: geometry, azimuth
+    and packing; axisymmetric=True starts every ray at phi = 0 and skips
+    the azimuth stage (see volume_image)."""
     g, ok, P0s, r0, m0 = _volume_seed_geom(a, incl, npix, rmax, r_start,
                                            dtype, default_device(device))
-    phi0 = torch.zeros_like(r0)
+    phi0 = (torch.zeros_like(r0) if axisymmetric
+            else _volume_seed_azm(g, ok, P0s, r0, m0))
     return _volume_seed_pack(g, ok, P0s, r0, m0, phi0, a, t0, r_start,
                              precision)
 
@@ -148,10 +244,10 @@ def volume_image(a, incl, emissivity_fn, npix=128, rmax=25.0,
     callables; engine="kernel" marches with the f32 march kernel and takes
     `GaussianSource` models only: the seed runs in `dtype`, then the state
     is cast to f32 for the kernel, as the JAX package's "pallas" engine
-    does.  `axisymmetric=True` declares the source independent of phi and
-    starts every ray at phi = 0; the azimuth stage that
-    `axisymmetric=False` needs is not ported yet (NotImplementedError).
-    `device=None` means the card.  Returns I, (npix, npix), 0 on pixels
+    does.  `axisymmetric=True` declares the source independent of phi:
+    the seed skips its azimuth stage (the largest part of the seed: all
+    four trajectory types' radial integrals, in f64) and starts every ray
+    at phi = 0.  `device=None` means the card.  Returns I, (npix, npix), 0 on pixels
     without a valid seed.
     """
     if engine not in ("loop", "kernel"):

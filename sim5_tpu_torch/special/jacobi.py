@@ -1,17 +1,21 @@
-"""Jacobi elliptic functions sn, cn, dn.
+"""Jacobi elliptic functions sn, cn, dn and their inverses.
 
-Port of `sim5_tpu/special/jacobi.py` (the forward functions; their
-analytic derivative rules and the inverse functions wait for later
-slices).  The Gauss/AGM scheme of the reference (sim5elliptic.c:536-598)
-runs to a fixed depth chosen by dtype (13 levels in f64, 8 in f32) with
-per-element convergence masks, so a batch evaluates in lockstep.
+Port of `sim5_tpu/special/jacobi.py` (forward only: the analytic
+derivative rules wait for the derivative layer).  The Gauss/AGM scheme of
+the reference (sim5elliptic.c:536-598) runs to a fixed depth chosen by
+dtype (13 levels in f64, 8 in f32) with per-element convergence masks, so
+a batch evaluates in lockstep.  The inverse functions are closed forms in
+Carlson RF (sim5elliptic.c:480-528).
 
 Conventions: the modulus argument is m = k^2 (Byrd & Friedman), 0 <= m < 1.
 """
 
+import math
+
 import torch
 
 from ..core.metric import _as_tensors
+from .carlson import rf
 
 _NAGM = 13      # f64 AGM depth (the reference's array size)
 _NAGM_F32 = 8   # f32 AGM depth
@@ -92,3 +96,119 @@ def jacobi_sncndn(u, m, mc=None):
         u, m, mc = _as_tensors(u, m, mc)
         emc = torch.where(mc <= 0.0, 1e-9, mc)
     return _sncndn_core(u, emc)
+
+
+def jacobi_sn(u, m):
+    return jacobi_sncndn(u, m)[0]
+
+
+def jacobi_cn(u, m):
+    return jacobi_sncndn(u, m)[1]
+
+
+def jacobi_dn(u, m):
+    return jacobi_sncndn(u, m)[2]
+
+
+def jacobi_isn(z, m):
+    """Inverse Jacobi sn: u with sn(u|m)=z, for -1 < z < 1, 0 <= m < 1.
+
+    (reference: sim5elliptic.c:480-486; BF 132.02/132.01 limits included)
+    """
+    z, m = _as_tensors(z, m)
+    gen = z * rf(1.0 - z * z, 1.0 - m * z * z, torch.ones_like(z))
+    m0 = torch.abs(m) < 1e-8
+    m1 = torch.abs(m - 1.0) < 1e-8
+    z_c = torch.clamp(z, -1.0 + 1e-15, 1.0 - 1e-15)
+    return torch.where(
+        m0, torch.arcsin(torch.clamp(z, -1.0, 1.0)),
+        torch.where(m1, torch.log(torch.sqrt((1.0 + z_c) / (1.0 - z_c))),
+                    gen))
+
+
+def _elliptic_k_raw(m):
+    """The complete integral K(m) by RF (legendre.py imports this module)."""
+    m = torch.where(m >= 1.0, 1.0 - 1e-8, m)
+    return rf(torch.zeros_like(m), 1.0 - m, torch.ones_like(m))
+
+
+def _elliptic_f_sin_raw(sin_phi, m):
+    s2 = sin_phi * sin_phi
+    return sin_phi * rf(1.0 - s2, 1.0 - s2 * m, torch.ones_like(s2))
+
+
+def jacobi_icn(z, m):
+    """Inverse Jacobi cn: u with cn(u|m)=z, for -1 <= z <= 1, 0 <= m < 1.
+
+    (reference: sim5elliptic.c:492-514; the z<0 branch follows
+    functions.wolfram.com InverseJacobiCN 05)  Every special branch is
+    evaluated at safe arguments, as in the JAX package.
+    """
+    z, m = _as_tensors(z, m)
+    # snap values that are within 1e-8 outside the domain (reference
+    # behaviour)
+    z = torch.where((z > 1.0) & (z < 1.0 + 1e-8), 1.0, z)
+    z = torch.where((z < -1.0) & (z > -1.0 - 1e-8), -1.0, z)
+    m = torch.where((m > 1.0) & (m < 1.0 + 1e-8), 1.0, m)
+    m = torch.where((m < 0.0) & (m > -1e-8), 0.0, m)
+
+    az = torch.abs(z)
+    az_c = torch.clamp(az, max=1.0)
+    edge = (az_c >= 1.0 - 1e-15) | (az_c == 0.0)
+    az_g = torch.where(edge, 0.5, az_c)
+    icn1 = (torch.sqrt(1.0 - az_g * az_g)
+            * rf(az_g * az_g, 1.0 - m * (1.0 - az_g * az_g),
+                 torch.ones_like(az_g)))
+    icn1 = torch.where(az_c >= 1.0 - 1e-15, 0.0,
+                       torch.where(az_c == 0.0, _elliptic_k_raw(m), icn1))
+    # z<0: icn(z) = 2/sqrt(1-m) F_sin(-z | m/(m-1)) + icn(|z|)
+    m_safe = torch.where(m >= 1.0, 1.0 - 1e-12, m)
+    mp = m_safe / (m_safe - 1.0 - torch.where(m_safe == 1.0, 1e-300, 0.0))
+    f_gen = _elliptic_f_sin_raw(az_g, mp)
+    f_lim = rf(torch.zeros_like(mp), 1.0 - mp, torch.ones_like(mp))
+    neg_term = 2.0 / torch.sqrt(1.0 - m_safe) * torch.where(
+        az_c >= 1.0 - 1e-15, f_lim, f_gen)
+    gen = torch.where(z > 0.0, icn1, neg_term + icn1)
+
+    m0 = m == 0.0
+    m1 = m == 1.0
+    z_s = torch.where(edge, 0.5, az_c)
+    m1val = torch.where(az_c >= 1.0 - 1e-15, 0.0,
+                        torch.log((1.0 + torch.sqrt(1.0 - z_s)) / z_s))
+    acos_arg = torch.where(torch.abs(z) >= 1.0 - 1e-15, 0.0,
+                           torch.clamp(z, -1.0, 1.0))
+    m0val = torch.where(z >= 1.0 - 1e-15, 0.0,
+                        torch.where(z <= -1.0 + 1e-15, math.pi,
+                                    torch.arccos(acos_arg)))
+    return torch.where(z == 0.0, _elliptic_k_raw(m),
+                       torch.where(z == 1.0, 0.0,
+                                   torch.where(m0, m0val,
+                                               torch.where(m1, m1val, gen))))
+
+
+def icn_signed(z, m):
+    """Inverse Jacobi cn restricted to -1 < z < 1 and 0 < m < 1: the
+    generic branches of `jacobi_icn` only (2 RF evaluations instead of 4),
+    for callers that never reach the special branches."""
+    z, m = _as_tensors(z, m)
+    # dtype-aware domain guard (1 - 1e-12 rounds to 1 in f32)
+    feps = 8.0 * torch.finfo(z.dtype).eps
+    az = torch.clamp(torch.abs(z), feps, 1.0 - feps)
+    icn1 = (torch.sqrt(1.0 - az * az)
+            * rf(az * az, 1.0 - m * (1.0 - az * az), torch.ones_like(az)))
+    m_safe = torch.clamp(m, 0.0, 1.0 - feps)
+    mp = m_safe / (m_safe - 1.0)
+    neg_term = 2.0 / torch.sqrt(1.0 - m_safe) * _elliptic_f_sin_raw(az, mp)
+    return torch.where(z >= 0.0, icn1, neg_term + icn1)
+
+
+def jacobi_itn(z, m):
+    """Inverse Jacobi tn (= sn/cn): BF 131.00.  Like the reference, the
+    generic branch is even in z.  (reference: sim5elliptic.c:522-528)"""
+    z, m = _as_tensors(z, m)
+    gen = jacobi_isn(torch.sqrt(z * z / (1.0 + z * z)), m)
+    m0 = m == 0.0
+    m1 = m == 1.0
+    return torch.where(m0, torch.arctan(z),
+                       torch.where(m1, torch.log(z + torch.sqrt(1.0 + z * z)),
+                                   gen))

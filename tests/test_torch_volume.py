@@ -112,6 +112,13 @@ class TestSeedAndLoop:
         np.testing.assert_allclose(Ft, Fj, rtol=1e-9)
 
     def test_axisymmetric_false_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="azimuth"):
-            tlc.volume_image(0.7, emissivity_fn=BLOB, device="cpu",
-                             **SEED_KW)
+        """The default axisymmetric=False, which raised NotImplementedError
+        when the seed had no azimuth stage (hence the name), now runs and
+        gives a phi-independent source bitwise the image of
+        axisymmetric=True: nothing in the march depends on phi."""
+        kw = dict(SEED_KW, npix=8, max_steps=200)
+        I = tlc.volume_image(0.7, emissivity_fn=BLOB, device="cpu", **kw)
+        I0 = tlc.volume_image(0.7, emissivity_fn=BLOB, device="cpu",
+                              axisymmetric=True, **kw)
+        assert float(I0.max()) > 0.0
+        assert torch.equal(I, I0)
