@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port on one GPU: the stepwise Kerr ray march,
 volume radiative transfer, the Novikov-Thorne disk image, the analytic
-azimuth and travel time, and the hot-spot light curve.
+azimuth and travel time, the hot-spot light curve, and the equatorial
+thin-disk products (the shadow, polarized images and spectra, line
+profiles and transfer functions).
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -76,7 +78,28 @@ kernel (`sim5_tpu_torch/csrc/disk_image.cu`, f64 and f32) are built into
     periods): each crossing map, the curve given the maps and the entry
     point timed, and the crossing map at 512^2; finite and positive,
     sample k equal to sample k + 48 to 1e-9, delays of the hit pixels
-    from exactly 0.
+    from exactly 0;
+16. example 09 at its full size: render_bh_image at 512^2 (a = 0.998,
+    80 deg, rmax 10, nt_setup(10, a, 0.1, 0.1), inner emissivity 1e22
+    r^-3), first call and the min of 5 warm calls (host clock,
+    synchronised), its op count from the CPU run and the share ops x 7.2
+    us takes of the time; the shadow fraction and the g range; the card
+    against the CPU at 64^2 (masks equal but for lanes within 1e-10 of
+    their threshold; r 1e-12 relative, g and flux within a bound that
+    grows with the plunging g-factor's rounding noise); test_shadow.py's
+    Schwarzschild area and masks-and-flux gates; imetric on the card;
+17. examples 06 and 10 at their full sizes: render_polarized_image at
+    256^2 and polarized_spectrum at 192^2 x 20 energies (a = 0.9, 70 deg),
+    timed as phase 16; example 06's integrated degree and angle and
+    example 10's table; the card against the CPU at 64^2 (I 1e-11
+    relative, Q and U 1e-11 of I; the spectrum 1e-12 of I_E);
+    test_polarized_spectrum.py's face-on and inclined degree gates; the
+    goldens tazm, tsurf, wp, pvec and prot on the card;
+18. line_profile (256^2, orders 0 and 1, 200 bins) and
+    transfer_function (384^2, 8 x 64 bins), timed as phase 16; the card
+    against itself (atomic sums, 1e-13 of the peak) and against the CPU at
+    64^2 (1e-12 of the peak, bins equal but for pixels at a bin edge);
+    test_driver.py's line-shape gates and T.sum() == hit.sum() dA.
 
 Then one JSON line on the kernels, the card's name and power limit, and
 the result as the last line.  Any failed check exits non-zero.  The script
@@ -1745,6 +1768,528 @@ def phase_hotspot(dev):
     return dict(map_s=map_s, lc_s=lc_s, entry_s=entry_s, big_s=big_s)
 
 
+# --- phases 16-18: the equatorial thin-disk products (the shadow of
+# example 09, the polarized image and spectrum of examples 06 and 10, the
+# line profile and the transfer function): eager f64 torch, no kernel
+
+SHADOW = dict(a=0.998, incl=math.radians(80.0), rmax=10.0)   # example 09
+N_SHADOW = 512
+POL = dict(a=0.9, incl=math.radians(70.0))                   # examples 06, 10
+N_POL_IMAGE = 256
+N_POL_SPEC = 192
+POL_E = np.geomspace(0.3, 10.0, 20)
+LINE = dict(a=0.9, incl=math.radians(45.0))                  # line_profile
+N_LINE = 256
+TRANSFER = dict(a=0.5, incl=math.radians(60.0),
+                r_edges=np.geomspace(3.0, 50.0, 9))
+N_TRANSFER = 384
+N_PRODUCT_CMP = 64       # the card against the CPU
+ENTRY_RUNS = 5           # warm host-clock calls of each entry point
+US_PER_OP = 7.2          # the eager engine's launch cost an op (PERF.md §5)
+MASK_EDGE = 1e-10        # a lane whose mask differs sits this close to it
+
+
+def inner_emissivity(r):
+    """Example 09's emissivity inside the ISCO."""
+    return 1e22 * r ** -3
+
+
+def entry_times(fn):
+    """(first call, the min of ENTRY_RUNS warm calls) in seconds on the
+    synchronised host clock, and the first call's result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    warm = []
+    for _ in range(ENTRY_RUNS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    return first, min(warm), out
+
+
+def count_ops(fn):
+    """fn()'s result and the number of torch operations it dispatched that
+    write a tensor (views excluded): on the card each is a kernel launch
+    of the eager engine."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if all(r.alias_info is None or r.alias_info.is_write
+                   for r in func._schema.returns):
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        out = fn()
+    return out, Count.n
+
+
+def launch_text(ops, warm_s):
+    """The op count, the time an op, and the share of the warm time that
+    ops x US_PER_OP accounts for."""
+    return (f"{ops} ops (CPU count), {warm_s / ops * 1e6:.2f} us an op, "
+            f"ops x {US_PER_OP} us = {ops * US_PER_OP * 1e-6 / warm_s:.3f} "
+            f"of the time")
+
+
+def mask_flips(tag, got, want, dist):
+    """The number of lanes where the card's mask `got` differs from the
+    CPU's `want`; each must sit within MASK_EDGE (relative, `dist`, from
+    the CPU's values) of the mask's threshold."""
+    diff = got.cpu() != want
+    n = int(diff.sum())
+    if n:
+        far = float(dist[diff].max())
+        check(far <= MASK_EDGE, f"{tag}: {n} lanes differ between the card "
+              f"and the CPU, one {far:.3e} (relative) from the threshold")
+    return n
+
+
+def rel_err(got, want, sel, scale=None):
+    """max |got - want| / |scale| over `sel` (scale defaults to want; equal
+    values count 0 whatever the scale)."""
+    scale = want if scale is None else scale
+    diff = (got.cpu() - want).abs()
+    d = torch.where(diff == 0, 0.0, diff / scale.abs())[sel]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def golden_err(tag, got, want, rtol, atol):
+    """Check the card's values against a golden table where the golden is
+    finite (test_core.py / test_polarization.py's rule); returns the
+    largest |got - want| / (atol + rtol |want|)."""
+    want = torch.as_tensor(want, dtype=torch.float64)
+    got = got.cpu().reshape(want.shape)
+    fin = torch.isfinite(want)
+    ratio = float(((got - want).abs() / (atol + rtol * want.abs()))[fin].max())
+    check(ratio <= 1.0, f"golden {tag} on the card: {ratio:.3f} of its "
+          f"tolerance (rtol {rtol}, atol {atol})")
+    return ratio
+
+
+def shadow_geometry(dev, npix):
+    """The shadow's thresholds at npix^2 on `dev`: the radius of the first
+    crossing and its cut 1.01 r_h, the periastron and the horizon."""
+    from sim5_tpu_torch import geodesic as gd
+    from sim5_tpu_torch.core import r_bh
+    from sim5_tpu_torch.render import image_grid
+    alpha, beta = image_grid(npix, npix, SHADOW["rmax"], device=dev)
+    g = gd.geodesic_init_inf(SHADOW["incl"], SHADOW["a"], alpha, beta)
+    r0 = gd.geodesic_position_rad(g, gd.geodesic_find_midplane_crossing(g))
+    return r0, 1.01 * r_bh(g.a), g.rp, r_bh(g.a)
+
+
+def plunge_noise(im):
+    """The relative spread of the plunging g-factor of each pixel of a CPU
+    image when its radius or one of its motion constants moves by 1 to 4
+    ulps: its rounding noise, which the card's ulp-level differences in r,
+    l and q reach too.  Near the ISCO u_r^2 is a difference of terms up to
+    ~1e9 times larger (the plunging gas starts at rest radially), and
+    E k^t - L k^phi cancels by ~10 (measured on the CPU at 64^2)."""
+    from sim5_tpu_torch import geodesic as gd
+    from sim5_tpu_torch.core import photon_momentum, r_ms
+    from sim5_tpu_torch.render import image_grid
+    from sim5_tpu_torch.render.shadow import gfactor_plunge
+    npix = im.g.shape[0]
+    alpha, beta = image_grid(npix, npix, SHADOW["rmax"], device="cpu")
+    g = gd.geodesic_init_inf(SHADOW["incl"], SHADOW["a"], alpha, beta)
+    inside = im.hit & (im.r < r_ms(g.a))
+    r = torch.where(inside, im.r, r_ms(g.a))
+    one = torch.ones_like(r)
+
+    def gp(r, l, q):
+        k = photon_momentum(g.a, r, torch.zeros_like(r), l, q, one, one)
+        return gfactor_plunge(r, g.a, torch.where(torch.isfinite(k), k, 0.0))
+
+    base = gp(r, g.l, g.q)
+    N = torch.zeros_like(r)
+    for ulps in (-4, -2, -1, 1, 2, 4):
+        for i in range(3):
+            x = [r, g.l, g.q]
+            x[i] = x[i] * (1.0 + ulps * EPS64)
+            N = torch.maximum(N, ((gp(*x) - base) / base).abs())
+    return torch.where(inside & torch.isfinite(N), N, 0.0), inside
+
+
+def phase_shadow(dev):
+    """Example 09 at its full size: render_bh_image at 512^2 (a = 0.998,
+    80 deg, rmax 10, nt_setup(10, a, 0.1, 0.1), inner emissivity 1e22
+    r^-3), timed; the card against the CPU at 64^2; tests/test_shadow.py's
+    gates; the contravariant metric against kerr.txt."""
+    from sim5_tpu_torch.core import kerr_metric_contravariant, r_ms
+    from sim5_tpu_torch.disk import nt_setup
+    from sim5_tpu_torch.render import render_bh_image
+    a, incl, rmax = SHADOW["a"], SHADOW["incl"], SHADOW["rmax"]
+
+    def shadow(npix, device):
+        return render_bh_image(a, incl, npix, npix, rmax=rmax,
+                               disk=nt_setup(10.0, a, 0.1, 0.1,
+                                             device=device),
+                               inner_emissivity=inner_emissivity)
+
+    first, warm, im = entry_times(lambda: shadow(N_SHADOW, dev))
+    check(im.flux.device.type == "cuda"
+          and render_bh_image(a, incl, 16, 16).g.device.type == "cuda",
+          "the shadow did not run on the card (given the disk's device, or "
+          "no device)")
+    check(bool(torch.isfinite(im.flux).all()) and bool((im.flux >= 0).all())
+          and bool((im.flux[~im.hit] == 0).all()),
+          "512^2 shadow: flux not finite, >= 0 and 0 off the hits")
+    cap_frac = float(im.captured.double().mean())
+    g_hit = im.g[im.hit]
+    # the card against the CPU
+    n = N_PRODUCT_CMP
+    k = shadow(n, dev)
+    c, ops = count_ops(lambda: shadow(n, "cpu"))
+    r0, cut, rp, rh = shadow_geometry("cpu", n)
+    flips = mask_flips("shadow hit", k.hit, c.hit,
+                       ((r0 - cut).abs() / cut).nan_to_num(math.inf))
+    flips += mask_flips("shadow captured", k.captured, c.captured,
+                        (rp - rh).abs() / rh)
+    both = k.hit.cpu() & c.hit
+    noise, inside = plunge_noise(c)
+    # the card's radius and motion constants differ from the CPU's by a few
+    # ulps (phase 13 measures r to 4e-15): the plunging g moves by its
+    # rounding noise (the JAX package and the port differ by up to 1.4 of
+    # it on the CPU at 64^2)
+    g_bound = 1e-12 + 16.0 * noise
+    errs = dict(r=rel_err(k.r, c.r, both))
+    g_ratio = rel_err(k.g, c.g, both, c.g * g_bound)
+    f_ratio = rel_err(k.flux, c.flux, both, c.flux * (4.0 * g_bound + 3e-13))
+    check(errs["r"] <= 1e-12, f"shadow r: card vs CPU {errs['r']:.3e} > 1e-12")
+    check(g_ratio <= 1.0 and f_ratio <= 1.0, f"shadow g / flux: card vs CPU "
+          f"{g_ratio:.3f} / {f_ratio:.3f} of their bounds")
+    g_out = rel_err(k.g, c.g, both & ~inside)
+    # tests/test_shadow.py's gates, on the card
+    sch = render_bh_image(1e-3, math.radians(60.0), 256, 256, rmax=10.0,
+                          device=dev)
+    area = float(sch.captured.double().mean()) * 400.0
+    check(abs(area - 27.0 * math.pi) / (27.0 * math.pi) < 0.02,
+          f"Schwarzschild shadow area {area:.4f} vs 27 pi")
+    mf = render_bh_image(a, incl, 128, 128, rmax=8.0,
+                         disk=nt_setup(10.0, a, 0.1, 0.1, device=dev),
+                         inner_emissivity=inner_emissivity)
+    rms = float(r_ms(torch.tensor(a, dtype=torch.float64)))
+    check(int((mf.captured & mf.hit).sum()) > 0
+          and bool(torch.isfinite(mf.flux).all())
+          and bool((mf.flux >= 0).all())
+          and float(mf.flux[mf.hit & (mf.r < rms)].max()) > 0
+          and bool((mf.flux[~mf.hit] == 0).all()),
+          "tests/test_shadow.py masks-and-flux gate on the card")
+    d = golden_rows("kerr.txt", "imetric")
+    gi = kerr_metric_contravariant(*(torch.tensor(d[:, i], device=dev)
+                                     for i in range(3)))
+    gold = golden_err("imetric", torch.stack(
+        [gi.g00, gi.g11, gi.g22, gi.g33, gi.g03], -1), d[:, 3:8], 1e-12,
+        1e-13)
+    print(f"phase 16 black-hole shadow (example 09: a={a}, incl "
+          f"{math.degrees(incl):.0f}, {N_SHADOW}^2, rmax {rmax}, NT disk "
+          f"outside the ISCO, 1e22 r^-3 inside): first call {first:.4f} s, "
+          f"warm {warm * 1e3:.3f} ms (min of {ENTRY_RUNS}, host clock, "
+          f"synchronised); {launch_text(ops, warm)} | shadow fraction "
+          f"{cap_frac:.4f}; g range on emission [{float(g_hit.min()):.3f}, "
+          f"{float(g_hit.max()):.3f}] | card vs CPU at {n}^2: masks differ on "
+          f"{flips} lanes, r {errs['r']:.3e} relative (gate 1e-12), g "
+          f"outside the ISCO {g_out:.3e}, g and flux {g_ratio:.3f} / "
+          f"{f_ratio:.3f} of their bounds (1e-12 + 16 N, N the plunging g's "
+          f"spread over 1-4 ulps of r, l, q on the CPU, up to "
+          f"{float(noise.max()):.3e}; flux 4x + 3e-13) | "
+          f"Schwarzschild shadow area {area:.4f} (27 pi = "
+          f"{27 * math.pi:.4f}, gate 2%); masks-and-flux gate at 128^2 | "
+          f"imetric golden on the card {gold:.3f} of rtol 1e-12", flush=True)
+    return dict(first=first, warm=warm, ops=ops)
+
+
+def pol_gates(dev):
+    """tests/test_polarized_spectrum.py's face-on and inclined degree
+    gates at npix 96, on `dev`: (face-on max degree, inclined max degree,
+    the Chandrasekhar bound)."""
+    from sim5_tpu_torch.disk import nt_setup
+    from sim5_tpu_torch.render import chandrasekhar_poldeg, polarized_spectrum
+    E = np.geomspace(0.3, 8.0, 12)
+    disk = nt_setup(10.0, 0.5, 0.1, 0.1, device=dev)
+    degs = []
+    for inc in (3.0, 75.0):
+        I, Q, U = (v.cpu().numpy() for v in polarized_spectrum(
+            disk, math.radians(inc), E, npix=96))
+        ok = I > 1e-12 * I.max()
+        deg = np.where(ok, np.hypot(Q, U) / np.where(ok, I, 1.0), 0.0)
+        check(I.max() > 0 and np.isfinite(I).all(),
+              f"polarized spectrum at {inc} deg not finite and positive")
+        degs.append(float(deg[I > 1e-6 * I.max()].max()))
+    bound = float(chandrasekhar_poldeg(math.cos(math.radians(75.0))))
+    check(degs[0] < 5e-3, f"face-on degree {degs[0]:.3e} >= 5e-3")
+    check(5e-3 < degs[1] < bound, f"75 deg degree {degs[1]:.4f} not in "
+          f"(5e-3, {bound:.4f})")
+    return degs + [bound]
+
+
+def phase_polarized(dev):
+    """Examples 06 and 10 at their full sizes: render_polarized_image at
+    256^2 and polarized_spectrum at 192^2 x 20 energies (a = 0.9, 70 deg),
+    timed; each card against the CPU at 64^2; the degree gates; the
+    goldens tazm, tsurf, wp, pvec and prot on the card."""
+    from sim5_tpu_torch import core, polarization as pol
+    from sim5_tpu_torch.disk import nt_setup
+    from sim5_tpu_torch.render import (image_grid, polarized_spectrum,
+                                       render_polarized_image)
+    from sim5_tpu_torch import geodesic as gd
+    a, incl = POL["a"], POL["incl"]
+    disk = nt_setup(10.0, a, 0.1, 0.1, device=dev)
+    cdisk = nt_setup(10.0, a, 0.1, 0.1, device="cpu")
+    img_first, img_warm, (I, Q, U) = entry_times(
+        lambda: render_polarized_image(disk, incl, N_POL_IMAGE, N_POL_IMAGE))
+    spec_first, spec_warm, (IE, QE, UE) = entry_times(
+        lambda: polarized_spectrum(disk, incl, POL_E, npix=N_POL_SPEC))
+    check(I.device.type == "cuda" and IE.device.type == "cuda"
+          and render_polarized_image(nt_setup(10.0, a, 0.1, 0.1), incl, 16,
+                                     16)[0].device.type == "cuda",
+          "the polarized products did not run on the card (a disk built "
+          "with no device is the card's)")
+    for tag, t in (("I", I), ("Q", Q), ("U", U), ("I_E", IE), ("Q_E", QE),
+                   ("U_E", UE)):
+        check(bool(torch.isfinite(t).all()), f"polarized {tag} not finite")
+    check(bool((IE > 0).all()), "polarized spectrum I_E not positive")
+    Is, Qs, Us = float(I.sum()), float(Q.sum()), float(U.sum())
+    int_deg = math.hypot(Qs, Us) / Is
+    int_ang = math.degrees(float(pol.stokes_polang(
+        torch.tensor(Is), torch.tensor(Qs), torch.tensor(Us))))
+    # the card against the CPU, image
+    n = N_PRODUCT_CMP
+    Ik, Qk, Uk = render_polarized_image(disk, incl, n, n)
+    (Ic, Qc, Uc), img_ops = count_ops(
+        lambda: render_polarized_image(cdisk, incl, n, n))
+    alpha, beta = image_grid(n, n, cdisk.rms - 1e-3 + 12.0, device="cpu")
+    g = gd.geodesic_init_inf(incl, cdisk.a, alpha, beta)
+    r = gd.geodesic_position_rad(g, gd.geodesic_find_midplane_crossing(g))
+    # hit from r >= rms - 1e-3, and I > 0 from nt_flux's r > rms
+    edge = torch.minimum((r - (cdisk.rms - 1e-3)).abs(), (r - cdisk.rms).abs())
+    flips = mask_flips("polarized image", Ik > 0, Ic > 0,
+                       (edge / cdisk.rms).nan_to_num(math.inf))
+    on = (Ik.cpu() > 0) & (Ic > 0)
+    img_errs = [rel_err(Ik, Ic, on), rel_err(Qk, Qc, on, Ic),
+                rel_err(Uk, Uc, on, Ic)]
+    check(max(img_errs) <= 1e-11, f"polarized image card vs CPU: I, Q, U "
+          f"{img_errs} (of I) > 1e-11")
+    # the card against the CPU, spectrum (sums in another order)
+    Sk = polarized_spectrum(disk, incl, POL_E, npix=n)
+    Sc, spec_ops = count_ops(
+        lambda: polarized_spectrum(cdisk, incl, POL_E, npix=n))
+    all_e = torch.ones(len(POL_E), dtype=torch.bool)
+    spec_errs = [rel_err(Sk[0], Sc[0], all_e),
+                 rel_err(Sk[1], Sc[1], all_e, Sc[0]),
+                 rel_err(Sk[2], Sc[2], all_e, Sc[0])]
+    check(max(spec_errs) <= 1e-12, f"polarized spectrum card vs CPU: I_E, "
+          f"Q_E, U_E {spec_errs} (of I_E) > 1e-12")
+    degs = pol_gates(dev)
+    # the goldens on the card
+    t = lambda v: torch.tensor(v, device=dev)       # noqa: E731
+    gold = {}
+    d = golden_rows("kerr.txt", "tazm")
+    m = core.kerr_metric(t(d[:, 0]), t(d[:, 1]), t(d[:, 2]))
+    gold["tazm"] = golden_err("tazm", core.tetrad_azimuthal(m, t(d[:, 3])).e,
+                              d[:, 4:20], 1e-12, 1e-13)
+    d = golden_rows("kerr.txt", "tsurf")
+    m = core.kerr_metric(t(d[:, 0]), t(d[:, 1]), t(d[:, 2]))
+    gold["tsurf"] = golden_err("tsurf", core.tetrad_surface(
+        m, t(d[:, 3]), 0.1, 0.05).e, d[:, 4:20], 1e-12, 1e-13)
+    d = golden_rows("polarization.txt", "wp")
+    m = core.kerr_metric(t(d[:, 0]), t(d[:, 1]), t(d[:, 2]))
+    wp = pol.polarization_constant(t(d[:, 3:7]), t(d[:, 7:11]), m)
+    gold["wp"] = max(golden_err("wp", wp[i], d[:, 11 + i], 1e-10, 1e-12)
+                     for i in range(2))
+    f = pol.polarization_vector(t(d[:, 3:7]), t(d[:, 11]), t(d[:, 12]), m)
+    gold["pvec"] = golden_err("pvec", f, golden_rows("polarization.txt",
+                                                      "pvec"), 1e-8, 1e-9)
+    d = golden_rows("polarization.txt", "prot")
+    w1, w2 = pol.polarization_constant_infinity(t(d[:, 0]), t(d[:, 2]),
+                                                t(d[:, 3]), t(d[:, 1]))
+    chi = pol.polarization_angle_rotation(t(d[:, 0]), t(d[:, 1]), t(d[:, 2]),
+                                          t(d[:, 3]), w1, w2)
+    gold["prot"] = max(golden_err("prot wp1", w1, d[:, 4], 1e-12, 0.0),
+                       golden_err("prot wp2", w2, d[:, 5], 1e-12, 0.0),
+                       golden_err("prot chi", chi, d[:, 6], 1e-10, 1e-12))
+    IEn, QEn, UEn = (v.cpu().numpy() for v in (IE, QE, UE))
+    table = "; ".join(
+        f"{e:.3f} {i:.6e} {dg:.5f} {an:.3f}" for e, i, dg, an in zip(
+            POL_E, IEn, np.hypot(QEn, UEn) / np.maximum(IEn, 1e-300),
+            0.5 * np.degrees(np.arctan2(UEn, QEn))))
+    print(f"phase 17 polarized image and spectrum (examples 06 and 10: a={a}"
+          f", incl {math.degrees(incl):.0f}): image {N_POL_IMAGE}^2 first "
+          f"call {img_first:.4f} s, warm {img_warm * 1e3:.3f} ms; "
+          f"{launch_text(img_ops, img_warm)} | spectrum {N_POL_SPEC}^2 x "
+          f"{len(POL_E)} energies first call {spec_first:.4f} s, warm "
+          f"{spec_warm * 1e3:.3f} ms; {launch_text(spec_ops, spec_warm)} "
+          f"(min of {ENTRY_RUNS}, host clock, synchronised) | example 06: "
+          f"pixels on disk {int((I > 0).sum())}, integrated poldeg "
+          f"{int_deg:.4f}, polangle {int_ang:.2f} deg | card vs CPU at "
+          f"{n}^2: image masks differ on {flips} lanes, I {img_errs[0]:.3e} "
+          f"relative, Q {img_errs[1]:.3e} and U {img_errs[2]:.3e} of I "
+          f"(gate 1e-11); spectrum I_E {spec_errs[0]:.3e}, Q_E "
+          f"{spec_errs[1]:.3e}, U_E {spec_errs[2]:.3e} of I_E (gate 1e-12) | "
+          f"degree gates (a=0.5, npix 96): face-on {degs[0]:.3e} (< 5e-3), "
+          f"75 deg {degs[1]:.4f} (in (5e-3, {degs[2]:.4f})) | goldens on "
+          f"the card, of their tolerances: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in gold.items())
+          + f" | example 10 (E keV, I_E erg/s/cm2/keV, degree, angle deg): "
+          + table, flush=True)
+    return dict(img_first=img_first, img_warm=img_warm, img_ops=img_ops,
+                spec_first=spec_first, spec_warm=spec_warm,
+                spec_ops=spec_ops)
+
+
+def g_bin_edge(gf, bins):
+    """Relative distance of each pixel's (g - lo)/(hi - lo) bins to the
+    nearest bin edge: where the card's g-bin may differ from the CPU's."""
+    x = (gf - 0.2) / 1.2 * bins
+    return ((x - x.round()).abs() / x.abs().clamp(min=1.0))
+
+
+def line_map_edges(a, incl, npix, r_in, r_out, order, r_edges=()):
+    """The CPU's relative distance of each pixel of disk_g_map to the
+    thresholds of its hit mask (r_in, r_out) and to the radial bin edges
+    `r_edges`: the raw crossing radius, recomputed."""
+    from sim5_tpu_torch import geodesic as gd
+    from sim5_tpu_torch.core import r_ms
+    from sim5_tpu_torch.render import image_grid
+    r_in = float(r_ms(torch.tensor(a, dtype=torch.float64))) \
+        if r_in is None else r_in
+    r_out = 400.0 if r_out is None else r_out
+    alpha, beta = image_grid(npix, npix, min(r_out * 1.1, 60.0),
+                             device="cpu")
+    g = gd.geodesic_init_inf(incl, a, alpha, beta)
+    r = gd.geodesic_position_rad(g, gd.geodesic_find_midplane_crossing(
+        g, order))
+    dist = [((r - e).abs() / e) for e in (r_in, r_out) + tuple(r_edges)]
+    return torch.stack(dist).min(0).values.nan_to_num(math.inf)
+
+
+def product_flips(tag, mk, mc, edge, bins, r_bins=None):
+    """The pixels of a disk_g_map whose hit mask or bins differ between
+    the card (`mk`) and the CPU (`mc`), each checked against `edge` (the
+    radial thresholds) or its g-bin edge; returns (count, their mask)."""
+    from sim5_tpu_torch.render.lineprofile import _g_index
+    both = mk[2].cpu() & mc[2]
+    n = mask_flips(f"{tag} hit", mk[2], mc[2], edge)
+    gk, gc = (_g_index(m[1], 0.2, 1.4, bins).cpu() * both for m in (mk, mc))
+    n += mask_flips(f"{tag} g-bin", gk, gc, g_bin_edge(mc[1], bins))
+    moved = (mk[2].cpu() != mc[2]) | (gk != gc)
+    if r_bins is not None:
+        rk, rc = (torch.searchsorted(r_bins.to(m[0].device), m[0]).cpu()
+                  * both for m in (mk, mc))
+        n += mask_flips(f"{tag} r-bin", rk, rc, edge)
+        moved |= rk != rc
+    return n, moved
+
+
+def phase_lineprofile(dev):
+    """line_profile (256^2, orders 0 and 1, 200 bins; a = 0.9, 45 deg)
+    and transfer_function (384^2, 64 g-bins, 8 radial bins over 3-50;
+    a = 0.5, 60 deg) at their default sizes, timed; the card against the
+    CPU at 64^2 and the card against itself (atomic sums); the
+    tests/test_driver.py gates."""
+    from sim5_tpu_torch.render import (disk_g_map, line_profile,
+                                       transfer_function)
+    a, incl = LINE["a"], LINE["incl"]
+    ta, ti, edges = TRANSFER["a"], TRANSFER["incl"], TRANSFER["r_edges"]
+    lp_first, lp_warm, (gc, prof) = entry_times(
+        lambda: line_profile(a, incl, npix=N_LINE, orders=2, device=dev))
+    tf_first, tf_warm, T = entry_times(
+        lambda: transfer_function(ta, ti, edges, npix=N_TRANSFER, device=dev))
+    check(prof.device.type == "cuda" and T.device.type == "cuda"
+          and line_profile(a, incl, npix=16)[1].device.type == "cuda"
+          and transfer_function(ta, ti, edges, npix=16).device.type == "cuda",
+          "the line products did not run on the card (given no device)")
+    # the card against itself: atomic sums in another order each run
+    prof2 = line_profile(a, incl, npix=N_LINE, orders=2, device=dev)[1]
+    T2 = transfer_function(ta, ti, edges, npix=N_TRANSFER, device=dev)
+    self_lp = float((prof2 - prof).abs().max() / prof.abs().max())
+    self_tf = float((T2 - T).abs().max() / T.abs().max())
+    check(max(self_lp, self_tf) <= 1e-13, f"line profile / transfer table "
+          f"run to run on the card {self_lp:.3e} / {self_tf:.3e} of the "
+          f"peak > 1e-13")
+    # tests/test_driver.py's gates, at the full sizes on the card
+    g_np, p_np = gc.cpu().numpy(), prof.cpu().numpy()
+    nz = p_np > 0
+    check(np.isfinite(p_np).all() and p_np.max() > 0
+          and g_np[nz].min() < 0.7 and g_np[nz].max() > 1.05,
+          "line profile: not broadened both sides of g = 1")
+    g2, p2 = (v.cpu().numpy() for v in line_profile(
+        a, incl, npix=N_LINE, r_in=10.0, r_out=14.0, device=dev))
+    nz2 = p2 > 0.01 * p2.max()
+    red = p2[(g2 < 1.0) & nz2].max() if ((g2 < 1.0) & nz2).any() else 0.0
+    check(p2[g2 > 1.0].max() > red, "annulus profile: blue horn not above "
+          "the red")
+    _, _, hit, dA = disk_g_map(ta, ti, N_TRANSFER, None, float(edges[0]),
+                               float(edges[-1]), device=dev)
+    total = abs(float(T.sum()) - float(hit.sum()) * dA) / (
+        float(hit.sum()) * dA)
+    check(T.shape == (8, 64) and bool((T >= 0).all()) and total <= 1e-10,
+          f"transfer table: T.sum() vs hit.sum() dA {total:.3e} > 1e-10")
+    # the card against the CPU at 64^2: each pixel's mask and bins (a
+    # pixel that moves bin moves its weight, allowed twice over), then the
+    # sums
+    n = N_PRODUCT_CMP
+    flips, moved_w = 0, 0.0
+    for order in (0, 1):
+        mk, mc = (disk_g_map(a, incl, n, None, None, None, order, device=d)
+                  for d in (dev, "cpu"))
+        k, moved = product_flips(
+            f"line map order {order}", mk, mc,
+            line_map_edges(a, incl, n, None, None, order), 200)
+        flips += k
+        w = torch.maximum(*(m[0].cpu() ** -3.0 * m[1].cpu() ** 3 * m[3]
+                            for m in (mk, mc)))   # emissivity index 3
+        moved_w += float(w[moved].sum()) / (1.2 / 200)
+    pk = line_profile(a, incl, npix=n, orders=2, device=dev)[1]
+    pc, lp_ops = count_ops(lambda: line_profile(a, incl, npix=n, orders=2,
+                                                device="cpu"))
+    lp_rel = float((pk.cpu() - pc[1]).abs().max() / pc[1].abs().max())
+    lp_err = float((pk.cpu() - pc[1]).abs().max()
+                   / (1e-12 * pc[1].abs().max() + 2.0 * moved_w))
+    mk, mc = (disk_g_map(ta, ti, n, None, float(edges[0]), float(edges[-1]),
+                         device=d) for d in (dev, "cpu"))
+    k, moved = product_flips(
+        "transfer map", mk, mc,
+        line_map_edges(ta, ti, n, float(edges[0]), float(edges[-1]), 0,
+                       tuple(edges)), 64, torch.from_numpy(edges))
+    flips += k
+    Tk = transfer_function(ta, ti, edges, npix=n, device=dev)
+    Tc, tf_ops = count_ops(lambda: transfer_function(ta, ti, edges, npix=n,
+                                                     device="cpu"))
+    tf_rel = float((Tk.cpu() - Tc).abs().max() / Tc.abs().max())
+    tf_err = float((Tk.cpu() - Tc).abs().max()
+                   / (1e-12 * Tc.abs().max() + 2.0 * mc[3] * int(moved.sum())))
+    check(max(lp_err, tf_err) <= 1.0, f"line profile / transfer table card "
+          f"vs CPU {lp_err:.3f} / {tf_err:.3f} of their bounds (1e-12 of "
+          f"the peak, + twice the weight of pixels that moved bin)")
+    print(f"phase 18 line profile and transfer function: line_profile "
+          f"(a={a}, incl {math.degrees(incl):.0f}, {N_LINE}^2, orders 0-1, "
+          f"200 bins) first call {lp_first:.4f} s, warm {lp_warm * 1e3:.3f} "
+          f"ms, {launch_text(lp_ops, lp_warm)} | transfer_function (a={ta}, "
+          f"incl {math.degrees(ti):.0f}, {N_TRANSFER}^2, 8 x 64) first call "
+          f"{tf_first:.4f} s, warm {tf_warm * 1e3:.3f} ms, "
+          f"{launch_text(tf_ops, tf_warm)} (min of {ENTRY_RUNS}, host clock, "
+          f"synchronised) | run to run on the card (atomic sums): profile "
+          f"{self_lp:.3e}, table {self_tf:.3e} of the peak (gate 1e-13) | "
+          f"card vs CPU at {n}^2: masks and bins differ on {flips} pixels, "
+          f"profile {lp_rel:.3e}, table {tf_rel:.3e} of the peak, "
+          f"{lp_err:.3f} / {tf_err:.3f} of their bounds (1e-12 "
+          f"of the peak + twice the weight of the pixels that moved) | line broadened over g [{g_np[nz].min():.3f}, "
+          f"{g_np[nz].max():.3f}], peak at g {g_np[p_np.argmax()]:.3f}; the "
+          f"annulus 10-14 blue horn above the red; T.sum() vs hit.sum() dA "
+          f"{total:.3e} (gate 1e-10)", flush=True)
+    return dict(lp_first=lp_first, lp_warm=lp_warm, lp_ops=lp_ops,
+                tf_first=tf_first, tf_warm=tf_warm, tf_ops=tf_ops)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1783,6 +2328,12 @@ def main():
         orbit_launches, orbit_rows = phase_orbit_volume(dev, name)
         torch.cuda.synchronize()
         phase_hotspot(dev)
+        torch.cuda.synchronize()
+        phase_shadow(dev)
+        torch.cuda.synchronize()
+        phase_polarized(dev)
+        torch.cuda.synchronize()
+        phase_lineprofile(dev)
         torch.cuda.synchronize()
     except PhaseFailed as e:
         print(f"FAILED: {e}", file=sys.stderr)

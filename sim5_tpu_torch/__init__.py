@@ -2,10 +2,13 @@
 
 The package mirrors `sim5_tpu`'s layout and names, so that each function's
 counterpart sits at the same path.  It holds the Novikov-Thorne disk image,
-the stepwise Kerr ray march and volume radiative transfer: the spacetime
-core (`core`), the special functions (`special`, `utils`), the analytic
-geodesic engine (`geodesic`), the thin disk (`disk`), the march (`march`)
-and the renderers (`render`), with two kernels written in CUDA C++ for
+the equatorial thin-disk products (the shadow, polarized images and
+spectra, line profiles), the stepwise Kerr ray march and volume radiative
+transfer: the spacetime core (`core`), the special functions (`special`,
+`utils`), the analytic geodesic engine (`geodesic`), the thin disk and its
+model protocol (`disk`), blackbody emission (`radiation`), Walker-Penrose
+transport (`polarization`), the march (`march`) and the renderers
+(`render`), with two kernels written in CUDA C++ for
 Hopper and built by `_build.py` on first use: the march
 (`csrc/march.cu`) and the disk image (`csrc/disk_image.cu`).
 
@@ -28,6 +31,8 @@ from . import core
 from . import special
 from . import geodesic
 from . import disk
+from . import radiation
+from . import polarization
 from . import march
 from . import render
 

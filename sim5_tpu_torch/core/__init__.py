@@ -1,17 +1,27 @@
 """Spacetime core: metric, connection, tetrads, orbits, photon kinematics.
 
-Port of `sim5_tpu/core` (the part the stepwise march, the analytic seed and
-the disk image need).
+Port of `sim5_tpu/core`: batched equivalents of sim5kerr.c on tensors.
 """
 
 from .metric import (
     Metric,
-    flat_metric, kerr_metric,
-    kerr_transport_accel, flat_transport_accel,
-    vector_covariant, dotprod,
+    flat_metric, flat_metric_contravariant,
+    kerr_metric, kerr_metric_contravariant,
+    kerr_newman_metric, kerr_newman_metric_contravariant,
+    flat_connection, kerr_connection, kerr_newman_connection,
+    Gamma, geodesic_accel, kerr_transport_accel, flat_transport_accel,
+    vector, vector_covariant, dotprod, vector_norm, vector_3norm,
+    vector_norm_to, vector_norm_to_null,
 )
-from .tetrads import Tetrad, tetrad_zamo, bl2on, on2bl
+from .tetrads import (
+    Tetrad, tetrad_general, tetrad_zamo, tetrad_radial,
+    tetrad_azimuthal, tetrad_surface, tetrad_valid, bl2on, on2bl,
+)
 from .orbits import (r_bh, r_ms, r_mb, r_ph, OmegaK, ellK, omega_r, omega_z,
                      Omega_from_ell, ell_from_Omega, gfactorK, keplerian_EL)
-from .photon import (photon_carter_const, photon_momentum,
-                     photon_motion_constants)
+from .photon import (
+    photon_momentum, photon_momentum_checked,
+    photon_motion_constants, photon_carter_const,
+    fourvelocity_zamo, fourvelocity_azimuthal, fourvelocity_radial,
+    fourvelocity,
+)

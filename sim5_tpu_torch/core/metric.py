@@ -1,8 +1,11 @@
 """Kerr and Minkowski metric, Christoffel connection entries and 4-vector
 algebra in Boyer-Lindquist coordinates (t, r, theta, phi).
 
-Port of `sim5_tpu/core/metric.py` (the part the stepwise march needs).  The
-poloidal coordinate is m = cos(theta) everywhere, as in the reference.
+Port of `sim5_tpu/core/metric.py`.  The poloidal coordinate is
+m = cos(theta) everywhere, as in the reference.  The connection comes in
+two forms: the dense symmetric (..., 4, 4, 4) tensor of the true
+Christoffel symbols (`kerr_connection`, `Gamma`, `geodesic_accel`), and
+the sparse contraction the march uses (`kerr_transport_accel`).
 Dtype and device follow the inputs (`_as_tensors`); inputs that hold no
 tensor go to the card.
 
@@ -43,7 +46,7 @@ def _as_tensors(*vals, device=None):
 
 @dataclasses.dataclass(frozen=True)
 class Metric:
-    """Covariant metric components at a point."""
+    """Covariant (or contravariant) metric components at a point."""
     a: torch.Tensor
     r: torch.Tensor
     m: torch.Tensor    # cos(theta)
@@ -62,6 +65,14 @@ def flat_metric(r, m):
                   r * r, r * r * (1.0 - m * m), z)
 
 
+def flat_metric_contravariant(r, m):
+    """Contravariant Minkowski metric.  (sim5kerr.c:53-70)"""
+    r, m = _as_tensors(r, m)
+    z = torch.zeros_like(r)
+    return Metric(z, r, m, -torch.ones_like(r), torch.ones_like(r),
+                  1.0 / (r * r), 1.0 / (r * r) / (1.0 - m * m), z)
+
+
 def kerr_metric(a, r, m):
     """Covariant Kerr metric g_munu.  (sim5kerr.c:75-101)"""
     a, r, m = _as_tensors(a, r, m)
@@ -78,6 +89,67 @@ def kerr_metric(a, r, m):
     )
 
 
+def kerr_metric_contravariant(a, r, m):
+    """Contravariant Kerr metric g^munu.  (sim5kerr.c:106-131)"""
+    a, r, m = _as_tensors(a, r, m)
+    r2, a2, m2 = r * r, a * a, m * m
+    S = r2 + a2 * m2
+    SD = S * (r2 - 2.0 * r + a2)
+    return Metric(
+        a, r, m,
+        -((r2 + a2) ** 2) / SD + a2 * (1.0 - m2) / S,
+        (r2 - 2.0 * r + a2) / S,
+        1.0 / S,
+        1.0 / S / (1.0 - m2) - a2 / SD,
+        -2.0 * a * r / SD,
+    )
+
+
+def kerr_newman_metric(a, Q, r, m):
+    """Covariant Kerr-Newman metric.  (sim5kerr.c:136-163)"""
+    a, Q, r, m = _as_tensors(a, Q, r, m)
+    rQ = Q * Q
+    r2, a2, m2 = r * r, a * a, m * m
+    S = r2 + a2 * m2
+    s2_S = (1.0 - m2) / S
+    return Metric(
+        a, r, m,
+        -1.0 + (2.0 * r - rQ) / S,
+        S / (r2 - 2.0 * r + a2 + rQ),
+        S,
+        ((a2 + r2) * S + (2.0 * r - rQ) * a2 * s2_S * S) * s2_S,
+        -a * (2.0 * r - rQ) * s2_S,
+    )
+
+
+def kerr_newman_metric_contravariant(a, Q, r, m):
+    """Contravariant Kerr-Newman metric.  (sim5kerr.c:168-194)"""
+    a, Q, r, m = _as_tensors(a, Q, r, m)
+    rQ = Q * Q
+    r2, a2, m2 = r * r, a * a, m * m
+    S = r2 + a2 * m2
+    SD = S * (r2 - 2.0 * r + a2 + rQ)
+    return Metric(
+        a, r, m,
+        -((r2 + a2) ** 2) / SD + a2 * (1.0 - m2) / S,
+        (r2 - 2.0 * r + a2 + rQ) / S,
+        1.0 / S,
+        1.0 / S / (1.0 - m2) - a2 / SD,
+        a * (-2.0 * r + rQ) / SD,
+    )
+
+
+def _sym_connection(entries, batch_shape):
+    """Assemble a dense symmetric (..., 4, 4, 4) Gamma^i_{jk} from a dict
+    {(i, j, k): value} of the independent nonzero components (j <= k)."""
+    ref = next(iter(entries.values()))
+    zero = torch.zeros(batch_shape, dtype=ref.dtype, device=ref.device)
+    G = [[[entries.get((i, min(j, k), max(j, k)), zero) for k in range(4)]
+          for j in range(4)] for i in range(4)]
+    return torch.stack([torch.stack([torch.stack(row, -1) for row in plane],
+                                    -2) for plane in G], -3)
+
+
 def _flat_conn_entries(r, m):
     """Nonzero Christoffel components {(i,j<=k): Gamma^i_jk} for Minkowski
     in spherical coords.  (sim5kerr.c:199-228)"""
@@ -92,6 +164,14 @@ def _flat_conn_entries(r, m):
         (3, 2, 3): m / s,
     }
     return e, r.shape
+
+
+def flat_connection(r, m):
+    """Christoffel symbols for Minkowski metric in spherical coords.
+
+    Returns true Gamma^i_{jk} as (..., 4, 4, 4).  (sim5kerr.c:199-228)
+    """
+    return _sym_connection(*_flat_conn_entries(r, m))
 
 
 def _kerr_conn_entries(a, r, m):
@@ -167,6 +247,89 @@ def _kerr_conn_entries(a, r, m):
     return e, r.shape
 
 
+def kerr_connection(a, r, m):
+    """Christoffel symbols Gamma^i_{jk} for the Kerr metric, dense symmetric
+    (..., 4, 4, 4).  (sim5kerr.c:233-316)"""
+    return _sym_connection(*_kerr_conn_entries(a, r, m))
+
+
+def kerr_newman_connection(a, Q, r, m):
+    """Christoffel symbols for the Kerr-Newman metric, dense symmetric
+    (..., 4, 4, 4).  (sim5kerr.c:321-400)"""
+    a, Q, r, m = _as_tensors(a, Q, r, m)
+    rS = 2.0 * r
+    rQ = Q * Q
+    s = torch.sqrt(1.0 - m * m)
+    cs = s * m
+    c2 = m * m
+    s2 = s * s
+    cc = c2 - s2
+    CC = 8.0 * c2 * c2 - 8.0 * c2 + 1.0
+    a2 = a * a
+    a4 = a2 * a2
+    a2cc = a2 * cc
+    a2c2 = a2 * c2
+    a2cs = a2 * cs
+    r2 = r * r
+    r3 = r2 * r
+    a2_r2 = a2 + r2
+    R = (a2 + 2.0 * r2 + a2cc) ** 2
+    D = r2 - 2.0 * r + a2 + rQ
+    S = r2 + a2c2
+    S_1 = 1.0 / S
+    S_3 = 1.0 / (S * S * S)
+    R_1 = 1.0 / R
+    m_s = m / s
+    DR_1 = R_1 / D
+    DS_1 = S_1 / D
+    dbl_r2 = 2.0 * r2
+
+    G100 = D * (r * (r - rQ) - a2c2) * S_3
+    G200 = -(2.0 * r - rQ) * a2cs * S_3
+    G002 = -4.0 * a2cs * (rS - rQ) * R_1
+
+    e = {
+        (0, 0, 1): 4.0 * a2_r2 * (r * (r - rQ) - a2c2) * DR_1,
+        (0, 0, 2): G002,
+        (0, 1, 3): 4.0 * a * s2 * (-a2 * (r2 - r * rQ) - r3 * (3.0 * r - 2.0 * rQ)
+                                   + a2cc * (a2 - r2 + r * rQ)) * DR_1,
+        (0, 2, 3): -G002 * s2 * a,
+        (1, 0, 0): G100,
+        (1, 0, 3): -G100 * a * s2,
+        (1, 1, 1): (r * (a2 - r + rQ) + a2 * (1.0 - r) * c2) * DS_1,
+        (1, 1, 2): -a2cs * S_1,
+        (1, 2, 2): -r * D * S_1,
+        (1, 3, 3): -D * s2 * (2.0 * a2c2 * r3 + r2 * r3 + a2 * a2c2 * s2
+                              + a2c2 * a2c2 * r - a2 * r * (r - rQ) * s2) * S_3,
+        (2, 0, 0): G200,
+        (2, 0, 3): -G200 * a2_r2 / a,
+        (2, 1, 1): a2cs * DS_1,
+        (2, 1, 2): r * S_1,
+        (2, 2, 2): -a2cs * S_1,
+        (2, 3, 3): -cs * (a2_r2 * S * S + a2 * s2 * (rS - rQ) * (a2_r2 + S)) * S_3,
+        (3, 0, 1): a * (r * (r - rQ) - a2c2) * DS_1 * S_1,
+        (3, 0, 2): -4.0 * a * (rS - rQ) * m_s * R_1,
+        (3, 1, 3): 4.0 * (r3 * (r2 - rS + rQ) + r * a2c2 * a2c2
+                          - a2 * r * (r - rQ) * s2 + a2c2 * r * (dbl_r2 - rS + rQ)
+                          + a2c2 * a2 * s2) * DR_1,
+        (3, 2, 3): ((3.0 * a4 + 8.0 * a2 * r + 8.0 * a2 * r2 + 8.0 * r2 * r2
+                     + 4.0 * (dbl_r2 - rS + rQ + a2) * a2cc + a4 * CC) * m_s) * (R_1 / 2.0),
+    }
+    return _sym_connection(e, r.shape)
+
+
+def Gamma(G, U, V):
+    """Transport derivative -Gamma^i_{jk} (U^j V^k + U^k V^j)/2 from the
+    dense symmetric connection.  (reference: sim5kerr.c:421-440)"""
+    return -0.5 * (torch.einsum('...ijk,...j,...k->...i', G, U, V)
+                   + torch.einsum('...ijk,...j,...k->...i', G, V, U))
+
+
+def geodesic_accel(G, k):
+    """dk^i/dlambda = -Gamma^i_{jk} k^j k^k from the dense connection."""
+    return -torch.einsum('...ijk,...j,...k->...i', G, k, k)
+
+
 def _sparse_transport(entries, U, V):
     """-Gamma^i_{jk} U^j V^k contracted directly from the nonzero component
     dict (j<=k entries; Gamma symmetric in jk), with U, V as (..., 4).
@@ -209,9 +372,19 @@ def flat_transport_accel(r, m, U, V):
 # 4-vector algebra  (sim5kerr.c:443-625)
 # -----------------------------------------------------------------
 
+def vector(x0, x1, x2, x3):
+    """Assemble a 4-vector along the trailing axis."""
+    return torch.stack(_as_tensors(x0, x1, x2, x3), -1)
+
+
+def _on(v, metric: Metric):
+    """`v` as a tensor in the metric's dtype and on its device."""
+    return torch.as_tensor(v, dtype=metric.g00.dtype, device=metric.g00.device)
+
+
 def vector_covariant(V, metric: Metric):
     """Lower the index: X^mu -> X_mu.  (sim5kerr.c:477-499)"""
-    V = torch.as_tensor(V, dtype=metric.g00.dtype, device=metric.g00.device)
+    V = _on(V, metric)
     return torch.stack([
         V[..., 0] * metric.g00 + V[..., 3] * metric.g03,
         V[..., 1] * metric.g11,
@@ -230,3 +403,47 @@ def dotprod(V1, V2, metric: Metric = None):
             + V1[..., 2] * V2[..., 2] * metric.g22
             + V1[..., 3] * V2[..., 3] * metric.g33
             + (V1[..., 0] * V2[..., 3] + V1[..., 3] * V2[..., 0]) * metric.g03)
+
+
+def vector_norm(V, metric: Metric = None):
+    """sqrt(V.V) for space-like V.  (sim5kerr.c:503-515)"""
+    return torch.sqrt(dotprod(V, V, metric))
+
+
+def vector_3norm(V):
+    """Spatial 3-norm.  (sim5kerr.c:519-530)"""
+    return torch.sqrt(V[..., 1] ** 2 + V[..., 2] ** 2 + V[..., 3] ** 2)
+
+
+def vector_norm_to(V, norm, metric: Metric = None):
+    """Scale V so that V.V == norm (norm > 0 space-like, norm < 0
+    time-like).
+
+    As in the JAX package (a deviation from sim5kerr.c:552-572): lanes
+    where norm / V.V <= 0 (wrong causal character) return V unscaled
+    instead of NaN; `tetrad_valid` finds them.
+    """
+    N = dotprod(V, V, metric)
+    ratio = norm / N
+    good = ratio > 0.0
+    fac = torch.sqrt(torch.where(good, ratio, 1.0))
+    return V * torch.where(good, fac, 1.0)[..., None]
+
+
+def vector_norm_to_null(V, V0, metric: Metric = None):
+    """Rescale the spatial part of a null vector so that V.V = 0 with time
+    component V0.  (sim5kerr.c:575-604)
+    """
+    if metric is None:
+        a = V[..., 1] ** 2 + V[..., 2] ** 2 + V[..., 3] ** 2
+        alpha = torch.sqrt(V0 * V0 / a)
+    else:
+        a = (V[..., 1] ** 2 * metric.g11 + V[..., 2] ** 2 * metric.g22
+             + V[..., 3] ** 2 * metric.g33)
+        b = V0 * V[..., 3] * metric.g03   # b/2 of the quadratic
+        c = V0 * V0 * metric.g00
+        disc = torch.sqrt(b * b - a * c)
+        alpha = torch.maximum(-b / a + disc / a, -b / a - disc / a)
+    out = V * alpha[..., None]
+    V0 = torch.as_tensor(V0, dtype=out.dtype, device=out.device)
+    return torch.cat([V0.expand(out.shape[:-1])[..., None], out[..., 1:]], -1)

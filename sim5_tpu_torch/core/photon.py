@@ -1,5 +1,5 @@
-"""Photon kinematics.  Port of `sim5_tpu/core/photon.py` (the part the
-stepwise march and the analytic seed need).
+"""Photon momentum, motion constants, Carter constant, 4-velocities.
+Port of `sim5_tpu/core/photon.py`.
 
 (reference: sim5kerr.c:1150-1353)
 """
@@ -16,6 +16,30 @@ def photon_carter_const(k, metric: Metric):
     kh = k[..., 2] * metric.g22
     kf = k[..., 3] * metric.g33 + k[..., 0] * metric.g03
     return kh ** 2 + kf ** 2 * m2 / (1.0 - m2) - metric.a ** 2 * kt ** 2 * m2
+
+
+def photon_momentum_checked(a, r, m, l, q, r_sign, m_sign):
+    """Like photon_momentum, but returns (k, valid) with no NaN in k:
+    invalid rays get a finite placeholder and valid=False."""
+    a, r, m, l, q, r_sign, m_sign = _as_tensors(a, r, m, l, q, r_sign, m_sign)
+    a2 = a * a
+    l2 = l * l
+    r2 = r * r
+    m2 = m * m
+    S = r2 + a2 * m2
+    D = r2 - 2.0 * r + a2
+    R = (r2 + a2 - a * l) ** 2 - D * ((l - a) ** 2 + q)
+    M = q - l2 * m2 / (1.0 - m2) + a2 * m2
+    R = torch.where((R < 0.0) & (R > -1e-8), 0.0, R)
+    M = torch.where((M < 0.0) & (M > -1e-8), 0.0, M)
+    valid = (R >= 0.0) & (M >= 0.0)
+    sqrtR = torch.where(R > 0.0, torch.sqrt(torch.where(R > 0.0, R, 1.0)), 0.0)
+    sqrtM = torch.where(M > 0.0, torch.sqrt(torch.where(M > 0.0, M, 1.0)), 0.0)
+    k0 = (-a * (a * (1.0 - m2) - l) + (r2 + a2) / D * (r2 + a2 - a * l)) / S
+    k1 = sqrtR / S * torch.sign(r_sign + 0.5)
+    k2 = sqrtM / S * torch.sign(m_sign + 0.5)
+    k3 = (-a + l / (1.0 - m2) + a / D * (r2 + a2 - a * l)) / S
+    return torch.stack([k0, k1, k2, k3], -1), valid
 
 
 def photon_momentum(a, r, m, l, q, r_sign, m_sign):
@@ -70,3 +94,43 @@ def photon_motion_constants(a, r, m, k):
             / (-s2 * (a2 * a2 - a * a2 * l + r2 * r2 + a * l * (D - r2)
                       + a2 * (2.0 * r2 - D * s2)) ** 2)))
     return l, q
+
+
+def fourvelocity_zamo(metric: Metric):
+    """4-velocity of a ZAMO observer.  (sim5kerr.c:1279-1291)"""
+    g = metric
+    U0 = torch.sqrt(g.g33 / (g.g03 ** 2 - g.g33 * g.g00))
+    z = torch.zeros_like(U0)
+    return torch.stack([U0, z, z, -U0 * g.g03 / g.g33], -1)
+
+
+def fourvelocity_azimuthal(Omega, metric: Metric):
+    """4-velocity of an azimuthally rotating observer.  (sim5kerr.c:1296-1309)"""
+    g = metric
+    U0 = torch.sqrt(-1.0 / (g.g00 + 2.0 * Omega * g.g03 + Omega ** 2 * g.g33))
+    z = torch.zeros_like(U0)
+    return torch.stack(torch.broadcast_tensors(U0, z, z, U0 * Omega), -1)
+
+
+def fourvelocity_radial(vr, metric: Metric):
+    """4-velocity of a radially moving observer.  (sim5kerr.c:1314-1327)"""
+    g = metric
+    U0 = torch.sqrt((-1.0 - vr ** 2 * g.g11) / g.g00)
+    z = torch.zeros_like(U0)
+    vr = torch.as_tensor(vr, dtype=U0.dtype, device=U0.device)
+    return torch.stack([U0, vr.expand(U0.shape), z, z], -1)
+
+
+def fourvelocity(U1, U2, U3, metric: Metric):
+    """4-velocity (U^t, U1, U2, U3) from proper-velocity components
+    Ui = dx^i/dtau; U^t solves the unit-norm condition U.U = -1.
+
+    As in the JAX package (a deviation from sim5kerr.c:1342-1353, which
+    divides every component by U^t and so loses the unit norm).
+    """
+    g = metric
+    D = ((g.g03 * U3) ** 2 - g.g00 * g.g11 * U1 ** 2 - g.g00 * g.g22 * U2 ** 2
+         - g.g00 * g.g33 * U3 ** 2 - g.g00)
+    N = (-g.g03 * U3 - torch.sqrt(D)) / g.g00
+    return torch.stack(torch.broadcast_tensors(N, U1 + 0.0 * N, U2 + 0.0 * N,
+                                               U3 + 0.0 * N), -1)

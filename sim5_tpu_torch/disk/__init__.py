@@ -1,7 +1,8 @@
-"""Disk models: the Novikov-Thorne thin disk.
+"""Disk models: the Novikov-Thorne thin disk and the pluggable model
+protocol.
 
-Port of `sim5_tpu/disk` (the NT disk; the pluggable model protocol and
-the external-library disk wait for later slices).
+Port of `sim5_tpu/disk` (the external-library disk waits for a later
+slice).
 """
 
 from .nt import (
@@ -9,3 +10,4 @@ from .nt import (
     nt_setup, nt_flux, nt_temp, nt_lumi, nt_mdot_for_luminosity,
     nt_sigma, nt_ell, nt_vr, nt_h, nt_dhdr, nt_dump,
 )
+from .base import DiskModel, ThinDisk

@@ -2,7 +2,8 @@
 
 Port of `sim5_tpu/geodesic`: initialisation at infinity, the position
 integral and its radial and poloidal inversions, the momentum at P, the
-equatorial-plane crossing, the azimuth and the travel time.
+equatorial-plane crossing, the capture predicate, the azimuth and the
+travel time.
 """
 
 from .types import (
@@ -16,6 +17,7 @@ from .types import (
 from .analytic import (
     geodesic_init_inf, geodesic_P_int, geodesic_position_rad,
     geodesic_position_pol, geodesic_dm_sign, geodesic_momentum,
-    geodesic_find_midplane_crossing, geodesic_position_azm,
+    geodesic_find_midplane_crossing, geodesic_is_captured,
+    geodesic_position_azm,
     geodesic_timedelay, geodesic_timedelay_full,
 )

@@ -3,9 +3,10 @@
 Port of `sim5_tpu/geodesic/analytic.py`: initialisation from impact
 parameters at infinity, the position integral P(r), its radial and
 poloidal inversions r(P), m(P), the sign of dm/dP, the photon momentum at
-P, the equatorial-plane crossing, the azimuth phi(P) and the travel time
-between two positions (radial, and with the poloidal term).  Still to
-port: `geodesic_init_src`, `geodesic_is_captured`, `geodesic_follow` and
+P, the equatorial-plane crossing, the capture predicate, the azimuth
+phi(P) and the travel time between two positions (radial, and with the
+poloidal term).  Still to port, with the thick-disk driver that uses
+them: `geodesic_init_src`, `geodesic_follow` and
 `geodesic_position_pol_sign_k_theta`.
 
 The geodesic equation is solved via the quartic roots of the radial
@@ -715,6 +716,21 @@ def geodesic_momentum(g: Geodesic, P, r=None, m=None):
                         torch.where(torch.isfinite(dm), dm, 1.0))
     bad = ~_live(g) | ~torch.isfinite(r) | ~torch.isfinite(m)
     return torch.where(bad[..., None], torch.nan, k)
+
+
+def geodesic_is_captured(g: Geodesic):
+    """True where a from-infinity geodesic has no radial turning point
+    outside the horizon: the photon falls in.  The captured set over the
+    image plane is the black-hole shadow (silhouette).
+
+    As in the JAX package (beyond the reference): RC/CC rays plunge by
+    construction, RR rays are captured iff the periastron sits inside the
+    horizon.
+    """
+    rh = 1.0 + torch.sqrt(torch.clamp(1.0 - g.a ** 2, min=0.0))
+    is_rr = g.gtype == GEOD_TYPE_RR
+    plunging = (g.gtype == GEOD_TYPE_RC) | (g.gtype == GEOD_TYPE_CC)
+    return (g.status == GD_OK) & (plunging | (is_rr & (g.rp <= rh)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,3 +1,11 @@
-"""Numerical utilities: error-free transforms and accurate logs."""
+"""Numerical utilities: error-free transforms, accurate transcendentals
+and the small math helpers of sim5math.c."""
 
-from .fastmath import two_sum, two_prod, sqrt_df, vlog, log_accurate
+from .fastmath import (two_sum, two_prod, sqrt_df, vlog, log_accurate,
+                       exp_accurate, expm1_accurate)
+from .math import (
+    sqr, sqr3, sqr4, sign, deg2rad, rad2deg,
+    reduce_angle_pi, reduce_angle_2pi, ensure_range,
+    cartesian_to_spherical, spherical_to_cartesian, sim5round,
+    cartesian_vector_to_spherical, cartesian_vector_to_spherical_at,
+)

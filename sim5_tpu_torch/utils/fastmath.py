@@ -1,14 +1,15 @@
 """Error-free transforms and the cancellation-free pieces of the NT flux.
 
-Port of `sim5_tpu/utils/fastmath.py` (the part the disk image needs):
-Knuth's `two_sum`, Dekker's `two_prod`, the two-float square root
-`sqrt_df`, and `vlog(u) = u - log1p(u)` without cancellation.  Dtype and
-device follow the inputs.
+Port of `sim5_tpu/utils/fastmath.py`: Knuth's `two_sum`, Dekker's
+`two_prod`, the two-float square root `sqrt_df`, `vlog(u) = u - log1p(u)`
+without cancellation, and the accurate transcendentals.  Dtype and device
+follow the inputs.
 
-The JAX module also patches the TPU's approximate f32 `log`, `exp` and
-`expm1`.  torch's f32 `log` is IEEE-accurate on the CPU and on the card
-(no fast-math intrinsics), so `log_accurate` is `torch.log` here, and the
-exp patches have no caller in the port.
+The JAX module patches the TPU's approximate f32 `log`, `exp` and
+`expm1`.  torch's f32 `log`, `exp` and `expm1` are IEEE-accurate on the
+CPU and on the card (no fast-math intrinsics), so `log_accurate`,
+`exp_accurate` and `expm1_accurate` keep their names here and are
+`torch.log`, `torch.exp` and `torch.expm1` in every dtype.
 """
 
 import torch
@@ -46,6 +47,19 @@ def log_accurate(y):
     IEEE-accurate in f32 on the CPU and on the card (the JAX package's
     bit-level f32 log works around the TPU's approximate one)."""
     return torch.log(y)
+
+
+def exp_accurate(x):
+    """exp to ~1 ulp in every dtype: `torch.exp` (the JAX package's f32
+    patch works around the TPU's ~8e-6 exp; identical to exp in f64)."""
+    return torch.exp(x)
+
+
+def expm1_accurate(x):
+    """expm1 to ~1 ulp in every dtype: `torch.expm1` (the JAX package's
+    f32 patch works around the TPU's ~1.1e-4 expm1; identical to expm1 in
+    f64)."""
+    return torch.expm1(x)
 
 
 def vlog(u):
