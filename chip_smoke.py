@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port on one GPU: the stepwise Kerr ray march,
 volume radiative transfer, the Novikov-Thorne disk image, the analytic
-azimuth and travel time, the hot-spot light curve, and the equatorial
+azimuth and travel time, the hot-spot light curve, the equatorial
 thin-disk products (the shadow, polarized images and spectra, line
-profiles and transfer functions).
+profiles and transfer functions), and the disk raytracing driver (the
+thick-disk surface solve, DiskRaytrace images and spectra, and the
+differentiable spectrum).
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -99,7 +101,28 @@ kernel (`sim5_tpu_torch/csrc/disk_image.cu`, f64 and f32) are built into
     transfer_function (384^2, 8 x 64 bins), timed as phase 16; the card
     against itself (atomic sums, 1e-13 of the peak) and against the CPU at
     64^2 (1e-12 of the peak, bins equal but for pixels at a bin edge);
-    test_driver.py's line-shape gates and T.sum() == hit.sum() dA.
+    test_driver.py's line-shape gates and T.sum() == hit.sum() dA;
+19. the thick-disk surface solve on tests/test_driver.py's cone (H =
+    0.05 R outside r = 6, a = 0.5, 55 deg): find_surface_march on the 24
+    rays of thickdisk_cone_a05.npy against the reference (hit set equal,
+    r rtol 1e-10, m atol 1e-12), find_surface on them (residual 1e-9, r
+    within 0.05 of the march, hit sets agreeing on > 0.9), the card
+    against the CPU in f64 (find_surface on those rays and at 64^2, the
+    march on those rays: ok equal, r and m 1e-9 relative), example 12's
+    image (DiskRaytrace.image at 96^2, f64: hit fraction > 0.2, max |H| >
+    0.1) and bench.py's thick-disk workload in f32 (the 256^2 image: hit
+    fraction > 0.2, median residual < 1e-3; its 8-inclination sweep as 8
+    eager calls, min of 3 on the synchronised host clock:
+    thickdisk_rays_per_sec, with a frame's op count from the CPU run);
+20. the thin-disk driver and spectra: DiskRaytrace.image (32^2) and
+    spectrum against the reference Python layer's goldens
+    (tests/test_driver.py's tolerances), example 05 at its full size (a =
+    0.7, 60 deg, radres 0.3, angres 45, 64 energies over 0.1-50 keV),
+    timed as phase 16 (spectrum_rays_per_sec, the op count, the coverage
+    error, the card against the CPU to 1e-12 of the peak), f32 against
+    f64 (< 1e-5), the card against the CPU at radres 2, angres 10 (1e-12
+    of the peak), and disk_spectrum against the driver (2e-2) with its
+    autograd d log sum / da against central differences (rtol 0.05).
 
 Then one JSON line on the kernels, the card's name and power limit, and
 the result as the last line.  Any failed check exits non-zero.  The script
@@ -2290,6 +2313,363 @@ def phase_lineprofile(dev):
                 tf_first=tf_first, tf_warm=tf_warm, tf_ops=tf_ops)
 
 
+# tests/test_driver.py's toy slim disk, as example 12 and bench.py's
+# thick-disk workload (bench.py:153-259) use it: H = 0.05 R outside r = 6
+CONE = dict(a=0.5, incl=math.radians(55.0), rmax=25.0)
+N_THICK_IMAGE = 96       # example 12's image
+N_THICK = 256            # bench.py's thick-disk frame
+THICK_SWEEP = 8          # frames of bench.py's inclination sweep
+THICK_RUNS = 3           # host-clock runs of the sweep (the min is kept)
+N_THICK_CMP = 64         # the card against the CPU
+# example 05 at its full size (examples/05_disk_spectrum.py)
+SPEC05 = dict(a=0.7, incl_deg=60.0, radres=0.3, angres=45.0,
+              E=np.geomspace(0.1, 50.0, 64))
+
+
+class Cone:
+    """The toy slim disk of tests/test_driver.py, example 12 and bench.py
+    on tensors: photosphere at H = 0.05 R, flux r^-3 and T = 1e7 r^-0.75
+    outside r = 6, Keplerian rotation at a = 0.5."""
+    slope = 0.05
+
+    def r_min(self):
+        return 6.0
+
+    def mdot(self):
+        return 0.1
+
+    def lumi(self):
+        return 0.1
+
+    def flux(self, r):
+        return torch.where(r > 6.0, 1.0 / torch.clamp(r, min=1.0) ** 3, 0.0)
+
+    def t_eff(self, r):
+        return torch.where(r > 6.0, 1e7 / torch.clamp(r, min=1.0) ** 0.75,
+                           0.0)
+
+    def sigma(self, r):
+        return torch.ones_like(r)
+
+    def ell(self, r):
+        from sim5_tpu_torch.core import ellK
+        return ellK(torch.clamp(r, min=6.0), 0.5)
+
+    def vr(self, r):
+        return torch.zeros_like(r)
+
+    def h(self, r):
+        return self.slope * r
+
+    def dhdr(self, r):
+        return torch.full_like(r, self.slope)
+
+
+def cone_geodesic(alpha, beta, device, dtype=torch.float64, incl=None):
+    """Geodesics of the cone's observer (a = 0.5, 55 deg) on `device`."""
+    from sim5_tpu_torch import geodesic as gd
+    incl = CONE["incl"] if incl is None else incl
+    return gd.geodesic_init_inf(
+        torch.as_tensor(incl, dtype=dtype, device=device), CONE["a"],
+        torch.as_tensor(alpha, dtype=dtype, device=device),
+        torch.as_tensor(beta, dtype=dtype, device=device))
+
+
+def square_grid(npix, rmax):
+    """(alpha, beta) of DiskRaytrace.image's npix^2 grid, flattened."""
+    xs = ((np.arange(npix) + 0.5) / npix - 0.5) * 2.0 * rmax
+    al, be = np.meshgrid(xs, xs)
+    return al.ravel(), be.ravel()
+
+
+def synced(fn):
+    """fn()'s result and its time on the synchronised host clock [s]."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def surface_diff(tag, got, want):
+    """The largest relative differences of r and m between two surface
+    solutions (P, r, m, ok) whose ok masks must be equal."""
+    ok = want[3]
+    check(torch.equal(got[3].cpu(), ok), f"{tag}: ok masks differ between "
+          f"the card and the CPU on {int((got[3].cpu() != ok).sum())} rays")
+    return tuple(rel_err(got[i], want[i], ok) for i in (1, 2))
+
+
+def thick_frame(incl, al, be):
+    """bench.py's per-frame body of the thick-disk sweep (bench.py:222-236):
+    find_surface, the momentum, the tetrad and the g-factor of every pixel,
+    and the frame's total flux."""
+    from sim5_tpu_torch.core import photon_momentum
+    from sim5_tpu_torch.render import find_surface
+    from sim5_tpu_torch.render.driver import disk_tetrad, observed_gfactor
+    disk = Cone()
+    g = cone_geodesic(al, be, al.device, al.dtype, incl)
+    P, r, m, ok = find_surface(g, disk)
+    k = photon_momentum(g.a, r, m, g.l, g.q, g.Rpc - P, torch.ones_like(r))
+    gf = observed_gfactor(k, disk_tetrad(g.a, r, m, disk))
+    ok = ok & torch.isfinite(gf) & (gf > 0.0)
+    gf = torch.where(ok, gf, 0.0)
+    return torch.where(ok, disk.flux(r * torch.sqrt(1.0 - m * m)) * gf ** 4,
+                       0.0).sum()
+
+
+def thick_sweep(i0, al, be):
+    """The THICK_SWEEP frames of bench.py's sweep, one eager call a frame,
+    and the sum of their fluxes on the host."""
+    incls = i0 + 2e-4 * torch.arange(THICK_SWEEP, dtype=al.dtype,
+                                     device=al.device)
+    return float(sum(thick_frame(incls[k], al, be)
+                     for k in range(THICK_SWEEP)))
+
+
+def phase_thickdisk(dev):
+    """The thick-disk surface solve on the card (the cone at a = 0.5,
+    55 deg): the march against the C reference's golden, the root-find on
+    the same rays, the card against the CPU, example 12's image and
+    bench.py's thick-disk workload in f32."""
+    from sim5_tpu_torch.render import (DiskRaytrace, DiskSpectrum_BlackBody,
+                                       find_surface, find_surface_march)
+    path = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
+    al, be, r_ref, m_ref, ok_ref = np.load(
+        path / "thickdisk_cone_a05.npy").T
+    ok_ref = torch.from_numpy(ok_ref > 0)
+    disk = Cone()
+    # 1. the march against the reference's __find_surface
+    g = cone_geodesic(al, be, dev)
+    march, t_march = synced(lambda: find_surface_march(g, disk))
+    check(march[1].device.type == "cuda", "the march did not run on the card")
+    okm = march[3].cpu()
+    check(torch.equal(okm, ok_ref), "march: the hit set differs from the "
+          "reference's")
+    r_gold = rel_err(march[1], torch.from_numpy(r_ref), ok_ref)
+    m_gold = float((march[2].cpu() - torch.from_numpy(m_ref)).abs()[
+        ok_ref].max())
+    check(r_gold <= 1e-10 and m_gold <= 1e-12, f"march against the golden: "
+          f"r {r_gold:.3e} (rtol 1e-10), m {m_gold:.3e} (atol 1e-12)")
+    # 2. the root-find on the same rays
+    surf, t_surf = synced(lambda: find_surface(g, disk))
+    P, r, m, ok = (v.cpu() for v in surf)
+    resid = float((r * m - disk.h(r * torch.sqrt(1.0 - m * m))).abs()[
+        ok].max())
+    agree = float((ok == okm).double().mean())
+    both = ok & okm
+    dr = float((r - march[1].cpu()).abs()[both].max())
+    check(resid < 1e-9 and dr < 0.05 and agree > 0.9, f"find_surface: "
+          f"residual {resid:.3e} (gate 1e-9), r vs the march {dr:.3e} (gate "
+          f"0.05), hit sets agree on {agree:.3f} (gate 0.9)")
+    # 3. the card against the CPU: the root-find on the golden rays and
+    # at 64^2, the march on the golden rays
+    ga, gb = square_grid(N_THICK_CMP, CONE["rmax"])
+    al2, be2 = np.concatenate([al, ga]), np.concatenate([be, gb])
+    k_surf = find_surface(cone_geodesic(al2, be2, dev), disk)
+    c_surf, surf_ops = count_ops(
+        lambda: find_surface(cone_geodesic(al2, be2, "cpu"), disk))
+    c_march, march_ops = count_ops(
+        lambda: find_surface_march(cone_geodesic(al, be, "cpu"), disk))
+    errs = surface_diff("find_surface", k_surf, c_surf) + surface_diff(
+        "find_surface_march", march, c_march)
+    check(max(errs) <= 1e-9, "card vs CPU: find_surface r, m %.3e / %.3e, "
+          "the march %.3e / %.3e (gate 1e-9)" % errs)
+    # 4. example 12's image, f64
+    rt = DiskRaytrace(10.0, CONE["a"], 10.0, disk, DiskSpectrum_BlackBody(),
+                      device=dev)
+    im, t_img = synced(lambda: rt.image(55.0, CONE["rmax"], N_THICK_IMAGE))
+    F, H = im["flux"].cpu(), im["H"].cpu()
+    hit12 = float(torch.isfinite(F).double().mean())
+    H12 = float(H[torch.isfinite(H)].abs().max())
+    check(im["flux"].device.type == "cuda", "example 12's image did not run "
+          "on the card")
+    check(hit12 > 0.2 and H12 > 0.1,
+          f"example 12's image: hit fraction {hit12:.3f} (gate 0.2), max |H| "
+          f"{H12:.3f} (gate 0.1)")
+    # 5. bench.py's thick-disk workload in f32
+    rt32 = DiskRaytrace(10.0, CONE["a"], 10.0, disk,
+                        DiskSpectrum_BlackBody(), device=dev,
+                        dtype=torch.float32)
+    im32, t_img32 = synced(lambda: rt32.image(55.0, CONE["rmax"], N_THICK))
+    F, H, R = (im32[k].cpu() for k in ("flux", "H", "R"))
+    hit = torch.isfinite(F)
+    hit32 = float(hit.double().mean())
+    resid32 = float((H[hit] - disk.slope * R[hit]).abs().median())
+    check(F.dtype == torch.float32 and hit32 > 0.2 and resid32 < 1e-3,
+          f"256^2 f32 image: hit fraction {hit32:.3f} (gate 0.2), median "
+          f"residual {resid32:.3e} (gate 1e-3)")
+    f32 = dict(dtype=torch.float32, device=dev)
+    ga, gb = square_grid(N_THICK, CONE["rmax"])
+    al32, be32 = (torch.tensor(v, **f32).reshape(N_THICK, N_THICK)
+                  for v in (ga, gb))
+    i0 = torch.tensor(CONE["incl"], **f32)
+    s0, t_first = synced(lambda: thick_sweep(i0, al32, be32))
+    check(math.isfinite(s0) and s0 > 0.0, f"thick sweep: flux sum {s0}")
+    ts = [synced(lambda: thick_sweep(i0 + 1e-6 * (i + 1), al32, be32))[1]
+          for i in range(THICK_RUNS)]
+    dt = min(ts)
+    ga, gb = square_grid(N_THICK_CMP, CONE["rmax"])
+    cpu32 = dict(dtype=torch.float32, device="cpu")
+    _, frame_ops = count_ops(lambda: thick_frame(
+        torch.tensor(CONE["incl"], **cpu32), torch.tensor(ga, **cpu32),
+        torch.tensor(gb, **cpu32)))
+    rays_per_sec = THICK_SWEEP * N_THICK * N_THICK / dt
+    print(f"phase 19 thick-disk surface solve (the cone H = 0.05 R, a = "
+          f"{CONE['a']}, 55 deg): the march on the {len(al)} golden rays "
+          f"{t_march:.3f} s, r {r_gold:.3e} relative (gate 1e-10), m "
+          f"{m_gold:.3e} (gate 1e-12), hit set equal | find_surface "
+          f"{t_surf * 1e3:.1f} ms, residual {resid:.3e} (gate 1e-9), r vs the "
+          f"march {dr:.3e} (gate 0.05), hit sets agree on {agree:.3f} | card "
+          f"vs CPU (f64; find_surface on those rays and {N_THICK_CMP}^2, the "
+          f"march on those rays): ok equal, r, m {errs[0]:.3e} / "
+          f"{errs[1]:.3e} and {errs[2]:.3e} / {errs[3]:.3e} relative (gate "
+          f"1e-9); CPU counts {surf_ops} ops (find_surface), {march_ops} "
+          f"(the march) | example 12's image ({N_THICK_IMAGE}^2, f64) "
+          f"{t_img:.3f} s, hit fraction {hit12:.4f}, max |H| {H12:.3f} | "
+          f"bench.py's workload (f32): the {N_THICK}^2 image {t_img32:.3f} "
+          f"s (first call), hit fraction {hit32:.4f}; {THICK_SWEEP} frames "
+          f"one eager call each: first {t_first:.3f} s, min of {THICK_RUNS} "
+          f"{dt:.3f} s; a frame {frame_ops} ops (CPU count at "
+          f"{N_THICK_CMP}^2), ops x {US_PER_OP} us = "
+          f"{frame_ops * US_PER_OP * 1e-6 * THICK_SWEEP / dt:.3f} of the "
+          f"time | thickdisk_rays_per_sec={rays_per_sec:.1f} "
+          f"thickdisk_resid_median={resid32:.4e}", flush=True)
+    return dict(t_march=t_march, t_surf=t_surf, t_img=t_img,
+                t_img32=t_img32, sweep_s=dt, frame_ops=frame_ops,
+                rays_per_sec=rays_per_sec)
+
+
+def thin_driver(device, dist=10.0, dtype=torch.float64):
+    """tests/test_driver.py's thin-disk driver (a = 0.7, M = 10, mdot = 0.1,
+    alpha = 0.1) on `device` in `dtype`."""
+    from sim5_tpu_torch.disk import ThinDisk
+    from sim5_tpu_torch.render import DiskRaytrace, DiskSpectrum_BlackBody
+    disk = ThinDisk.create(torch.tensor(10.0, dtype=dtype, device=device),
+                           0.7, 0.1, 0.1)
+    return DiskRaytrace(10.0, 0.7, dist, disk, DiskSpectrum_BlackBody(),
+                        device=device, dtype=dtype)
+
+
+def phase_driver_spectra(dev):
+    """The thin-disk driver and spectra on the card: the reference Python
+    layer's goldens, example 05 at its full size, f32 against f64, the
+    card against the CPU and the differentiable spectrum."""
+    from sim5_tpu_torch.render import make_polar_grid, disk_spectrum
+    path = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
+    rt = thin_driver(dev)
+    # 1. the golden image (tests/test_driver.py's tolerances)
+    ref = np.load(path / "driver_image_a07.npy")
+    im = rt.image(60.0, 20.0, 32, limbdk=1)
+    check(im["flux"].device.type == "cuda", "the image did not run on the "
+          "card")
+    worst_fp, worst_tol = 1.0, 1.0
+    for i, key in enumerate(("flux", "gfactor", "mue", "T", "R", "H", "V")):
+        got, want = im[key].cpu().numpy(), ref[i]
+        hit_g, hit_w = np.isfinite(got), np.isfinite(want)
+        both = hit_g & hit_w
+        tol = (dict(rtol=1e-3, atol=1e-3) if key == "mue"
+               else dict(rtol=1e-4, atol=1e-12))
+        worst_fp = min(worst_fp, float((hit_g == hit_w).mean()))
+        worst_tol = min(worst_tol, float(np.isclose(got[both], want[both],
+                                                    **tol).mean()))
+    check(worst_fp > 0.99 and worst_tol > 0.99, f"golden image: footprint "
+          f"{worst_fp:.4f}, within tolerance {worst_tol:.4f} (gates 0.99)")
+    # 2. the golden spectra: the odd grid to 3e-2, the even grid's bound
+    E, sf_ref, s0_ref = np.load(path / "driver_spectrum_a07_odd.npy")
+    sf, s0 = rt.spectrum(60.0, E, limbdk=1, flat=1, radres=2.0, angres=11.0,
+                         hardening=1.7)
+    nz = sf_ref > 1e-3 * sf_ref.max()
+    odd = max(np.abs(sf.numpy()[nz] / sf_ref[nz] - 1.0).max(),
+              np.abs(s0.numpy()[nz] / s0_ref[nz] - 1.0).max())
+    check(odd < 3e-2, f"odd-grid golden spectrum {odd:.3e} (rtol 3e-2)")
+    E, sf_ref, _ = np.load(path / "driver_spectrum_a07.npy")
+    sf, _ = rt.spectrum(60.0, E, limbdk=1, flat=1, radres=2.0, angres=10.0,
+                        hardening=1.7)
+    nz = sf_ref > 1e-3 * sf_ref.max()
+    ratio = sf.numpy()[nz] / sf_ref[nz]
+    check(ratio.min() >= 1.0 - 3e-2 and ratio.max() <= 1.0 + 2.0 / 14.0
+          + 3e-2, f"even-grid golden spectrum: ratio [{ratio.min():.4f}, "
+          f"{ratio.max():.4f}] outside [0.97, 1 + 2/14 + 0.03]")
+    # 3. example 05 at its full size
+    kw05 = dict(radres=SPEC05["radres"], angres=SPEC05["angres"],
+                return_diagnostics=True)
+    first, warm, (s05, _, diag) = entry_times(
+        lambda: rt.spectrum(SPEC05["incl_deg"], SPEC05["E"], **kw05))
+    n_rays = make_polar_grid(SPEC05["a"], math.radians(SPEC05["incl_deg"]),
+                             SPEC05["radres"], SPEC05["angres"],
+                             device="cpu").alpha.numel()
+    (c05, _, _), spec_ops = count_ops(lambda: thin_driver("cpu").spectrum(
+        SPEC05["incl_deg"], SPEC05["E"], **kw05))
+    coverage = diag["domega_err"] / diag["domega_tot"]
+    peak = float(c05.max())
+    e05 = float((s05 - c05).abs().max()) / peak
+    check(bool(torch.isfinite(s05).all()) and peak > 0 and e05 <= 1e-12,
+          f"example 05: finite, positive, card vs CPU {e05:.3e} of the peak "
+          f"(gate 1e-12)")
+    # 4. f32 against f64 (test_driver.py's fast-mode configuration)
+    E12 = np.geomspace(0.5, 10.0, 12)
+    s64, _ = rt.spectrum(60.0, E12, radres=1.0, angres=20.0)
+    s32, _ = thin_driver(dev, dtype=torch.float32).spectrum(
+        60.0, E12, radres=1.0, angres=20.0)
+    nz = s64 > 1e-6 * s64.max()
+    f32_rel = float(((s32 - s64).abs() / s64)[nz].max())
+    check(f32_rel < 1e-5, f"f32 spectrum against f64: {f32_rel:.3e} (gate "
+          f"1e-5)")
+    # 5. the card against the CPU at radres 2, angres 10
+    E8 = np.geomspace(0.5, 10.0, 8)
+    kw = dict(radres=2.0, angres=10.0, hardening=1.7)
+    sk, _ = rt.spectrum(60.0, E8, **kw)
+    sc, _ = thin_driver("cpu").spectrum(60.0, E8, **kw)
+    cmp_err = float((sk - sc).abs().max() / sc.max())
+    check(cmp_err <= 1e-12, f"spectrum card vs CPU {cmp_err:.3e} of the "
+          f"peak (gate 1e-12)")
+    # 6. the differentiable spectrum on the same quadrature
+    E16 = np.geomspace(0.3, 15.0, 16)
+    incl = math.radians(60.0)
+    grid = make_polar_grid(0.7, incl, radres=2.0, angres=10.0, device=dev)
+    fit = disk_spectrum(grid, E16, 10.0, 0.7, 0.1, incl, hardening=1.7)
+    check(fit.device.type == "cuda", "disk_spectrum did not run on the card")
+    drv, _ = rt.spectrum(60.0, E16, flat=1, radres=2.0, angres=10.0,
+                         hardening=1.7)
+    nz = drv > 1e-3 * drv.max()
+    fit_rel = float(((fit.cpu() - drv).abs() / drv)[nz].max())
+
+    def total(a):
+        return torch.log(disk_spectrum(grid, E16, 10.0, a, 0.1, incl,
+                                       hardening=1.7).sum())
+
+    a = torch.tensor(0.7, dtype=torch.float64, device=dev,
+                     requires_grad=True)
+    grad = float(torch.autograd.grad(total(a), a)[0])
+    eps = 1e-3
+    fd = (float(total(torch.tensor(0.7 + eps, dtype=torch.float64,
+                                   device=dev)))
+          - float(total(torch.tensor(0.7 - eps, dtype=torch.float64,
+                                     device=dev)))) / (2 * eps)
+    grad_rel = abs(grad - fd) / abs(fd)
+    check(fit_rel < 2e-2 and math.isfinite(grad) and grad_rel < 0.05,
+          f"disk_spectrum: against the driver {fit_rel:.3e} (gate 2e-2); "
+          f"d log sum / da {grad} against FD {fd} ({grad_rel:.3e}, gate 0.05)")
+    print(f"phase 20 thin-disk driver and spectra: golden image (32^2) "
+          f"footprint {worst_fp:.4f}, within tolerance {worst_tol:.4f} (gates "
+          f"0.99); golden spectra: odd grid {odd:.3e} (rtol 3e-2), even grid "
+          f"ratio [{ratio.min():.4f}, {ratio.max():.4f}] | example 05 (a = "
+          f"{SPEC05['a']}, {SPEC05['incl_deg']:.0f} deg, radres "
+          f"{SPEC05['radres']}, angres {SPEC05['angres']:.0f}, "
+          f"{len(SPEC05['E'])} energies 0.1-50 keV): {n_rays} rays, first "
+          f"call {first:.4f} s, warm {warm * 1e3:.3f} ms (min of "
+          f"{ENTRY_RUNS}, host clock, synchronised), spectrum_rays_per_sec="
+          f"{n_rays / warm:.1f}, {launch_text(spec_ops, warm)}; coverage "
+          f"error {coverage:.3e} of the solid angle; card vs CPU {e05:.3e} "
+          f"of the peak | f32 vs f64 {f32_rel:.3e} (gate 1e-5) | card vs CPU "
+          f"at radres 2, angres 10: {cmp_err:.3e} of the peak (gate 1e-12) | "
+          f"disk_spectrum vs the driver {fit_rel:.3e} (gate 2e-2), d log "
+          f"sum / da {grad:.6f} vs FD {fd:.6f} ({grad_rel:.3e}, gate 0.05)",
+          flush=True)
+    return dict(first=first, warm=warm, ops=spec_ops, rays=n_rays)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2334,6 +2714,10 @@ def main():
         phase_polarized(dev)
         torch.cuda.synchronize()
         phase_lineprofile(dev)
+        torch.cuda.synchronize()
+        phase_thickdisk(dev)
+        torch.cuda.synchronize()
+        phase_driver_spectra(dev)
         torch.cuda.synchronize()
     except PhaseFailed as e:
         print(f"FAILED: {e}", file=sys.stderr)

@@ -2,9 +2,10 @@
 
 The package mirrors `sim5_tpu`'s layout and names, so that each function's
 counterpart sits at the same path.  It holds the Novikov-Thorne disk image,
-the equatorial thin-disk products (the shadow, polarized images and
-spectra, line profiles), the stepwise Kerr ray march and volume radiative
-transfer: the spacetime core (`core`), the special functions (`special`,
+the disk raytracing driver (thick-disk surface solves, `DiskRaytrace`
+images and spectra, the differentiable spectrum fit), the equatorial
+thin-disk products (the shadow, polarized images and spectra, line
+profiles), the stepwise Kerr ray march and volume radiative transfer: the spacetime core (`core`), the special functions (`special`,
 `utils`), the analytic geodesic engine (`geodesic`), the thin disk and its
 model protocol (`disk`), blackbody emission (`radiation`), Walker-Penrose
 transport (`polarization`), the march (`march`) and the renderers

@@ -1,9 +1,9 @@
 """Analytic geodesic engine.
 
-Port of `sim5_tpu/geodesic`: initialisation at infinity, the position
-integral and its radial and poloidal inversions, the momentum at P, the
-equatorial-plane crossing, the capture predicate, the azimuth and the
-travel time.
+Port of `sim5_tpu/geodesic`: initialisation at infinity and from a
+point, the position integral and its radial and poloidal inversions, the
+momentum at P, the equatorial-plane crossing, the capture predicate, the
+azimuth, the travel time and the affine-step follower.
 """
 
 from .types import (
@@ -15,9 +15,11 @@ from .types import (
     GD_ERROR_INCL_RANGE, GD_ERROR_SPIN_RANGE,
 )
 from .analytic import (
-    geodesic_init_inf, geodesic_P_int, geodesic_position_rad,
-    geodesic_position_pol, geodesic_dm_sign, geodesic_momentum,
+    geodesic_init_inf, geodesic_init_src, geodesic_P_int, geodesic_position_rad,
+    geodesic_position_pol, geodesic_dm_sign,
+    geodesic_position_pol_sign_k_theta, geodesic_momentum,
     geodesic_find_midplane_crossing, geodesic_is_captured,
     geodesic_position_azm,
     geodesic_timedelay, geodesic_timedelay_full,
+    geodesic_follow, FOLLOW_STOPPED, FOLLOW_OK, FOLLOW_NOT_CONVERGED,
 )

@@ -33,11 +33,11 @@ import math
 import numpy as np
 import torch
 
-from ..core import photon_momentum
+from ..core import photon_momentum, photon_motion_constants, r_bh
 from ..core.metric import _as_tensors
 from ..special import (
     quartic_roots, sort_quartic_roots, polish_quartic_real_roots_df, rf,
-    elliptic_k_mc, jacobi_sncndn, jacobi_icn,
+    elliptic_k_mc, elliptic_f_cos, jacobi_sncndn, jacobi_icn,
     integral_R_rp_re, integral_R_rp_re_inf,
     integral_R_rp_cc2_inf, integral_R_rp_cc2,
     integral_R_r0_re, integral_R_r1_re, integral_R_r2_re,
@@ -450,6 +450,80 @@ def geodesic_init_inf(i, a, alpha, beta):
                     status.to(torch.int32), rr_lo)
 
 
+def geodesic_init_src(a, r, m, k, ppc):
+    """Set up a geodesic from a point (r, m) and 4-momentum direction k.
+
+    `ppc`: 1 if the point is past the radial turning point else 0.
+    Infers the at-infinity parameters (cos_i, alpha, beta).  Dtype and
+    device follow `k`.
+    (reference: geodesic_init_src, sim5kerr-geod.c:106-173)
+    """
+    k = torch.as_tensor(k)
+    if not k.is_floating_point():
+        k = k.to(torch.float64)
+    a, r, m = torch.broadcast_tensors(*(_like(v, k) for v in (a, r, m)))
+    l, q = photon_motion_constants(a, r, m, k)
+    a_eff = torch.clamp(a, min=1e-8)
+
+    rr, rr_lo, ri, nrr, gtype, rp, Rpc, st_r = _R_roots(a_eff, l, q, r)
+    m2p, m2m, mm, mK, st_t = _T_roots(a_eff, l, q, m)
+    status = torch.where(st_r != 0, st_r, st_t)
+
+    zero = torch.zeros_like(a_eff)
+    g = Geodesic(a_eff, zero, zero, zero, zero, l, q, rr, ri, nrr, gtype,
+                 m2p, m2m, mm, mK, rp, Rpc, zero, zero,
+                 status.to(torch.int32), rr_lo)
+
+    Tmp = _theta_int(g, m)
+    Tpp = 2.0 * _theta_int(g, zero)
+    P_pt = geodesic_P_int(g, r, ppc)
+    sign_dm = torch.where(k[..., 2] < 0.0, 1.0, -1.0)
+    T = P_pt + torch.where(sign_dm > 0.0, Tpp - Tmp, Tmp)
+    # fold T into (0, Tpp], flipping sign_dm once a period (the
+    # reference's while T > Tpp loop); nper >= 0, where torch.remainder
+    # agrees with jnp's %
+    nper = torch.clamp(torch.ceil(T / Tpp) - 1.0, min=0.0)
+    T = T - nper * Tpp
+    sign_dm = sign_dm * torch.where(torch.remainder(nper, 2.0) == 0.0,
+                                    1.0, -1.0)
+    cos_i = -sign_dm * _theta_inv(g, T)
+    incl = torch.arccos(cos_i)
+    alpha = -l / torch.sqrt(torch.clamp(1.0 - cos_i ** 2, min=1e-30))
+    beta = -sign_dm * torch.sqrt(torch.clamp(
+        q - cos_i ** 2 * (alpha ** 2 - a_eff ** 2), min=0.0))
+
+    g = g._replace(alpha=alpha, beta=beta, incl=incl, cos_i=cos_i)
+    Tip = _theta_int(g, cos_i)
+
+    # vortical (q < 0) theta bookkeeping (no reference equivalent: its
+    # init_src assumes equator-crossing rays): infer the dn-phase u_pt
+    # from (|m|, sign dm) and store a Tip/beta pair consistent with the
+    # sign0 = +1 convention of _theta_pol_vortical
+    qneg = q < 0.0
+    b2v = torch.where(qneg, g.m2p, 0.7)
+    mm_s = torch.where(qneg, g.mm, 0.5)
+    hemi = torch.where(m >= 0.0, 1.0, -1.0)
+    sn2v = torch.clamp((1.0 - m * m / b2v) / mm_s, 0.0, 1.0)
+    Tcur = g.mK * elliptic_f_cos(torch.sqrt(1.0 - sn2v), mm_s)
+    desc = sign_dm * hemi < 0.0        # |m| decreasing: u_pt in (0, K)
+    Tip_v = (torch.where(torch.isfinite(P_pt), P_pt, 0.0)
+             - torch.where(desc, Tcur, -Tcur))
+    # torch.round rounds half to even, as jnp.round
+    Tip_v = Tip_v - Tpp * torch.round(Tip_v / Tpp)
+    _, _, dn_ip = jacobi_sncndn(Tip_v / g.mK, mm_s)
+    cos_i_v = hemi * torch.sqrt(b2v) * dn_ip
+    incl_v = torch.arccos(torch.clamp(cos_i_v, -1.0, 1.0))
+    alpha_v = -l / torch.sqrt(torch.clamp(1.0 - cos_i_v ** 2, min=1e-30))
+    beta_v = torch.sqrt(torch.clamp(
+        q - cos_i_v ** 2 * (alpha_v ** 2 - a_eff ** 2), min=0.0))
+
+    return g._replace(alpha=torch.where(qneg, alpha_v, alpha),
+                      beta=torch.where(qneg, beta_v, beta),
+                      incl=torch.where(qneg, incl_v, incl),
+                      cos_i=torch.where(qneg, cos_i_v, cos_i),
+                      Tpp=Tpp, Tip=torch.where(qneg, Tip_v, Tip))
+
+
 # ---------------------------------------------------------------------------
 # position integral and its inversions
 # ---------------------------------------------------------------------------
@@ -672,6 +746,12 @@ def geodesic_dm_sign(g: Geodesic, P):
     return torch.where(_live(g) & torch.isfinite(P), sign_dm, torch.nan)
 
 
+def geodesic_position_pol_sign_k_theta(g: Geodesic, P):
+    """Sign of k^theta at position P (dk[2] = -d(m)).
+    (sim5kerr-geod.c:413-457)"""
+    return -geodesic_dm_sign(g, P)
+
+
 def geodesic_find_midplane_crossing(g: Geodesic, order=0):
     """P value where the geodesic crosses the equatorial plane for the
     `order`-th time (0 the direct image, 1 the first orbiting one); NaN
@@ -731,6 +811,58 @@ def geodesic_is_captured(g: Geodesic):
     is_rr = g.gtype == GEOD_TYPE_RR
     plunging = (g.gtype == GEOD_TYPE_RC) | (g.gtype == GEOD_TYPE_CC)
     return (g.status == GD_OK) & (plunging | (is_rr & (g.rp <= rh)))
+
+
+# geodesic_follow status codes: the reference returns TRUE while the ray
+# remains inside the valid domain, FALSE when it leaves
+# (sim5kerr-geod.c:890); the batched form adds a third code for a step
+# that did not fit into the substep budget
+FOLLOW_STOPPED = 0        # ray left the valid domain (horizon / P range)
+FOLLOW_OK = 1             # full step taken
+FOLLOW_NOT_CONVERGED = 2  # substep budget exhausted before the step completed
+
+
+def geodesic_follow(g: Geodesic, step, P, r, m, max_substeps=64):
+    """Advance (P, r, m) by an affine step along the geodesic.
+
+    As the reference (sim5kerr-geod.c:890-925) the step is taken in
+    affine-parameter units (dP = dl / (r^2 + a^2 m^2)) and clamped to
+    5e-2 sqrt(r) a substep; returns (P, r, m, status) with status
+    FOLLOW_OK while the ray remains inside the valid domain,
+    FOLLOW_STOPPED when it leaves, and FOLLOW_NOT_CONVERGED when the step
+    needed more than `max_substeps` clamped substeps.
+
+    Every lane advances in lockstep with masked substeps, as the JAX
+    package's fixed-length scan; the loop ends early once no lane is
+    active, since a frozen lane's carry no longer changes.
+    """
+    MAXSTEP = 5e-2
+    P = _like(P, g.a)
+    r = _like(r, g.a)
+    m = _like(m, g.a)
+    remaining = torch.broadcast_to(_like(step, g.a), P.shape)
+    active = remaining.abs() > 1e-5
+    failed = torch.zeros_like(active)
+    for _ in range(max_substeps):
+        if not bool(active.any()):
+            break
+        truestep = torch.sign(remaining) * torch.minimum(
+            remaining.abs(), MAXSTEP * torch.sqrt(torch.clamp(r, min=1e-10)))
+        Pn = P + truestep / (r ** 2 + (g.a * m) ** 2)
+        rn = geodesic_position_rad(g, Pn)
+        mn = geodesic_position_pol(g, Pn)
+        hit_bh = rn < 1.01 * r_bh(g.a)
+        out = (Pn < 0.0) | (Pn > 2.0 * g.Rpc) | ~torch.isfinite(rn)
+        ok = active & ~hit_bh & ~out
+        failed = failed | (active & (hit_bh | out))
+        P = torch.where(ok, Pn, P)
+        r = torch.where(ok, rn, r)
+        m = torch.where(ok, mn, m)
+        remaining = torch.where(ok, remaining - truestep, remaining)
+        active = ok & (remaining.abs() > 1e-5)
+    status = torch.where(failed, FOLLOW_STOPPED,
+                         torch.where(active, FOLLOW_NOT_CONVERGED, FOLLOW_OK))
+    return P, r, m, status.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,10 @@
 """Renderers: the observer's pixel grid, the Novikov-Thorne disk image,
-the black-hole shadow, polarized images and spectra, line profiles and
-transfer functions, volume radiative transfer and the hot-spot light
-curve.
+the disk raytracing driver (thick-disk surface solves, `DiskRaytrace`
+images and spectra) and the differentiable spectrum fit, the black-hole
+shadow, polarized images and spectra, line profiles and transfer
+functions, volume radiative transfer and the hot-spot light curve.
 
-Port of `sim5_tpu/render` (the thick-disk driver `DiskRaytrace`, the
-spectrum fit and the checkpoints wait for later slices).
+Port of `sim5_tpu/render` (the checkpoints wait for a later slice).
 """
 
 from .image import image_grid, render_disk_image, render_disk_image_reference
@@ -12,7 +12,9 @@ from .driver import (
     DiskSpectrum, DiskSpectrum_BlackBody,
     disk_tetrad, observed_gfactor, emission_angle,
     vertical_gravity, spectral_hardening,
+    find_surface, find_surface_march, DiskRaytrace,
 )
+from .spectrum_fit import PolarGrid, make_polar_grid, disk_spectrum
 from .polarized import (render_polarized_image, chandrasekhar_poldeg,
                         polarized_spectrum)
 from .lightcurve import (equatorial_crossing_map, hotspot_lightcurve,

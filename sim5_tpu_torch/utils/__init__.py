@@ -1,5 +1,5 @@
-"""Numerical utilities: error-free transforms, accurate transcendentals
-and the small math helpers of sim5math.c."""
+"""Numerical utilities: error-free transforms, accurate transcendentals,
+the small math helpers of sim5math.c and structured run logging."""
 
 from .fastmath import (two_sum, two_prod, sqrt_df, vlog, log_accurate,
                        exp_accurate, expm1_accurate)
@@ -9,3 +9,4 @@ from .math import (
     cartesian_to_spherical, spherical_to_cartesian, sim5round,
     cartesian_vector_to_spherical, cartesian_vector_to_spherical_at,
 )
+from .log import get_logger, log_run
