@@ -3,9 +3,11 @@
 volume radiative transfer, the Novikov-Thorne disk image, the analytic
 azimuth and travel time, the hot-spot light curve, the equatorial
 thin-disk products (the shadow, polarized images and spectra, line
-profiles and transfer functions), and the disk raytracing driver (the
+profiles and transfer functions), the disk raytracing driver (the
 thick-disk surface solve, DiskRaytrace images and spectra, and the
-differentiable spectrum).
+differentiable spectrum), and the derivative layer (the disk image's
+gradient through its tangent kernel, and the reverse-differentiable
+march).
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -122,15 +124,53 @@ kernel (`sim5_tpu_torch/csrc/disk_image.cu`, f64 and f32) are built into
     error, the card against the CPU to 1e-12 of the peak), f32 against
     f64 (< 1e-5), the card against the CPU at radres 2, angres 10 (1e-12
     of the peak), and disk_spectrum against the driver (2e-2) with its
-    autograd d log sum / da against central differences (rtol 0.05).
+    autograd d log sum / da against central differences (rtol 0.05);
+21. the image's gradient through the tangent kernel (nt_frames_jvp<T> +
+    nt_image_jvp<T> of csrc/disk_image.cu): bench.py's per-pixel tangent
+    in spin on the 128^2 f64 frame (a = 0.998) by forward mode through
+    render_disk_image, against the plain version's forward mode on the
+    card (1e-8 of the peak tangent on the interior pixels) and against
+    central differences of the f64 kernel (h = 1e-4, interior > 0.9,
+    pixel_grad_linf_vs_fd <= 1e-3); the backward in (a, incl, mdot) of
+    three spins at 128^2, f64, against the plain version's autograd.grad
+    (1e-9 relative); bench.py's throughput workload, value and grad of
+    imf.sum() * 1e-25 in (a, incl, mdot) over the 64-frame f32 spin sweep
+    at 512^2 through nt_setup(spins) -> render_disk_image -> backward
+    (grad_rays_per_sec, the minimum of 3 on the synchronised host clock;
+    finite, nonzero, two runs bitwise equal; one forward launch and one
+    reduction launch a column that needs grad); the f32 backward of four
+    frames of that sweep against the plain f32 autograd.grad, relative to
+    the f64 gradient (3e-3 for the sweep's loss; 1e-5 for the same sum
+    over the pixels whose f32 tangents the plain f32 chain resolves, each
+    within 1e-4 of the f64 tangent's peak); each instance's forward mode
+    on the headline frame against the plain version's (f64: 1e-8 of the
+    peak tangent; f32: 5e-4 of the f64 peak tangent on the resolved
+    pixels, which must be all but 0.5% of the footprint), timed by CUDA
+    events, with its bound, registers, spills and resident blocks;
+22. volume_image(engine="scan") on example 11's torus in f64 over 2048
+    steps (its 2000 in whole segments of 64): against the loop engine at
+    96^2 (rtol 1e-12); at 256^2, the largest power-of-two size whose
+    checkpointed segments fit, the forward and the backward of d I.sum()
+    / d(a, the torus' radius) timed, and the gradient against central
+    differences (h = 1e-5, rel < 1e-5) on the rays where FD is a
+    derivative (the trial count holds within +-h, and FD with h and h / 2
+    agree to 1e-6), with the dropped rays' count by cause, their gradient
+    and their FD at h, h / 2 and h / 4.
 
 Then one JSON line on the kernels, the card's name and power limit, and
 the result as the last line.  Any failed check exits non-zero.  The script
 needs a CUDA device and imports nothing of JAX.
+
+    python3 chip_smoke.py --compare-forward DIR
+
+hashes the forward disk images (the headline frame and the 64-frame
+sweep, f64 and f32) of the checkout at DIR and of this one, each in its
+own process, and exits 0 if they are bitwise equal.
 """
 
 import contextlib
 import concurrent.futures
+import hashlib
 import json
 import math
 import os
@@ -1217,7 +1257,9 @@ def phase_image_main(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(kernel_image.LAUNCHES)
-    want = {k: 0 if k in kernel_image.COUNTED.values() else 1 for k in counts}
+    forward = {*kernel_image.PROLOGUES.values(),
+               *kernel_image.VARIANTS.values()}
+    want = {k: int(k in forward) for k in counts}
     check(counts == want, f"the main path launched {counts}, not each "
           f"instance and its prologue once")
     for dt in (torch.float64, torch.float32):
@@ -2670,12 +2712,695 @@ def phase_driver_spectra(dev):
     return dict(first=first, warm=warm, ops=spec_ops, rays=n_rays)
 
 
+# --- phases 21-22: the derivative layer: the image's gradient through the
+# tangent kernel, and the reverse-differentiable march
+
+N_GRAD = 128             # bench.py's per-pixel tangent frame (_jvp_a)
+GRAD_H = 1e-4            # its central-difference step
+GRAD_RUNS = 3            # host-clock runs of the value-and-grad sweep
+N_SCAN_CMP = 96          # the scan engine against the loop engine
+SCAN_H = 1e-5
+SCAN_SIZE = 256          # its gradient vs FD and timing (512^2 does not fit
+                         # at 2048 steps in f64)
+# example 11's 2000 steps rounded up to whole segments of 64: the scan
+# engine runs max_steps // 64 segments, the loop engine up to max_steps
+SCAN_STEPS = 2048
+# the f32 instance against the f32 plain version (f32_tangent_check,
+# f32_backward_check); limits set from the readings in PERF.md
+F32_RESOLVED = 1e-4      # a pixel whose plain f32 tangent is this close to
+                         # the f64 truth (of its peak) is resolved in f32
+F32_UNRESOLVED = 0.005   # at most this share of the footprint unresolved
+F32_TAN_GATE = 5e-4      # kernel vs plain on the resolved pixels
+F32_BWD_FRAMES = 4       # sweep frames held against the plain backward
+F32_BWD_ALL_GATE = 3e-3  # kernel vs plain, relative to the f64 gradient
+F32_BWD_GATE = 1e-5      # the same over the resolved pixels
+
+
+def dual_piece(piece):
+    """The operations of a piece run on duals (csrc/analytic.cuh's Dual<T>):
+    + and - twice, a product three multiplies and an add (the flops' mix
+    taken as half and half: 3x), a quotient a second division and two
+    flops, a square root a division and a flop, sin or cos both and a flop,
+    acos a square root, a division and two flops, log1p a division and two
+    flops; frexp, ldexp and pow run on values only (the quartic's)."""
+    flops, ops = piece
+    f, new = 3 * flops, Counter()
+    for op, k in ops.items():
+        if op == "div":
+            new["div"] += 2 * k
+            f += 2 * k
+        elif op == "sqrt":
+            new.update(sqrt=k, div=k)
+            f += k
+        elif op in ("sin", "cos"):
+            new.update(sin=k, cos=k)
+            f += k
+        elif op == "acos":
+            new.update(acos=k, sqrt=k, div=k)
+            f += 2 * k
+        elif op == "log1p":
+            new.update(log1p=k, div=k)
+            f += 2 * k
+        else:
+            new[op] += k
+    return f, dict(new)
+
+
+def jvp_pixel_pieces(dtype):
+    """pixel_pieces for the tangent kernel, by the code of analytic.cuh:
+    the generic arithmetic on duals (dual_piece), rf by its rule (the value
+    chain plus two RD accumulators a level and two RD tails), K by dual
+    arithmetic through the AGM, sncndn by its rule (the value, two
+    duplication chains with one accumulator each, their tails and the
+    epsilon-function algebra), the quartic's roots on values plus the
+    implicit rule a root."""
+    f64 = dtype == torch.float64
+    rf_dup, k_agm, jac = (16, 9, 13) if f64 else (7, 7, 8)
+    p = pixel_pieces(dtype)
+    rf = _piece(10 * rf_dup + 18, sqrt=3 * rf_dup + 1, div=5)
+    K = _piece(3 * k_agm + 2, sqrt=k_agm + 1, div=1)
+    rd_tail = _piece(35, sqrt=1, div=4)
+    rf_rule = _add(rf, _piece(6 * rf_dup + 4, div=2 * rf_dup + 2), rd_tail,
+                   rd_tail)
+    chain1 = _add(rf, _piece(3 * rf_dup, div=rf_dup), rd_tail)
+    sncndn = _piece(4 * jac + 9, sqrt=jac + 1, div=4, sin=1, cos=1)
+    sn_rule = _add(sncndn, chain1, chain1, _piece(75, div=10, sqrt=1))
+    vlog = _piece(1, log1p=1) if f64 else _piece(14, div=3)
+    rescale = _piece() if f64 else _piece(9, div=1, frexp=3, ldexp=1)
+    real, cplx = _piece(12, div=1), _piece(30, div=1)
+    roots = {
+        "RR": _add(_piece(79, div=20, sqrt=5, pow=1, acos=1, cos=3),
+                   _piece(4 * 107, div=8), *[real] * 4,
+                   dual_piece(_piece(19, sqrt=2, div=4))),
+        "RC": _add(_piece(84, div=19, sqrt=4, pow=2),
+                   _piece(2 * 107 + 2 * 74, div=4), *[real] * 2,
+                   *[cplx] * 2, dual_piece(_piece(40, sqrt=4, div=7))),
+        "CC": _add(_piece(84, div=19, sqrt=4, pow=2), _piece(4 * 74),
+                   *[cplx] * 4, dual_piece(_piece(37, sqrt=4, div=8)))}
+    out = dict(p, **roots)
+    out.update(
+        pixel=_add(dual_piece(_piece(63, div=10, sqrt=5)), dual_piece(K),
+                   rf_rule, rescale),
+        rf=rf_rule, K=dual_piece(K),
+        rad_RR=_add(dual_piece(_piece(30, sqrt=1, div=2)), sn_rule),
+        rad_RC=_add(dual_piece(_piece(45, sqrt=3, div=6)), sn_rule),
+        rad_CC=_add(dual_piece(_piece(38, sqrt=3, div=6)), sn_rule),
+        cross=dual_piece(p["cross"]),
+        shade=_add(dual_piece(_piece(65 + 42 + 3, sqrt=3, div=10)),
+                   *[dual_piece(vlog)] * 4))
+    return out
+
+
+def jvp_bound(dtype, counters, lengths, npix, images):
+    """(bound_ms, bound_by) of one npix^2 frame of the tangent kernel whose
+    counters are `counters` (the forward instance's of the same frame): its
+    operations (jvp_pixel_pieces) over the peak rate of the type, or its
+    bytes (`images` images of the frame read or written, twelve scalars
+    read) over the memory rate."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    t = "d" if dtype == torch.float64 else "f"
+    pieces = jvp_pixel_pieces(dtype)
+    ops = 0
+    for piece, n in pixel_mix(counters).items():
+        flops, o = pieces[piece]
+        ops += n * (flops + sum(k * lengths.get((op, t), 1)
+                                for op, k in o.items()))
+    t_ops = ops / PEAK[dtype]
+    t_bytes = (images * npix * npix + 12) * item / H100_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes"), ops
+
+
+def grad_disk(dtype, dev, spins, incl, dual=None):
+    """The headline disk over `spins` with a, incl and mdot leaves that
+    require grad, one value a frame: (disk, (a, incl, mdot)).  With `dual`
+    (0, 1 or 2; inside a forward-mode dual level) that leaf carries a
+    tangent of ones instead."""
+    import torch.autograd.forward_ad as fwAD
+    from sim5_tpu_torch.disk import nt_setup
+    n = len(spins)
+    leaves = [torch.tensor(spins, dtype=torch.float64, device=dev).to(dtype),
+              torch.full((n,), incl, dtype=dtype, device=dev),
+              torch.full((n,), NT["mdot"], dtype=dtype, device=dev)]
+    leaves = tuple(fwAD.make_dual(v, torch.ones_like(v)) if k == dual
+                   else v.requires_grad_(dual is None)
+                   for k, v in enumerate(leaves))
+    disk = nt_setup(torch.full((n,), NT["M"], dtype=dtype, device=dev),
+                    leaves[0], leaves[2],
+                    torch.full((n,), NT["alpha"], dtype=dtype, device=dev))
+    return disk, leaves
+
+
+def spin_tangent(render, dtype, dev, npix, a=NT["a"]):
+    """The headline frame's image_f and its tangent in spin by forward mode
+    through `render` (bench.py's _jvp_a), and the frames' (n, 6) scalars
+    and tangent."""
+    import torch.autograd.forward_ad as fwAD
+    from sim5_tpu_torch.disk import nt_setup
+    from sim5_tpu_torch.render import kernel_image
+    with fwAD.dual_level():
+        ad = fwAD.make_dual(torch.full((), a, dtype=dtype, device=dev),
+                            torch.ones((), dtype=dtype, device=dev))
+        disk = nt_setup(*(torch.full((), v, dtype=dtype, device=dev)
+                          for v in (NT["M"],)), ad,
+                        *(torch.full((), v, dtype=dtype, device=dev)
+                          for v in (NT["mdot"], NT["alpha"])))
+        fr, fr_t = fwAD.unpack_dual(
+            kernel_image.frame_scalars(disk, NT["incl"]).reshape(1, 6))
+        f, _ = render(disk, NT["incl"], npix, npix)
+        p, t = fwAD.unpack_dual(f)
+        return (p.clone(), t.clone(), fr.clone().contiguous(),
+                fr_t.clone().contiguous())
+
+
+def grad_columns(disk, incl):
+    """How many of the frames' six columns require grad."""
+    from sim5_tpu_torch.render import kernel_image
+    return sum(bool(c.requires_grad)
+               for c in kernel_image.frame_columns(disk, incl))
+
+
+def f32_tangent_check(tk, pp, tp, ok, p64, t64):
+    """Gate the f32 tangent kernel's per-pixel tangent `tk` against the f32
+    plain version's `tp` (values `pp`, common footprint `ok`), reading both
+    against the f64 plain tangent `t64` (values `p64`), the truth.
+
+    At a few pixels the f32 chain cannot resolve the tangent at all: where
+    the radial quartic's complex pair is nearly real, r's tangent is a
+    difference of terms ~1e5 times larger, and in f32 it comes out orders
+    of magnitude off the truth in the plain version and the kernel alike,
+    each with its own rounding (the card's libm and torch's differ).  So
+    the gate holds the pixels where the plain f32 tangent is within
+    F32_RESOLVED of the truth's peak (a mask from the plain versions
+    alone), at F32_TAN_GATE of that peak, and at most F32_UNRESOLVED of
+    the footprint may fall outside.  Returns (max |tk - tp| on the gated
+    pixels, a note for the phase line)."""
+    ok = ok & ((p64 > 0) == (pp > 0)) & torch.isfinite(t64)
+    tk, tp = tk.double(), tp.double()
+    peak = float(t64[ok].abs().max())
+
+    def worst(x, mask):
+        return float(x[mask].abs().max()) / peak if bool(mask.any()) else 0.0
+
+    resolved = ok & ((tp - t64).abs() <= F32_RESOLVED * peak)
+    rest = ok & ~resolved
+    share = float(rest.sum()) / float(ok.sum())
+    check(share <= F32_UNRESOLVED, f"f32 plain forward mode unresolved on "
+          f"{share:.4%} of the footprint > {F32_UNRESOLVED:.2%}")
+    rel = worst(tk - tp, resolved)
+    check(rel <= F32_TAN_GATE, f"f32 tangent kernel vs plain forward mode "
+          f"{rel:.3e} of the f64 peak tangent > {F32_TAN_GATE:g} on the "
+          f"resolved pixels")
+    return rel * peak, (
+        f"{rel:.3e} of the f64 peak tangent on the {int(resolved.sum())} "
+        f"pixels where the plain f32 tangent is within {F32_RESOLVED:g} of "
+        f"that peak (gate {F32_TAN_GATE:g}); the kernel vs the f64 truth "
+        f"there {worst(tk - t64, resolved):.3e}; {int(rest.sum())} pixels "
+        f"({share:.4%}) unresolved by the f32 chain, where the kernel and "
+        f"the plain version are off the truth by up to "
+        f"{worst(tk - t64, rest):.3e} / {worst(tp - t64, rest):.3e} of its "
+        f"peak and {worst(tk - tp, rest):.3e} apart")
+
+
+def f32_backward_check(dev):
+    """The f32 backward of F32_BWD_FRAMES frames of the spin sweep at
+    512^2 in (a, incl, mdot): the kernel's against the plain f32 version's
+    autograd.grad on the same inputs, relative to the f64 plain version's
+    gradient at the same (f32-rounded) point, the truth.  Twice: for the
+    sweep's loss, imf.sum() * 1e-25, whose f32 gradient carries the
+    tangents the f32 chain does not resolve (f32_tangent_check), within
+    F32_BWD_ALL_GATE; and for the same sum over the pixels whose tangent
+    in each of a, incl and mdot the plain f32 chain resolves, within
+    F32_BWD_GATE.  Returns a note for the phase line."""
+    import torch.autograd.forward_ad as fwAD
+    from sim5_tpu_torch.render import render_disk_image
+    from sim5_tpu_torch.render.image import render_disk_image_reference
+    f32, f64 = torch.float32, torch.float64
+    spins = torch.tensor(sweep_spins()[::N_SWEEP // F32_BWD_FRAMES],
+                         dtype=f32).double().tolist()
+    incl = float(torch.tensor(NT["incl"], dtype=f32))
+    # the pixels whose tangent in every column the plain f32 chain resolves
+    resolved = True
+    for col in range(3):
+        tan = {}
+        for dt in (f32, f64):
+            with fwAD.dual_level():
+                disk, leaves = grad_disk(dt, dev, spins, incl, dual=col)
+                f, _ = render_disk_image_reference(disk, leaves[1], N_IMAGE,
+                                                   N_IMAGE)
+                tan[dt] = [v.double().clone() for v in fwAD.unpack_dual(f)]
+        (p32, t32), (p64, t64) = tan[f32], tan[f64]
+        ok = ((p32 > 0) == (p64 > 0)) & torch.isfinite(t32)
+        peak = torch.where(ok, t64.abs(), 0.0).amax((1, 2), keepdim=True)
+        resolved = resolved & ok & ((t32 - t64).abs() <= F32_RESOLVED * peak)
+    weights = (None, resolved.to(f32))
+
+    def grads(render, dtype):
+        disk, leaves = grad_disk(dtype, dev, spins, incl)
+        imf, _ = render(disk, leaves[1], N_IMAGE, N_IMAGE)
+        out = []
+        for w in weights:
+            loss = (imf if w is None else imf * w.to(dtype)).sum() * 1e-25
+            out.append(torch.stack([v.double() for v in torch.autograd.grad(
+                loss, leaves, retain_graph=w is None)]))
+        return out
+
+    gk = grads(render_disk_image, f32)
+    gp = grads(render_disk_image_reference, f32)
+    gt = grads(render_disk_image_reference, f64)
+    torch.cuda.synchronize()
+    cols, notes = ("a", "incl", "mdot"), []
+    for j, (what, gate) in enumerate((("all pixels", F32_BWD_ALL_GATE),
+                                      ("resolved pixels", F32_BWD_GATE))):
+        k, p, t = gk[j], gp[j], gt[j]
+        check(bool(torch.isfinite(k).all()) and bool((t.abs() > 0).all()),
+              f"f32 backward ({what}): non-finite or zero gradients")
+        kp = ((k - p).abs() / t.abs()).amax(1)
+        check(float(kp.max()) <= gate, f"f32 backward vs plain ({what}) "
+              f"{float(kp.max()):.3e} of the f64 gradient > {gate:g}")
+        notes.append(
+            f"{what}: kernel vs plain (gate {gate:g}) " + ", ".join(
+                f"{c} {float(v):.3e}" for c, v in zip(cols, kp))
+            + "; kernel vs f64 " + ", ".join(
+                f"{c} {float(v):.3e}" for c, v in zip(
+                    cols, ((k - t).abs() / t.abs()).amax(1)))
+            + "; plain f32 vs f64 " + ", ".join(
+                f"{c} {float(v):.3e}" for c, v in zip(
+                    cols, ((p - t).abs() / t.abs()).amax(1))))
+    share = 1.0 - float(resolved.double().mean())
+    return (f"f32 backward, {len(spins)} frames of the sweep at {N_IMAGE}^2"
+            f", relative to the f64 gradient: " + " | ".join(notes)
+            + f" ({share:.4%} of the pixels unresolved in some column)")
+
+
+def phase_image_grad(dev, counters, lengths):
+    """The image's gradient through the tangent kernel: bench.py's per-pixel
+    tangent in spin on the 128^2 f64 frame against the plain version's
+    forward mode (1e-8 of the peak tangent on the interior pixels) and
+    against central differences of the f64 kernel (pixel_grad_linf_vs_fd <=
+    1e-3, interior share > 0.9); the backward in (a, incl, mdot) of a batch
+    of three spins at 128^2 in f64 against the plain version's
+    autograd.grad (1e-9 relative); bench.py's throughput workload,
+    value_and_grad of imf.sum() * 1e-25 in (a, incl, mdot) of the 64-frame
+    f32 spin sweep at 512^2 (grad_rays_per_sec, the minimum of GRAD_RUNS
+    on the synchronised host clock; finite, nonzero, two backward runs
+    bitwise equal; one forward launch and one backward launch a column
+    that needs grad); the f32 backward of four sweep frames against the
+    plain f32 one (f32_backward_check); each instance's forward mode on
+    the headline 512^2 frame against the plain version's (f64: 1e-8 of
+    the peak tangent; f32: f32_tangent_check), timed by CUDA events, and
+    the backward's reduction launch timed on the sweep."""
+    from sim5_tpu_torch.render import kernel_image, render_disk_image
+    from sim5_tpu_torch.render.image import render_disk_image_reference
+    f64, f32 = torch.float64, torch.float32
+    L = kernel_image.LAUNCHES
+    rows, launches = {}, {}
+    # the per-pixel tangent in spin at 128^2, f64, through the entry point
+    for k in L:
+        L[k] = 0
+    _, tk, _, _ = spin_tangent(render_disk_image, f64, dev, N_GRAD)
+    torch.cuda.synchronize()
+    fwd_path = dict(L)
+    check(fwd_path[kernel_image.JVP_VARIANTS[f64]] == 1
+          and fwd_path[kernel_image.VARIANTS[f64]] == 1,
+          f"forward mode launched {fwd_path}")
+    _, tp, _, _ = spin_tangent(render_disk_image_reference, f64, dev, N_GRAD)
+    imp = render_disk_image(nt_disk(f64, dev, a=NT["a"] + GRAD_H),
+                            NT["incl"], N_GRAD, N_GRAD)[0]
+    imm = render_disk_image(nt_disk(f64, dev, a=NT["a"] - GRAD_H),
+                            NT["incl"], N_GRAD, N_GRAD)[0]
+    fd = (imp - imm) / (2.0 * GRAD_H)
+    interior = ((imp > 0) == (imm > 0)) & torch.isfinite(tk)
+    share = float(interior.double().mean())
+    check(share > 0.9, f"interior share {share:.4f} <= 0.9")
+    scale_p = float(tp[interior].abs().max())
+    err_plain = float((tk - tp)[interior].abs().max()) / scale_p
+    check(err_plain <= 1e-8, f"f64 tangent kernel vs plain forward mode "
+          f"{err_plain:.3e} of the peak tangent > 1e-8")
+    linf_fd = float((tk - fd)[interior].abs().max()
+                    / fd[interior].abs().max())
+    check(linf_fd <= 1e-3, f"pixel_grad_linf_vs_fd {linf_fd:.3e} > 1e-3")
+    # the backward of a batch of three spins, f64, against the plain one
+    for k in L:
+        L[k] = 0
+
+    def batch_grads(render):
+        disk, leaves = grad_disk(f64, dev, list(BATCH_SPINS), NT["incl"])
+        f, g = render(disk, leaves[1], N_BATCH, N_BATCH)
+        loss = f.sum() * 1e-25 + g.sum()
+        return torch.autograd.grad(loss, leaves), grad_columns(disk,
+                                                               leaves[1])
+
+    gk, ncol64 = batch_grads(render_disk_image)
+    torch.cuda.synchronize()
+    bwd_path = dict(L)
+    check(bwd_path[kernel_image.VJP_VARIANTS[f64]] == ncol64
+          and bwd_path[kernel_image.VARIANTS[f64]] == 1,
+          f"the f64 backward launched {bwd_path} ({ncol64} columns)")
+    t0 = time.perf_counter()
+    gp, _ = batch_grads(render_disk_image_reference)
+    torch.cuda.synchronize()
+    plain_bwd_s = time.perf_counter() - t0
+    err_bwd = max(float(((x - y).abs() / y.abs()).max())
+                  for x, y in zip(gk, gp))
+    check(err_bwd <= 1e-9, f"f64 backward vs plain {err_bwd:.3e} > 1e-9")
+    launches[f64] = {k: fwd_path[k] + bwd_path[k] for k in L}
+    # bench.py's throughput workload: the f32 sweep's value and grad
+    spins = sweep_spins()
+
+    def grad_sweep():
+        disk, leaves = grad_disk(f32, dev, spins, NT["incl"])
+        imf, _ = render_disk_image(disk, leaves[1], N_IMAGE, N_IMAGE)
+        loss = imf.sum() * 1e-25
+        loss.backward()
+        return loss.detach(), [v.grad for v in leaves], grad_columns(
+            disk, leaves[1])
+
+    for k in L:
+        L[k] = 0
+    v0, g0, ncol = grad_sweep()
+    torch.cuda.synchronize()
+    launches[f32] = dict(L)
+    check(L[kernel_image.VARIANTS[f32]] == 1
+          and L[kernel_image.VJP_VARIANTS[f32]] == ncol,
+          f"the sweep's value and grad launched {dict(L)} ({ncol} columns)")
+    check(all(bool(torch.isfinite(g).all()) for g in g0)
+          and bool(torch.isfinite(v0)), "non-finite gradients")
+    check(all(bool((g.abs() > 0).any()) for g in g0), "zero gradients")
+    _, g1, _ = grad_sweep()
+    check(all(torch.equal(bits(x), bits(y)) for x, y in zip(g0, g1)),
+          "two backward runs differ")
+    bwd32 = f32_backward_check(dev)
+    runs = []
+    for _ in range(GRAD_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, _, _ = grad_sweep()
+        float(v)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    runs.sort()
+    grad_rays = N_SWEEP * N_IMAGE * N_IMAGE / runs[0]
+    # the reduction launch alone, one column of the sweep, CUDA events
+    disk, leaves = grad_disk(f32, dev, spins, NT["incl"])
+    framesN = kernel_image.frame_scalars(disk, NT["incl"]).detach()
+    gf = torch.ones((N_SWEEP, N_IMAGE, N_IMAGE), dtype=f32, device=dev)
+    gg = torch.zeros_like(gf)
+    red = event_runs(lambda: kernel_image._backward(framesN, gf, gg, [0]), 2)
+    # each instance's forward mode on the headline 512^2 frame; the f64
+    # plain tangent is the truth the f32 instance is read against
+    parts, truth = [], None
+    for dt in (f64, f32):
+        pk, tk5, fr, fr_t = spin_tangent(render_disk_image, dt, dev, N_IMAGE)
+        pp, tp5, _, _ = spin_tangent(render_disk_image_reference, dt, dev,
+                                     N_IMAGE)
+        t0 = time.perf_counter()
+        spin_tangent(render_disk_image_reference, dt, dev, N_IMAGE)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        ok = (((pk > 0) == (pp > 0)) & torch.isfinite(tk5)
+              & torch.isfinite(tp5))
+        if dt == f64:
+            diff = float((tk5 - tp5)[ok].abs().max())
+            rel = diff / float(tp5[ok].abs().max())
+            check(rel <= 1e-8, f"f64 tangent kernel vs plain forward mode at "
+                  f"{N_IMAGE}^2 {rel:.3e} of the peak tangent > 1e-8")
+            truth = (pp, tp5)
+            note = f"{rel:.3e} of the peak tangent, pixels of one footprint"
+        else:
+            diff, note = f32_tangent_check(tk5, pp, tp5, ok, *truth)
+        ms = event_runs(lambda: kernel_image._launch_jvp(fr, fr_t, N_IMAGE,
+                                                         N_IMAGE),
+                        IMAGE_REPS)
+        (bound_ms, bound_by), ops = jvp_bound(dt, counters[dt], lengths,
+                                              N_IMAGE, 4)
+        name = (f"{kernel_image.JVP_PROLOGUES[dt]} + "
+                f"{kernel_image.JVP_VARIANTS[dt]}")
+        n = launches[dt]
+        rows[dt] = dict(
+            name=name, ms=ms[0], plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, max_abs_err=diff,
+            launches=sum(n[v[dt]] for v in (
+                kernel_image.JVP_PROLOGUES, kernel_image.JVP_VARIANTS,
+                kernel_image.VJP_VARIANTS, kernel_image.REDUCES)))
+        att = kernel_image.jvp_attributes(dt)
+        att_r = kernel_image.jvp_attributes(dt, reduce=True)
+        parts.append(
+            f"{name}: forward mode, one 512^2 frame {spread(ms)} ms "
+            f"(plain forward mode {plain_ms:.3f} ms, host clock); tangent "
+            f"vs plain {diff:.3e} ({note}); bound {bound_ms:.4f} ms "
+            f"({bound_by}, "
+            f"{ops / N_IMAGE ** 2:.1f} operations a pixel; "
+            f"{bound_ms / ms[0]:.3f} of the launch); {att['registers']} "
+            f"registers, {att['local_bytes']} bytes local, "
+            f"{att['blocks_per_sm']} blocks an SM; reduce instance "
+            f"{att_r['registers']} registers, {att_r['local_bytes']} bytes "
+            f"local, {att_r['blocks_per_sm']} blocks an SM; launches on the "
+            f"path {dict((k, v) for k, v in launches[dt].items() if v)}")
+    (rb, rby), _ = jvp_bound(f32, counters[f32], lengths, N_IMAGE, 2)
+    print(f"phase 21 image gradient: per-pixel tangent in spin "
+          f"({N_GRAD}^2, f64, a = {NT['a']}): kernel vs plain forward mode "
+          f"{err_plain:.3e} of the peak tangent (gate 1e-8), "
+          f"pixel_grad_linf_vs_fd={linf_fd:.4e} (h = {GRAD_H}, interior "
+          f"{share:.4f}; gate 1e-3) | backward in (a, incl, mdot), "
+          f"{len(BATCH_SPINS)} spins at {N_BATCH}^2, f64: vs plain "
+          f"autograd.grad {err_bwd:.3e} relative (gate 1e-9), "
+          f"{bwd_path[kernel_image.VJP_VARIANTS[f64]]} reduction launches "
+          f"for {ncol64} columns, plain backward {plain_bwd_s:.3f} s | "
+          f"value and grad of the {N_SWEEP}-frame f32 sweep at "
+          f"{N_IMAGE}^2: {spread(runs)} s (min / median / max of "
+          f"{GRAD_RUNS}, host clock), grad_rays_per_sec={grad_rays:.4e}; "
+          f"launches {dict((k, v) for k, v in launches[f32].items() if v)} "
+          f"for {ncol} columns; finite, nonzero, two backward runs bitwise "
+          f"equal; one reduction launch (one column, {N_SWEEP} frames) "
+          f"{spread(red)} ms, {red[0] / N_SWEEP:.4f} ms a frame, bound "
+          f"{rb:.4f} ms a frame ({rby}) | {bwd32} | " + " | ".join(parts),
+          flush=True)
+    return rows
+
+
+def fd_scan(points, npix, dev):
+    """The scan engine's image of example 11's configuration at npix^2 and
+    each ray's trial count, for each (a, radius) of `points`, marched
+    together as one batch by the same masked steps (`_transfer_step`, all
+    SCAN_STEPS of them, no early exit; elementwise, so each ray's numbers
+    are those of its own image): [(I, steps)], no grad."""
+    from sim5_tpu_torch.core import r_bh
+    from sim5_tpu_torch.march.emission import GaussianSource
+    from sim5_tpu_torch.march.raytrace import _TENSOR_FIELDS
+    from sim5_tpu_torch.render import lightcurve
+    with torch.no_grad():
+        seeds = {}
+        for a, _ in points:
+            if a not in seeds:
+                seeds[a] = lightcurve._volume_seed(
+                    a, VOL["incl"], 0.0, npix, VOL["rmax"], VOL["r_start"],
+                    VOL["precision"], axisymmetric=True, device=dev)
+        parts = [seeds[a] for a, _ in points]
+        shape = parts[0][1].shape
+        def batch(field):
+            ts = [getattr(s, field) for s, _ in parts]
+            return torch.cat([t.expand(shape) if t.dim() == 0 else t
+                              for t in ts], 0)
+
+        st = parts[0][0]._replace(**{f: batch(f) for f in _TENSOR_FIELDS})
+        ok = torch.cat([o for _, o in parts], 0)
+
+        def per_ray(vals):
+            return torch.cat([torch.full(shape, float(v), dtype=torch.float64,
+                                         device=dev) for v in vals], 0)
+
+        r_min = 1.05 * r_bh(per_ray([a for a, _ in points]))
+        source = GaussianSource(
+            amp=1.0, center=per_ray([c for _, c in points]),
+            inv_width=1.0 / 1.5, inv_height=1.0 / 1.5, cylindrical=True)
+        tiny = torch.finfo(st.x.dtype).tiny
+        I = torch.zeros(ok.shape, dtype=st.x.dtype, device=dev)
+        tau, act = torch.zeros_like(I), ok
+        for _ in range(SCAN_STEPS):
+            st, I, tau, act = lightcurve._transfer_step(
+                st, I, tau, act, source, None, r_min, VOL["r_start"] * 1.2,
+                tiny)
+    n = shape[0]
+    return [(I[k * n:(k + 1) * n], st.steps[k * n:(k + 1) * n])
+            for k in range(len(points))]
+
+
+def phase_scan(dev):
+    """volume_image(engine="scan") on example 11's torus, f64, SCAN_STEPS
+    steps: against the loop engine at N_SCAN_CMP^2 (rtol 1e-12); at
+    SCAN_SIZE^2, the largest power-of-two size whose checkpointed segments
+    fit on the card (4x the peak printed is past its memory), one forward
+    and one backward of d I.sum() / d(a, the torus' radius) timed on the
+    synchronised host clock, and the gradient held against central
+    differences (h = SCAN_H, rel < 1e-5) on the rays where FD is a
+    derivative: their trial count holds within +-h and their central
+    differences with h and h / 2 agree to 1e-6.  A termination at another
+    step is a jump, and a switch of the step controller (the step floor,
+    the epsilon relaxation) within +-h a corner; FD measures those, not
+    the derivative, as bench.py's gate excludes the pixels whose hit
+    flips.  For a ray with three continuous derivatives the two
+    differences differ by about h^2 f^(3) / 8, far below the 1e-6.  Each
+    group of rays (kept, trial count changes, FD unconverged) gets its own
+    leaf of each parameter, so the one backward gives each group's
+    gradient: printed beside the group's FD at h, h / 2 and h / 4 (in a),
+    with the all-ray gradient against the all-ray FD.  The FD images march
+    as one batch (`fd_scan`)."""
+    from sim5_tpu_torch.march.emission import GaussianSource
+    from sim5_tpu_torch.render import volume_image
+
+    def image(a, center, npix, engine="scan"):
+        return volume_image(
+            a, VOL["incl"], GaussianSource(amp=1.0, center=center,
+                                           inv_width=1.0 / 1.5,
+                                           inv_height=1.0 / 1.5,
+                                           cylindrical=True),
+            engine=engine, device=dev,
+            **dict(volume_kw(VOL, npix), max_steps=SCAN_STEPS))
+
+    p = (VOL["a"], 8.0)
+
+    def leaves():
+        return [torch.tensor(float(v), dtype=torch.float64,
+                             device=dev).requires_grad_(True) for v in p]
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        I_l = image(VOL["a"], 8.0, N_SCAN_CMP, engine="loop")
+        I_s = image(VOL["a"], 8.0, N_SCAN_CMP)
+    torch.cuda.synchronize()
+    cmp_s = time.perf_counter() - t0
+    check(float(I_l.max()) > 0.0, "the loop engine's torus is dark")
+    rel = float(((I_s - I_l).abs() / I_l.abs().clamp(min=1e-300)).max())
+    check(bool(((I_s - I_l).abs() <= 1e-12 * I_l.abs()).all()),
+          f"scan vs loop {rel:.3e} relative > 1e-12")
+    # FD at SCAN_SIZE^2: a at h, h / 2 and h / 4, the radius at h and h / 2,
+    # in one batch; a ray is kept where its trial count holds at every
+    # point and its FD at h and h / 2 agree
+    t0 = time.perf_counter()
+    hs = {0: (SCAN_H, SCAN_H / 2, SCAN_H / 4), 1: (SCAN_H, SCAN_H / 2)}
+    pts = [(p[0] + s * d, p[1]) for d in hs[0] for s in (1, -1)]
+    pts += [(p[0], p[1] + s * d) for d in hs[1] for s in (1, -1)]
+    runs = fd_scan(pts, SCAN_SIZE, dev)
+    fd, held, conv = {}, True, True
+    for i in range(2):
+        part = runs[:2 * len(hs[0])] if i == 0 else runs[2 * len(hs[0]):]
+        fd[i] = []
+        for d, (Ip, sp), (Im, sm) in zip(hs[i], part[::2], part[1::2]):
+            fd[i].append((Ip - Im) / (2 * d))
+            held = held & (sp == sm)
+        d1, d2 = fd[i][:2]
+        conv = conv & ((d1 - d2).abs() <= 1e-6 * d1.abs()
+                       + 1e-9 * float(d1.abs().max()))
+    torch.cuda.synchronize()
+    fd_s = time.perf_counter() - t0
+    groups = {"kept": held & conv, "trial count changes": ~held,
+              "FD unconverged": held & ~conv}
+    # one forward and one backward of I.sum(), timed, with a leaf of each
+    # parameter for each group of rays (the image is the same bit for bit),
+    # so the backward gives each group's share of d I.sum() / d(a, radius)
+    torch.cuda.reset_peak_memory_stats(dev)
+    x = {k: leaves() for k in groups}
+
+    def per_ray(i):
+        out = x["FD unconverged"][i]
+        for k in ("trial count changes", "kept"):
+            out = torch.where(groups[k], x[k][i], out)
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = image(per_ray(0), per_ray(1), SCAN_SIZE)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat = torch.autograd.grad(img.sum(), [v for k in groups for v in x[k]])
+    torch.cuda.synchronize()
+    bwd_s = time.perf_counter() - t0
+    gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    total = torch.cuda.mem_get_info(dev)[1] / 2 ** 30
+    g = {k: [float(v) for v in flat[2 * j:2 * j + 2]]
+         for j, k in enumerate(groups)}
+    check(all(math.isfinite(v) for k in g for v in g[k]),
+          "scan grad not finite")
+    errs, text = [], []
+    for i in range(2):
+        want = float(fd[i][0][groups["kept"]].sum())
+        errs.append(abs(g["kept"][i] - want) / max(abs(want), 1e-12))
+        check(errs[-1] < 1e-5, f"scan grad arg {i} at {SCAN_SIZE}^2: "
+              f"{g['kept'][i]:.6e} vs FD {want:.6e} ({errs[-1]:.3e} > 1e-5)")
+        g_all = sum(g[k][i] for k in groups)
+        fd_all = float(fd[i][0].sum())
+        text.append(
+            f"arg {i}: {g['kept'][i]:.9e} vs FD {want:.9e} ({errs[-1]:.3e}; "
+            f"gate 1e-5); all rays {g_all:.9e} vs FD {fd_all:.9e} "
+            f"({abs(g_all - fd_all) / abs(fd_all):.3e})" + "".join(
+                f"; {k} {g[k][i]:.9e} vs FD at h"
+                + "".join(f", h/{2 ** n}" for n in range(1, len(hs[i])))
+                + " " + ", ".join(f"{float(f[groups[k]].sum()):.9e}"
+                                  for f in fd[i])
+                for k in list(groups)[1:]))
+    print(f"phase 22 scan engine (example 11's torus, f64, "
+          f"{SCAN_STEPS} steps in segments of 64): vs loop at "
+          f"{N_SCAN_CMP}^2 {rel:.3e} relative (gate 1e-12; both {cmp_s:.2f} "
+          f"s) | d I.sum() / d(a, radius) at {SCAN_SIZE}^2 vs FD (h = "
+          f"{SCAN_H}; {len(pts)} images {fd_s:.2f} s) on the "
+          + ", ".join(f"{int(m.sum())} rays {k}" for k, m in groups.items())
+          + ": " + "; ".join(text) + f" | forward {fwd_s:.3f} s, backward "
+          f"{bwd_s:.3f} s, peak {gib:.2f} GiB ({2 * SCAN_SIZE}^2 would need ~"
+          f"{4 * gib:.1f} GiB of {total:.1f})", flush=True)
+
+
+def forward_hashes(dev):
+    """sha256 of the forward images of render_disk_image on the card, the
+    headline frame and the 64-frame spin sweep in f64 and f32 (image_f and
+    image_g of each), through entry points every checkout of the port has
+    (nt_setup, render_disk_image)."""
+    from sim5_tpu_torch.render import render_disk_image
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        for what, disk in (("frame", nt_disk(dt, dev)),
+                           ("sweep", nt_disks(dt, dev, sweep_spins()))):
+            h = hashlib.sha256()
+            for im in render_disk_image(disk, NT["incl"], N_IMAGE, N_IMAGE):
+                h.update(im.cpu().numpy().tobytes())
+            out[f"{what} {dt}"] = h.hexdigest()
+    return out
+
+
+def compare_forward(other):
+    """Hash the forward images (forward_hashes) of the checkout at `other`
+    and of this one, each in its own process with its tree first on
+    sys.path (each builds its own kernels), and compare: 0 if equal."""
+    here = pathlib.Path(__file__).resolve().parent
+    got = []
+    for tree in (pathlib.Path(other).resolve(), here):
+        proc = subprocess.run(
+            [sys.executable, str(here / "chip_smoke.py"), "--forward-hashes",
+             str(tree)], capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return 1
+        got.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(f"{tree}: {json.dumps(got[-1])}", flush=True)
+    same = got[0] == got[1]
+    print(f"forward images of the two checkouts: "
+          f"{'bitwise equal' if same else 'DIFFERENT'}", flush=True)
+    return 0 if same else 1
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    if sys.argv[1:2] == ["--forward-hashes"]:
+        sys.path.insert(0, sys.argv[2])
+        print(json.dumps(forward_hashes(dev)))
+        return 0
+    if sys.argv[1:2] == ["--compare-forward"]:
+        return compare_forward(sys.argv[2])
     t_start = time.perf_counter()
     try:
         name, lengths = phase_device()
@@ -2719,6 +3444,10 @@ def main():
         torch.cuda.synchronize()
         phase_driver_spectra(dev)
         torch.cuda.synchronize()
+        grad_rows = phase_image_grad(dev, image_counts, lengths)
+        torch.cuda.synchronize()
+        phase_scan(dev)
+        torch.cuda.synchronize()
     except PhaseFailed as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
@@ -2746,6 +3475,12 @@ def main():
         pro = kernel_image.PROLOGUES[dt]
         rows.append((f"{pro} + {v}", image_src,
                      image_launches[pro] + image_launches[v], image_t[v]))
+    jvp_src = dict(route="cuda",
+                   source="sim5_tpu_torch/csrc/disk_image.cu",
+                   replaces="sim5_tpu/render/image.py:35 under jax.jvp / "
+                            "jax.grad (XLA autodiff; no Pallas kernel)")
+    for dt, r in grad_rows.items():
+        rows.append((r["name"], jvp_src, r["launches"], r))
     print(json.dumps({"kernels": [{
         "name": v, **src, "launches": n, "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

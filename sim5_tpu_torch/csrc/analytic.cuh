@@ -17,6 +17,12 @@
 // duplication 16 / 7, the K AGM 9 / 7 and the Jacobi AGM 13 / 8; they are
 // not convergence loops.
 //
+// The per-pixel chain (the geodesic, the disk, make_frame and nt_pixel) is
+// templated on its scalar S: T for the image kernel, Dual<T> (a value and
+// one tangent) for the tangent kernel, which differentiates the same
+// operations in forward mode (see Dual below).  With S = T the operations
+// are those the chain ran before it was templated, bit for bit.
+//
 // Build without fast math and without FMA contraction (--fmad=false): the
 // error-free transforms (two_sum, two_prod, the Veltkamp split) need each
 // product and sum rounded on its own, as the torch version rounds them.
@@ -123,6 +129,111 @@ template <typename T>
 SIM5_HD T Sign(T x) { return T((x > T(0)) - (x < T(0))); }
 
 // ---------------------------------------------------------------------------
+// forward mode: a value and one tangent
+// ---------------------------------------------------------------------------
+
+// Dual<T>: v + d eps, eps^2 = 0.  The functions of the per-pixel chain are
+// templated on their scalar S (T, or Dual<T> for the tangent kernel) with
+// T = Base<S> the type of their constants, so a constant stays a T and
+// multiplies a tangent as torch multiplies by a Python number.  Comparisons
+// and masks read the value only and carry no tangent, as torch.where's
+// condition.  The elementary functions below give the derivative torch's
+// autograd gives; the special functions whose plain version carries a
+// rule (rf, sncndn), the two-float transforms and the quartic's roots have
+// overloads of their own further on.
+template <typename T>
+struct Dual {
+  T v, d;
+  Dual() = default;
+  SIM5_HD Dual(T v_, T d_) : v(v_), d(d_) {}
+  template <typename C,
+            typename = typename std::enable_if<std::is_arithmetic<C>::value>::type>
+  SIM5_HD Dual(C c) : v(T(c)), d(T(0)) {}
+
+  SIM5_HD friend Dual operator-(Dual a) { return {-a.v, -a.d}; }
+  SIM5_HD friend Dual operator+(Dual a, Dual b) { return {a.v + b.v, a.d + b.d}; }
+  SIM5_HD friend Dual operator+(Dual a, T b) { return {a.v + b, a.d}; }
+  SIM5_HD friend Dual operator+(T a, Dual b) { return {a + b.v, b.d}; }
+  SIM5_HD friend Dual operator-(Dual a, Dual b) { return {a.v - b.v, a.d - b.d}; }
+  SIM5_HD friend Dual operator-(Dual a, T b) { return {a.v - b, a.d}; }
+  SIM5_HD friend Dual operator-(T a, Dual b) { return {a - b.v, -b.d}; }
+  SIM5_HD friend Dual operator*(Dual a, Dual b) {
+    return {a.v * b.v, a.d * b.v + a.v * b.d};
+  }
+  SIM5_HD friend Dual operator*(Dual a, T b) { return {a.v * b, a.d * b}; }
+  SIM5_HD friend Dual operator*(T a, Dual b) { return {a * b.v, a * b.d}; }
+  // the quotient rule as torch's forward mode writes it: (da - q db) / b
+  SIM5_HD friend Dual operator/(Dual a, Dual b) {
+    const T q = a.v / b.v;
+    return {q, (a.d - q * b.d) / b.v};
+  }
+  SIM5_HD friend Dual operator/(Dual a, T b) { return {a.v / b, a.d / b}; }
+  SIM5_HD friend Dual operator/(T a, Dual b) {
+    const T q = a / b.v;
+    return {q, -(q * b.d) / b.v};
+  }
+#define SIM5_DUAL_CMP(OP)                                                    \
+  SIM5_HD friend bool operator OP(Dual a, Dual b) { return a.v OP b.v; }     \
+  SIM5_HD friend bool operator OP(Dual a, T b) { return a.v OP b; }          \
+  SIM5_HD friend bool operator OP(T a, Dual b) { return a OP b.v; }
+  SIM5_DUAL_CMP(<)
+  SIM5_DUAL_CMP(<=)
+  SIM5_DUAL_CMP(>)
+  SIM5_DUAL_CMP(>=)
+  SIM5_DUAL_CMP(==)
+  SIM5_DUAL_CMP(!=)
+#undef SIM5_DUAL_CMP
+};
+
+template <typename S>
+struct BaseOf {
+  using type = S;
+};
+template <typename T>
+struct BaseOf<Dual<T>> {
+  using type = T;
+};
+// the type of a scalar's value: T for T and for Dual<T>
+template <typename S>
+using Base = typename BaseOf<S>::type;
+
+template <typename T>
+SIM5_HD Dual<T> Sqrt(Dual<T> x) {
+  const T s = Sqrt(x.v);
+  return {s, x.d / (T(2) * s)};
+}
+template <typename T>
+SIM5_HD Dual<T> Sin(Dual<T> x) { return {Sin(x.v), Cos(x.v) * x.d}; }
+template <typename T>
+SIM5_HD Dual<T> Cos(Dual<T> x) { return {Cos(x.v), -Sin(x.v) * x.d}; }
+template <typename T>
+SIM5_HD Dual<T> Acos(Dual<T> x) {
+  return {Acos(x.v), -x.d / Sqrt(T(1) - x.v * x.v)};
+}
+template <typename T>
+SIM5_HD Dual<T> Log(Dual<T> x) { return {Log(x.v), x.d / x.v}; }
+template <typename T>
+SIM5_HD Dual<T> Log1p(Dual<T> x) { return {Log1p(x.v), x.d / (T(1) + x.v)}; }
+template <typename T>
+SIM5_HD Dual<T> Floor(Dual<T> x) { return {Floor(x.v), T(0)}; }
+// torch.abs: sgn(x) dx, 0 at x == 0
+template <typename T>
+SIM5_HD Dual<T> Abs(Dual<T> x) {
+  return {Abs(x.v), x.v > T(0) ? x.d : (x.v < T(0) ? -x.d : T(0))};
+}
+template <typename T>
+SIM5_HD bool IsFinite(Dual<T> x) { return IsFinite(x.v); }
+// torch.clamp: the tangent passes where the bound does not bite
+template <typename T>
+SIM5_HD Dual<T> ClampMin(Dual<T> x, T lo) { return x < lo ? Dual<T>(lo) : x; }
+template <typename T>
+SIM5_HD Dual<T> ClampMax(Dual<T> x, T hi) { return x > hi ? Dual<T>(hi) : x; }
+template <typename T>
+SIM5_HD Dual<T> Clamp(Dual<T> x, T lo, T hi) {
+  return ClampMax(ClampMin(x, lo), hi);
+}
+
+// ---------------------------------------------------------------------------
 // error-free transforms (utils/fastmath.py)
 // ---------------------------------------------------------------------------
 
@@ -175,6 +286,33 @@ SIM5_HD T vlog(T u) {
                 s2 * (T(0.2) + s2 * (T(1.0 / 7.0) + s2 / T(9))));
   }
   return u - Log(T(1) + u);
+}
+
+// The two-float transforms on duals: the values as above; the tangent of
+// hi + lo, in plain arithmetic, all on hi (the error terms carry none, as
+// autodiff through the transforms gives them up to rounding)
+template <typename T>
+SIM5_HD void two_sum(Dual<T> a, Dual<T> b, Dual<T>& s, Dual<T>& e) {
+  two_sum(a.v, b.v, s.v, e.v);
+  s.d = a.d + b.d;
+  e.d = T(0);
+}
+template <typename T>
+SIM5_HD void two_prod(Dual<T> a, Dual<T> b, Dual<T>& p, Dual<T>& e) {
+  two_prod(a.v, b.v, p.v, e.v);
+  p.d = a.d * b.v + a.v * b.d;
+  e.d = T(0);
+}
+template <typename T>
+SIM5_HD void sqrt_df(Dual<T> x, Dual<T>& hi, Dual<T>& lo) {
+  sqrt_df(x.v, hi.v, lo.v);
+  hi.d = x.d / (T(2) * hi.v);
+  lo.d = T(0);
+}
+// d vlog(u) = (1 - 1 / (1 + u)) du = u / (1 + u) du
+template <typename T>
+SIM5_HD Dual<T> vlog(Dual<T> u) {
+  return {vlog(u.v), u.v / (T(1) + u.v) * u.d};
 }
 
 // ---------------------------------------------------------------------------
@@ -385,10 +523,67 @@ SIM5_HD void polish_root_df(T re, T im, T c2, T c1, T c0, T& hi, T& lo) {
   two_sum(z1f, -R1 / dR1, hi, lo);
 }
 
+// the radial quartic z^4 + c2 z^2 + c1 z + c0: its roots sorted (real ones
+// first, descending), the real ones polished to hi + lo; returns n_real
+template <typename T>
+SIM5_HD int radial_roots(T c2, T c1, T c0, T rr[4], T ri[4], T lo[4]) {
+  quartic_roots(T(0), c2, c1, c0, rr, ri);
+  const int nrr = sort_quartic_roots(rr, ri);
+  for (int j = 0; j < 4; ++j) polish_root_df(rr[j], ri[j], c2, c1, c0, rr[j], lo[j]);
+  return nrr;
+}
+
+// the roots on duals: the values as above, the tangents by the implicit
+// rule dz = -(dc2 z^2 + dc1 z + dc0) / R'(z) at each root (the polished hi
+// of a real one, in complex arithmetic for a complex one), which autodiff
+// through the closed form and the polish gives to the polish's residual;
+// lo carries none
+template <typename T>
+SIM5_HD int radial_roots(Dual<T> c2, Dual<T> c1, Dual<T> c0, Dual<T> rr[4],
+                         Dual<T> ri[4], Dual<T> lo[4]) {
+  T vr[4], vi[4], vl[4];
+  const int nrr = radial_roots(c2.v, c1.v, c0.v, vr, vi, vl);
+  for (int j = 0; j < 4; ++j) {
+    const T x = vr[j], y = vi[j];
+    T dx, dy;
+    if (y == T(0)) {
+      const T Rp = (T(4) * x * x + T(2) * c2.v) * x + c1.v;
+      dx = -((c2.d * x + c1.d) * x + c0.d) / Rp;
+      dy = T(0);
+    } else {
+      const T z2r = x * x - y * y, z2i = T(2) * x * y;
+      const T z3r = z2r * x - z2i * y, z3i = z2r * y + z2i * x;
+      const T pr = T(4) * z3r + T(2) * c2.v * x + c1.v;
+      const T pi = T(4) * z3i + T(2) * c2.v * y;
+      const T nr = c2.d * z2r + c1.d * x + c0.d;
+      const T ni = c2.d * z2i + c1.d * y;
+      const T den = pr * pr + pi * pi;
+      dx = -(nr * pr + ni * pi) / den;
+      dy = -(ni * pr - nr * pi) / den;
+    }
+    rr[j] = {x, dx};
+    ri[j] = {y, dy};
+    lo[j] = {vl[j], T(0)};
+  }
+  return nrr;
+}
+
 // ---------------------------------------------------------------------------
 // elliptic integrals and functions (special/carlson.py, legendre.py,
 // jacobi.py)
 // ---------------------------------------------------------------------------
+
+// _rf_tail: the 5th-order RF series at the converged triple
+template <typename T>
+SIM5_HD T rf_tail(T xt, T yt, T zt) {
+  const T ave = (xt + yt + zt) / T(3);
+  const T dx = (ave - xt) / ave, dy = (ave - yt) / ave, dz = (ave - zt) / ave;
+  const T e2 = dx * dy - dz * dz;
+  const T e3 = dx * dy * dz;
+  return (T(1) + (T(1.0 / 24.0) * e2 - T(0.1) - T(3.0 / 44.0) * e3) * e2 +
+          T(1.0 / 14.0) * e3) /
+         Sqrt(ave);
+}
 
 // Carlson RF(x, y, z), fixed duplication depth
 template <typename T>
@@ -403,22 +598,81 @@ SIM5_HD T rf(T x, T y, T z) {
     yt = T(0.25) * (yt + lam);
     zt = T(0.25) * (zt + lam);
   }
-  const T ave = (xt + yt + zt) / T(3);
-  const T dx = (ave - xt) / ave, dy = (ave - yt) / ave, dz = (ave - zt) / ave;
-  const T e2 = dx * dy - dz * dz;
-  const T e3 = dx * dy * dz;
-  return (T(1) + (T(1.0 / 24.0) * e2 - T(0.1) - T(3.0 / 44.0) * e3) * e2 +
-          T(1.0 / 14.0) * e3) /
-         Sqrt(ave);
+  return rf_tail(xt, yt, zt);
+}
+
+// _rd_tail: the RD series tail at the converged triple, xc in the -3/2 slot
+template <typename T>
+SIM5_HD T rd_tail(T xa, T xb, T xc) {
+  const T ave = T(0.2) * (xa + xb + T(3) * xc);
+  const T dx = (ave - xa) / ave, dy = (ave - xb) / ave, dz = (ave - xc) / ave;
+  const T C1 = T(3.0 / 14.0), C2 = T(1.0 / 6.0), C3 = T(9.0 / 22.0),
+          C4 = T(3.0 / 26.0), C5 = T(0.25 * (9.0 / 22.0)),
+          C6 = T(1.5 * (3.0 / 26.0));
+  const T ea = dx * dy;
+  const T eb = dz * dz;
+  const T ec = ea - eb;
+  const T ed = ea - T(6) * eb;
+  const T ee = ed + ec + ec;
+  const T tail = T(1) + ed * (-C1 + C5 * ed - C6 * dz * ee) +
+                 dz * (C2 * ee + dz * (-C3 * ec + dz * C4 * ea));
+  return tail / (ave * Sqrt(ave));
+}
+
+// _rd_chain: the duplication chain on (x, y, z), carrying the RD series
+// accumulator s_i of each slot i in kSlots (a bit mask), so that RD with v_i
+// in the -3/2 slot is 3 s_i + fac tail_i (perm_tail)
+template <typename T>
+struct Chain {
+  T v[3], fac, s[3];
+  // RD with the original slot i in the -3/2 slot, from this chain
+  SIM5_HD T rd(int i) const {
+    const int j = i == 0 ? 1 : 0, k = i == 2 ? 1 : 2;
+    return T(3) * s[i] + fac * rd_tail(v[j], v[k], v[i]);
+  }
+};
+
+template <typename T, int kSlots>
+SIM5_HD Chain<T> rd_chain(T x, T y, T z) {
+  Chain<T> c;
+  c.v[0] = x;
+  c.v[1] = y;
+  c.v[2] = z;
+  c.fac = T(1);
+  for (int i = 0; i < 3; ++i) c.s[i] = T(0);
+  for (int n = 0; n < Prec<T>::kRfDup; ++n) {
+    T sq[3];
+    for (int i = 0; i < 3; ++i) sq[i] = Sqrt(c.v[i]);
+    const T lam = sq[0] * (sq[1] + sq[2]) + sq[1] * sq[2];
+    for (int i = 0; i < 3; ++i)
+      if (kSlots & (1 << i)) c.s[i] = c.s[i] + c.fac / (sq[i] * (c.v[i] + lam));
+    for (int i = 0; i < 3; ++i) c.v[i] = T(0.25) * (c.v[i] + lam);
+    c.fac = T(0.25) * c.fac;
+  }
+  return c;
+}
+
+// RF on duals with a constant z, by the rule of special/carlson.py:
+// dRF/dx_i = -RD(., ., x_i) / 6 from one chain; a slot at the zero floor
+// has a zero coefficient.  The value is rf's, from the same chain.
+template <typename T>
+SIM5_HD Dual<T> rf(Dual<T> x, Dual<T> y, T z) {
+  const T fl = Prec<T>::rf_floor();
+  const Chain<T> c = rd_chain<T, 3>(ClampMin(x.v, fl), ClampMin(y.v, fl), z);
+  const T cx = x.v < fl ? T(0) : -c.rd(0) / T(6);
+  const T cy = y.v < fl ? T(0) : -c.rd(1) / T(6);
+  return {rf_tail(c.v[0], c.v[1], c.v[2]), cx * x.d + cy * y.d};
 }
 
 // elliptic_k_mc: K from the complement mc = 1 - m by a fixed-depth AGM
-template <typename T>
-SIM5_HD T elliptic_k_mc(T mc) {
-  T a = T(1);
-  T b = Sqrt(ClampMin(mc, T(1e-30)));
+// (on duals: plain forward mode through the short chain, as autodiff)
+template <typename S>
+SIM5_HD S elliptic_k_mc(S mc) {
+  using T = Base<S>;
+  S a = T(1);
+  S b = Sqrt(ClampMin(mc, T(1e-30)));
   for (int i = 0; i < Prec<T>::kKAgm; ++i) {
-    const T an = T(0.5) * (a + b);
+    const S an = T(0.5) * (a + b);
     b = Sqrt(a * b);
     a = an;
   }
@@ -475,6 +729,54 @@ SIM5_HD void sncndn(T u, T emc, T& sn_out, T& cn_out, T& dn) {
   cn_out = cc * sn_out;
 }
 
+// sncndn on duals, by the rule of special/jacobi.py (_sncndn_partials): the
+// u-derivatives algebraic in (sn, cn, dn), the m-derivatives through the
+// Jacobi epsilon eps(u, m) from two duplication chains (K and E; the
+// incomplete F and D at (cn^2, dn^2, 1)) with the quasi-period reduction,
+// and the exact endpoint asymptotics within sqrt(eps) of m = 0 and m = 1
+template <typename T>
+SIM5_HD void sncndn(Dual<T> u, Dual<T> emc, Dual<T>& sn, Dual<T>& cn,
+                    Dual<T>& dn) {
+  sncndn(u.v, emc.v, sn.v, cn.v, dn.v);
+  const T U = u.v, E_ = emc.v, s = sn.v, c = cn.v, d = dn.v;
+  const T m = T(1) - E_;
+  const T tiny = Prec<T>::rf_floor();
+  const Chain<T> ck = rd_chain<T, 4>(tiny, ClampMin(E_, tiny), T(1));
+  const T K = rf_tail(ck.v[0], ck.v[1], ck.v[2]);
+  const T E = K - m * ck.rd(2) / T(3);
+  const Chain<T> ci =
+      rd_chain<T, 4>(ClampMin(c * c, tiny), ClampMin(d * d, tiny), T(1));
+  const T F_inc = rf_tail(ci.v[0], ci.v[1], ci.v[2]);
+  const T eps_inc = s * F_inc - m / T(3) * (s * s * s) * ci.rd(2);
+  const T n = Floor((U + K) / (T(2) * K));
+  const T sgn = n - T(2) * Floor(n / T(2)) == T(0) ? T(1) : T(-1);
+  const T eps_u = T(2) * n * E + sgn * eps_inc;
+  const T W = U * E_ - eps_u;
+  const T m_s = ClampMin(m, T(1e-30)), emc_s = ClampMin(E_, T(1e-30));
+  const T N = W * d + m * s * c;
+  const T g_sn = c * N / (T(2) * m_s * emc_s);
+  const T g_cn = -s * N / (T(2) * m_s * emc_s);
+  const T g_dn = -s * (s * d + c * W) / (T(2) * emc_s);
+  // the endpoint asymptotics, m -> 0 and m -> 1
+  const T ucd = U * c * d;
+  const T a0_sn = -(U - s * c) * c / T(4);
+  const T a0_cn = s * (U - s * c) / T(4);
+  const T a0_dn = -s * s / T(2);
+  const T cn_g = Abs(c) > T(1e-30) ? c : (c >= T(0) ? T(1e-30) : T(-1e-30));
+  const T a1_sn = -(s - ucd) / T(4);
+  const T a1_cn = s / cn_g * (s - ucd) / T(4);
+  const T a1_dn = -s * (s + ucd) / (T(4) * ClampMin(d, T(1e-30)));
+  const T th = Sqrt(Prec<T>::eps());
+  const bool lo = m < th, hi = E_ < th;
+  // d/d emc = -d/dm
+  const T e_sn = -(lo ? a0_sn : (hi ? a1_sn : g_sn));
+  const T e_cn = -(lo ? a0_cn : (hi ? a1_cn : g_cn));
+  const T e_dn = -(lo ? a0_dn : (hi ? a1_dn : g_dn));
+  sn.d = c * d * u.d + e_sn * emc.d;
+  cn.d = -s * d * u.d + e_cn * emc.d;
+  dn.d = -m * s * c * u.d + e_dn * emc.d;
+}
+
 // ---------------------------------------------------------------------------
 // the geodesic (geodesic/types.py, geodesic/analytic.py)
 // ---------------------------------------------------------------------------
@@ -519,31 +821,35 @@ struct NoProbe {
   SIM5_HD void classes(int, int, int) const {}
 };
 
-template <typename T>
-struct Geod {
-  T a, alpha, beta, incl, cos_i, l, q;
-  T rr[4], ri[4], rr_lo[4];
-  int nrr, gtype, status;
-  T m2p, m2m, mm, mK, rp, Rpc, Tpp, Tip;
+// The functions below are templated on the scalar S (T, or Dual<T> for the
+// tangent kernel), T = Base<S> the type of their constants.
 
-  SIM5_HD T root_diff(int i, int j) const {
+template <typename S>
+struct Geod {
+  S a, alpha, beta, incl, cos_i, l, q;
+  S rr[4], ri[4], rr_lo[4];
+  int nrr, gtype, status;
+  S m2p, m2m, mm, mK, rp, Rpc, Tpp, Tip;
+
+  SIM5_HD S root_diff(int i, int j) const {
     return (rr[i] - rr[j]) + (rr_lo[i] - rr_lo[j]);
   }
 };
 
 // _rc_geometry: A, B, A - B, mm and 1 - mm of the RC branch
-template <typename T>
-SIM5_HD void rc_geometry(T t1, T t2, T tu, T tv, T& A, T& B, T& AmB, T& mm,
-                         T& mmc) {
-  const T x1 = t1 - tu, x2 = t2 - tu;
+template <typename S>
+SIM5_HD void rc_geometry(S t1, S t2, S tu, S tv, S& A, S& B, S& AmB, S& mm,
+                         S& mmc) {
+  using T = Base<S>;
+  const S x1 = t1 - tu, x2 = t2 - tu;
   A = Sqrt(x1 * x1 + tv * tv);
   B = Sqrt(x2 * x2 + tv * tv);
-  const T tv2 = tv * tv;
-  const T hm1 = x1 > T(0) ? tv2 / (A + x1) : A - x1;
-  const T hp1 = x1 < T(0) ? tv2 / (A - x1) : A + x1;
-  const T hm2 = x2 > T(0) ? tv2 / (B + x2) : B - x2;
-  const T hp2 = x2 < T(0) ? tv2 / (B - x2) : B + x2;
-  const T ApB = A + B, d = t1 - t2;
+  const S tv2 = tv * tv;
+  const S hm1 = x1 > T(0) ? tv2 / (A + x1) : A - x1;
+  const S hp1 = x1 < T(0) ? tv2 / (A - x1) : A + x1;
+  const S hm2 = x2 > T(0) ? tv2 / (B + x2) : B - x2;
+  const S hp2 = x2 < T(0) ? tv2 / (B - x2) : B + x2;
+  const S ApB = A + B, d = t1 - t2;
   AmB = d * (x1 + x2) / ApB;
   mm = Clamp((ApB * ApB - d * d) / (T(4) * A * B), T(0), T(1));
   mmc = Clamp(d * d * (hm1 + hm2) * (hp1 + hp2) / (T(4) * A * B * (ApB * ApB)),
@@ -551,26 +857,27 @@ SIM5_HD void rc_geometry(T t1, T t2, T tu, T tv, T& A, T& B, T& AmB, T& mm,
 }
 
 // _cc_map: the CC map's parameters from the two complex pairs
-template <typename T>
+template <typename S>
 struct CCMap {
-  T b1, a1, A, B, mmc, g1, mm;
+  S b1, a1, A, B, mmc, g1, mm;
 };
 
-template <typename T>
-SIM5_HD CCMap<T> cc_map(const Geod<T>& g) {
-  CCMap<T> c;
+template <typename S>
+SIM5_HD CCMap<S> cc_map(const Geod<S>& g) {
+  using T = Base<S>;
+  CCMap<S> c;
   c.b1 = g.rr[0];
   c.a1 = Abs(g.ri[0]);
-  const T b2 = g.rr[2], a2 = Abs(g.ri[2]);
-  const T db = c.b1 - b2, sp = c.a1 + a2, sm = c.a1 - a2;
+  const S b2 = g.rr[2], a2 = Abs(g.ri[2]);
+  const S db = c.b1 - b2, sp = c.a1 + a2, sm = c.a1 - a2;
   c.A = Sqrt(db * db + sp * sp);
   c.B = Sqrt(db * db + sm * sm);
-  const T ApB = c.A + c.B;
-  const T AmB = T(4) * c.a1 * a2 / ApB;
-  const T ratio = AmB / ApB;
+  const S ApB = c.A + c.B;
+  const S AmB = T(4) * c.a1 * a2 / ApB;
+  const S ratio = AmB / ApB;
   c.mmc = Clamp(ratio * ratio, Prec<T>::tiny(), T(1));
-  const T g1num = ClampMin(T(4) * c.a1 * c.a1 - AmB * AmB, T(1e-30));
-  const T g1den = ClampMin(ApB * ApB - T(4) * c.a1 * c.a1, T(1e-30));
+  const S g1num = ClampMin(T(4) * c.a1 * c.a1 - AmB * AmB, T(1e-30));
+  const S g1den = ClampMin(ApB * ApB - T(4) * c.a1 * c.a1, T(1e-30));
   c.g1 = Sqrt(g1num / g1den);
   c.mm = T(4) * c.A * c.B / (ApB * ApB);
   return c;
@@ -584,24 +891,22 @@ SIM5_HD CCMap<T> cc_map(const Geod<T>& g) {
 // runs each chain once.  `probe` counts the lanes that enter each call, at
 // the point where they are chosen: a flag carried to the end of the pixel
 // would hold registers through the whole chain.
-template <typename T, typename Probe>
-SIM5_HD void R_roots(Geod<T>& g, T r0, Probe& probe) {
-  const T a = g.a, l = g.l, q = g.q;
-  const T a2 = a * a;
-  const T c2 = a2 - l * l - q;
-  const T lma = l - a;
-  const T c1 = T(2) * (q + lma * lma);
-  const T c0 = -a2 * q;
-  quartic_roots(T(0), c2, c1, c0, g.rr, g.ri);
-  g.nrr = sort_quartic_roots(g.rr, g.ri);
-  for (int j = 0; j < 4; ++j)
-    polish_root_df(g.rr[j], g.ri[j], c2, c1, c0, g.rr[j], g.rr_lo[j]);
+template <typename S, typename Probe>
+SIM5_HD void R_roots(Geod<S>& g, Base<S> r0, Probe& probe) {
+  using T = Base<S>;
+  const S a = g.a, l = g.l, q = g.q;
+  const S a2 = a * a;
+  const S c2 = a2 - l * l - q;
+  const S lma = l - a;
+  const S c1 = T(2) * (q + lma * lma);
+  const S c0 = -a2 * q;
+  g.nrr = radial_roots(c2, c1, c0, g.rr, g.ri, g.rr_lo);
 
-  const T r1 = g.rr[0], r2 = g.rr[1], r3 = g.rr[2];
+  const S r1 = g.rr[0], r2 = g.rr[1], r3 = g.rr[2];
   g.status = kOk;
   // rf(x, y, 1) and K(kmc); the combination Rpc of the two results uses
   // the scalars u and v and, for RC, the sign of z
-  T x = T(1), y = T(1), kmc = T(1), u = T(0), v = T(0);
+  S x = T(1), y = T(1), kmc = T(1), u = T(0), v = T(0);
   bool need_rf = false, need_k = false, z_pos = true;
   if (g.nrr == 4) {
     const bool dbl = Abs(r1 - r2) < T(1e-8);
@@ -609,17 +914,17 @@ SIM5_HD void R_roots(Geod<T>& g, T r0, Probe& probe) {
     const bool bad4 = r0 < r3 || (r0 > r2 && r0 < r1);
     g.gtype = dbl ? kTypeRRDbl : (inner ? kTypeRRBH : kTypeRR);
     g.status = bad4 ? kErrUnknownSolution : (dbl ? kErrRRDouble : kOk);
-    const T d12 = g.root_diff(0, 1), d13 = g.root_diff(0, 2);
-    const T d14 = g.root_diff(0, 3), d24 = g.root_diff(1, 3);
-    const T d34 = g.root_diff(2, 3);
-    const T c4 = T(2) / Sqrt(d13 * d24);
+    const S d12 = g.root_diff(0, 1), d13 = g.root_diff(0, 2);
+    const S d14 = g.root_diff(0, 3), d24 = g.root_diff(1, 3);
+    const S d34 = g.root_diff(2, 3);
+    const S c4 = T(2) / Sqrt(d13 * d24);
     if (inner) {
       g.rp = r2;
       kmc = d12 * d34 / (d24 * d13);
       need_k = true;
       u = c4;                            // Rpc = c4 K
     } else {
-      const T z4 = Clamp(Sqrt(d24 / d14), T(0), T(1));
+      const S z4 = Clamp(Sqrt(d24 / d14), T(0), T(1));
       g.rp = r1;
       x = d12 / d14;
       y = d12 / d13;
@@ -628,11 +933,11 @@ SIM5_HD void R_roots(Geod<T>& g, T r0, Probe& probe) {
     }
   } else if (g.nrr == 2) {
     g.gtype = kTypeRC;
-    T A, B, AmB, mm, mmc;
+    S A, B, AmB, mm, mmc;
     rc_geometry(r1, r2, g.rr[2], Abs(g.ri[2]), A, B, AmB, mm, mmc);
-    const T zr = AmB / (A + B);
+    const S zr = AmB / (A + B);
     const T feps = T(8.0 * static_cast<double>(Prec<T>::eps()));
-    const T az = Clamp(Abs(zr), feps, T(1) - feps);
+    const S az = Clamp(Abs(zr), feps, T(1) - feps);
     x = az * az;
     y = mmc + mm * az * az;
     need_rf = true;
@@ -644,10 +949,10 @@ SIM5_HD void R_roots(Geod<T>& g, T r0, Probe& probe) {
     g.rp = r1;
   } else {
     g.gtype = kTypeCC;
-    const CCMap<T> c = cc_map(g);
-    const T zg = T(1) / c.g1;
-    const T w2 = zg * zg / (T(1) + zg * zg);
-    const T w2c = T(1) / (T(1) + zg * zg);
+    const CCMap<S> c = cc_map(g);
+    const S zg = T(1) / c.g1;
+    const S w2 = zg * zg / (T(1) + zg * zg);
+    const S w2c = T(1) / (T(1) + zg * zg);
     x = w2c;
     y = c.mmc + c.mm * w2c;
     kmc = c.mmc;
@@ -658,14 +963,14 @@ SIM5_HD void R_roots(Geod<T>& g, T r0, Probe& probe) {
   }
   probe(kSlotRfR, need_rf);
   probe(kSlotKR, need_k);
-  T rfv = T(1);
+  S rfv = T(1);
   if (need_rf) rfv = rf(x, y, T(1));
-  T kv = T(0);
+  S kv = T(0);
   if (need_k) kv = elliptic_k_mc(kmc);
   if (g.nrr == 4) {
     g.Rpc = u * (need_k ? kv : rfv);
   } else if (g.nrr == 2) {
-    const T icn1 = u * rfv;
+    const S icn1 = u * rfv;
     g.Rpc = (z_pos ? icn1 : T(2) * kv - icn1) / v;
   } else {
     g.Rpc = u * (T(2) * kv - v * rfv);
@@ -673,15 +978,16 @@ SIM5_HD void R_roots(Geod<T>& g, T r0, Probe& probe) {
 }
 
 // _T_roots: theta roots m2p, m2m, modulus mm and scale mK; returns status
-template <typename T>
-SIM5_HD int T_roots(Geod<T>& g, T m0) {
-  const T a = g.a, l = g.l, q = g.q;
-  const T a2 = a * a;
-  const T qla = q + l * l - a2;
-  const T S = Sqrt(qla * qla + T(4) * q * a2);
-  const T denom = S - qla;
-  const T X = qla >= T(0) ? S + qla
-                          : T(4) * q * a2 / (denom != T(0) ? denom : T(1));
+template <typename S>
+SIM5_HD int T_roots(Geod<S>& g, S m0) {
+  using T = Base<S>;
+  const S a = g.a, l = g.l, q = g.q;
+  const S a2 = a * a;
+  const S qla = q + l * l - a2;
+  const S S_ = Sqrt(qla * qla + T(4) * q * a2);
+  const S denom = S_ - qla;
+  const S X = qla >= T(0) ? S_ + qla
+                          : T(4) * q * a2 / (denom != T(0) ? denom : S(T(1)));
   g.m2m = X / (T(2) * a2);
   g.m2p = (T(2) * q) / X;
   const double feps_d = 8.0 * static_cast<double>(Prec<T>::eps());
@@ -691,7 +997,7 @@ SIM5_HD int T_roots(Geod<T>& g, T m0) {
   g.mm = qpos ? g.m2p / (g.m2p + g.m2m) : (g.m2p + g.m2m) / g.m2p;
   g.mm = ClampMax(g.mm, T(1) - feps);
   const bool bad_mm = g.mm < T(0) || g.mm >= T(1);
-  const T slack = Sqrt(ClampMin(g.m2p, T(0))) * (T(1) + feps);
+  const S slack = Sqrt(ClampMin(g.m2p, T(0))) * (T(1) + feps);
   bool bad_m0 = Abs(m0) > slack;
   if (!qpos)
     bad_m0 = bad_m0 ||
@@ -707,23 +1013,24 @@ SIM5_HD int T_roots(Geod<T>& g, T m0) {
 // geodesic_init_inf: the geodesic of impact parameters (alpha, beta) for
 // an observer at inclination i, with cos_i = Cos(i) and sin_i = Sin(i)
 // computed once for the frame
-template <typename T, typename Probe>
-SIM5_HD Geod<T> init_inf(T i, T cos_i, T sin_i, T a, T alpha, T beta,
+template <typename S, typename Probe>
+SIM5_HD Geod<S> init_inf(S i, S cos_i, S sin_i, S a, S alpha, S beta,
                          Probe& probe) {
-  Geod<T> g;
+  using T = Base<S>;
+  Geod<S> g;
   const bool bad_spin = a < T(0) || a > T(1.0 - 1e-6);
   const bool bad_incl = i <= T(0) || i >= T(kPi / 2.0);
-  beta = beta == T(0) ? T(1e-6) : beta;
-  const T a_eff = ClampMin(a, T(1e-4));
+  beta = beta == T(0) ? S(T(1e-6)) : beta;
+  const S a_eff = ClampMin(a, T(1e-4));
   g.a = a_eff;
   g.alpha = alpha;
   g.beta = beta;
   g.incl = i;
   g.cos_i = cos_i;
   g.l = -alpha * sin_i;
-  T q = beta * beta + cos_i * cos_i * (alpha * alpha - a_eff * a_eff);
+  S q = beta * beta + cos_i * cos_i * (alpha * alpha - a_eff * a_eff);
   const bool bad_q = q == T(0);
-  g.q = q = bad_q ? T(1) : q;
+  g.q = q = bad_q ? S(T(1)) : q;
 
   R_roots(g, Prec<T>::r_observer(), probe);   // the observer at r0 = 1e300
   const int st_r = g.status;
@@ -734,18 +1041,18 @@ SIM5_HD Geod<T> init_inf(T i, T cos_i, T sin_i, T a, T alpha, T beta,
                                          : (st_r != 0 ? st_r : st_t);
 
   // Tpp = 2 mK K(mm), K from the exact theta-root complement of mm
-  T mm_c = q > T(0) ? g.m2m / (g.m2p + g.m2m)
-                    : -g.m2m / (g.m2p != T(0) ? g.m2p : T(1));
+  S mm_c = q > T(0) ? g.m2m / (g.m2p + g.m2m)
+                    : -g.m2m / (g.m2p != T(0) ? g.m2p : S(T(1)));
   mm_c = Clamp(mm_c, T(1e-12), T(1));
   g.Tpp = T(2) * g.mK * elliptic_k_mc(mm_c);
   // Tip = mK icn(cos_i/sqrt(m2p), mm), 1 - u^2 cancellation-free
-  const T denom = a_eff * a_eff * (g.m2m + cos_i * cos_i) * g.m2p;
-  const T bs = beta * sin_i;
-  const T eps_ident = denom > T(0) ? bs * bs / denom : T(0.5);
-  const T eps_direct = (g.m2p - cos_i * cos_i) / g.m2p;
-  const T eps = Clamp(eps_direct > T(1e-6) ? eps_direct : eps_ident,
+  const S denom = a_eff * a_eff * (g.m2m + cos_i * cos_i) * g.m2p;
+  const S bs = beta * sin_i;
+  const S eps_ident = denom > T(0) ? bs * bs / denom : S(T(0.5));
+  const S eps_direct = (g.m2p - cos_i * cos_i) / g.m2p;
+  const S eps = Clamp(eps_direct > T(1e-6) ? eps_direct : eps_ident,
                       Prec<T>::tiny(), T(1));
-  T e_sel, y_sel;
+  S e_sel, y_sel;
   if (q < T(0)) {   // vortical: the dn-form integral in the same slot
     e_sel = Clamp(eps / ClampMin(g.mm, Prec<T>::tiny()), T(0),
                   T(1.0 - 1e-12));
@@ -759,12 +1066,13 @@ SIM5_HD Geod<T> init_inf(T i, T cos_i, T sin_i, T a, T alpha, T beta,
 }
 
 // geodesic_find_midplane_crossing: P of the order-th equatorial crossing
-template <typename T>
-SIM5_HD T find_midplane_crossing(const Geod<T>& g, int order) {
-  const T u = g.cos_i / Sqrt(g.m2p);
+template <typename S>
+SIM5_HD S find_midplane_crossing(const Geod<S>& g, int order) {
+  using T = Base<S>;
+  const S u = g.cos_i / Sqrt(g.m2p);
   const bool u_ok = Abs(u) <= T(1.0 + 1e-4);
-  T pos = T((2.0 * order + 1.0) * 0.5) * g.Tpp +
-          (g.beta > T(0) ? g.Tip : (g.beta < T(0) ? -g.Tip : T(0)));
+  S pos = T((2.0 * order + 1.0) * 0.5) * g.Tpp +
+          (g.beta > T(0) ? g.Tip : (g.beta < T(0) ? -g.Tip : S(T(0))));
   if (pos > T(2) * g.Rpc) pos = Nan<T>();
   if (g.q <= T(0) || !u_ok || g.status != kOk) pos = Nan<T>();
   return pos;
@@ -774,62 +1082,64 @@ SIM5_HD T find_midplane_crossing(const Geod<T>& g, int order) {
 // selects the argument u and parameter of its one sncndn by type, makes
 // the one call, then applies its type's formula to (sn, cn) and the three
 // scalars p0-p2 its branch kept.
-template <typename T>
-SIM5_HD T position_rad(const Geod<T>& g, T P) {
+template <typename S>
+SIM5_HD S position_rad(const Geod<S>& g, S P) {
+  using T = Base<S>;
   const bool is_rr = g.gtype == kTypeRR, is_bh = g.gtype == kTypeRRBH;
   const bool is_rc = g.gtype == kTypeRC, is_cc = g.gtype == kTypeCC;
   const bool finite = IsFinite(P);
-  const T Pz = finite ? P : T(0.5) * g.Rpc;
-  const T Pf = is_bh ? Pz - T(2) * g.Rpc * Floor(Pz / (T(2) * g.Rpc)) : Pz;
+  const S Pz = finite ? P : T(0.5) * g.Rpc;
+  const S Pf = is_bh ? Pz - T(2) * g.Rpc * Floor(Pz / (T(2) * g.Rpc)) : Pz;
   const bool P_valid = finite && Pf > T(0) && Pf < T(2) * g.Rpc;
-  const T Ps = P_valid ? Pf : T(0.5) * g.Rpc;
-  T u = T(0), m = T(1), p0 = T(0), p1 = T(0), p2 = T(0);
+  const S Ps = P_valid ? Pf : T(0.5) * g.Rpc;
+  S u = T(0), m = T(1), p0 = T(0), p1 = T(0), p2 = T(0);
   if (is_rr || is_bh) {
-    const T d12 = g.root_diff(0, 1), d13 = g.root_diff(0, 2);
-    const T d23 = g.root_diff(1, 2), d24 = g.root_diff(1, 3);
-    const T d34 = g.root_diff(2, 3);
-    const T m4c = Clamp(d12 * d34 / (d24 * d13), Prec<T>::tiny(), T(1));
+    const S d12 = g.root_diff(0, 1), d13 = g.root_diff(0, 2);
+    const S d23 = g.root_diff(1, 2), d24 = g.root_diff(1, 3);
+    const S d34 = g.root_diff(2, 3);
+    const S m4c = Clamp(d12 * d34 / (d24 * d13), Prec<T>::tiny(), T(1));
     u = T(0.5) * Abs(Ps - g.Rpc) * Sqrt(d13 * d24);
-    m = m4c <= T(0) ? T(1e-9) : m4c;
+    m = m4c <= T(0) ? S(T(1e-9)) : m4c;
     p0 = is_rr ? d12 : d23;
     p1 = is_rr ? d24 : d13;
   } else if (is_rc) {
-    T A, B, AmB, m2, m2c;
+    S A, B, AmB, m2, m2c;
     rc_geometry(g.rr[0], g.rr[1], g.rr[2], Abs(g.ri[2]), A, B, AmB, m2, m2c);
-    const T Ps_rc = (P_valid && Pf < g.Rpc) ? Ps : T(0.5) * g.Rpc;
+    const S Ps_rc = (P_valid && Pf < g.Rpc) ? Ps : T(0.5) * g.Rpc;
     u = Sqrt(A * B) * (g.Rpc - Ps_rc);
-    m = m2c <= T(0) ? T(1e-9) : m2c;
+    m = m2c <= T(0) ? S(T(1e-9)) : m2c;
     p0 = A;
     p1 = B;
     p2 = AmB;
   } else if (is_cc) {
-    const CCMap<T> c = cc_map(g);
-    const T Ps_cc = (P_valid && Pf <= g.Rpc) ? Ps : T(0.5) * g.Rpc;
+    const CCMap<S> c = cc_map(g);
+    const S Ps_cc = (P_valid && Pf <= g.Rpc) ? Ps : T(0.5) * g.Rpc;
     u = T(0.5) * (c.A + c.B) * (g.Rpc - Ps_cc);
-    m = c.mmc <= T(0) ? T(1e-9) : c.mmc;
+    m = c.mmc <= T(0) ? S(T(1e-9)) : c.mmc;
     p0 = c.a1;
     p1 = c.b1;
     p2 = c.g1;
   }
-  T sn = T(0), cn = T(1), dn = T(1);
+  S sn = T(0), cn = T(1), dn = T(1);
   if (is_rr || is_bh || is_rc || is_cc) sncndn(u, m, sn, cn, dn);
-  T r = Nan<T>();
+  S r = Nan<T>();
   if (is_rr) {
     // r = r2 + d12 d24 / (d24 cn^2 - d12 sn^2), no cancellation in r - r2
-    const T sn2 = sn * sn;
-    const T D = p1 * (cn * cn) - p0 * sn2;
-    r = g.rr[1] + p0 * p1 / (D != T(0) ? D : Prec<T>::tiny());
+    const S sn2 = sn * sn;
+    const S D = p1 * (cn * cn) - p0 * sn2;
+    r = g.rr[1] + p0 * p1 / (D != T(0) ? D : S(Prec<T>::tiny()));
   } else if (is_bh) {
-    const T w = sn * sn * p0 / p1;
+    const S w = sn * sn * p0 / p1;
     r = (g.rr[1] - w * g.rr[0]) / (T(1) - w);
   } else if (is_rc) {
-    const T t1 = g.rr[0], t2 = g.rr[1];
+    const S t1 = g.rr[0], t2 = g.rr[1];
     r = (t2 * p0 - t1 * p1 - (t2 * p0 + t1 * p1) * cn) /
         (p2 - (p0 + p1) * cn);
     if (Pf > g.Rpc) r = Nan<T>();   // no turning point
   } else if (is_cc) {
-    const T cs = Abs(cn) > T(1e-30) ? cn : (cn >= T(0) ? T(1e-30) : T(-1e-30));
-    const T z = sn / cs;
+    const S cs = Abs(cn) > T(1e-30) ? cn
+                                    : S(cn >= T(0) ? T(1e-30) : T(-1e-30));
+    const S z = sn / cs;
     r = (z * (p0 + p1 * p2) + p1 - p0 * p2) / (T(1) + p2 * z);
     if (Pf > g.Rpc) r = Nan<T>();   // no turning point
   }
@@ -844,20 +1154,21 @@ SIM5_HD T position_rad(const Geod<T>& g, T P) {
 
 // gfactorK: redshift of Keplerian equatorial emission toward a photon of
 // motion constant l, with the compensated Keplerian bracket
-template <typename T>
-SIM5_HD T gfactorK(T r, T a, T l) {
-  const T s = Sqrt(r);
-  T p, ep, u, eu, m3, em3, v, ev, w, ew;
+template <typename S>
+SIM5_HD S gfactorK(S r, S a, S l) {
+  using T = Base<S>;
+  const S s = Sqrt(r);
+  S p, ep, u, eu, m3, em3, v, ev, w, ew;
   two_prod(s, s, p, ep);
-  const T s_safe = ClampMin(s, Prec<T>::tiny());
-  const T s_l = ((r - p) - ep) / (T(2) * s_safe);
+  const S s_safe = ClampMin(s, Prec<T>::tiny());
+  const S s_l = ((r - p) - ep) / (T(2) * s_safe);
   two_prod(p, s, u, eu);
   two_sum(T(2) * s, s, m3, em3);
   two_sum(u, -m3, v, ev);
   two_sum(v, T(2) * a, w, ew);
-  const T kep =
+  const S kep =
       w + (((ew + ev) - em3) + (eu + ep * s) + (T(3) * p - T(3)) * s_l);
-  const T s3 = s * r;
+  const S s3 = s * r;
   return Sqrt(ClampMin(s3 * kep, T(0))) / (s3 + a - l);
 }
 
@@ -870,17 +1181,18 @@ SIM5_HD T gfactorK(T r, T a, T l) {
 // constants (the partial-fraction weights c1-c3, x0 = sqrt(rms) as
 // x0h + x0l, x0 - x_i, the linear coefficient C1).  make_frame computes
 // it once; every pixel of the frame reads it.
-template <typename T>
+template <typename S>
 struct Frame {
-  T a, incl, cos_i, sin_i, M, mdot, rms_disk, rms, rmax;
-  T x0h, x0l, x0mx1, x0mx2, x0mx3, c1, c2, c3, C1;
+  S a, incl, cos_i, sin_i, M, mdot, rms_disk, rms, rmax;
+  S x0h, x0l, x0mx1, x0mx2, x0mx3, c1, c2, c3, C1;
 };
 
 // the frame of the six scalars s = (a, incl, M, mdot, rms_disk, rmax),
 // rms_disk being the disk's edge, ISCO + 1e-3
-template <typename T>
-SIM5_HD Frame<T> make_frame(const T* s) {
-  Frame<T> d;
+template <typename S>
+SIM5_HD Frame<S> make_frame(const S* s) {
+  using T = Base<S>;
+  Frame<S> d;
   d.a = s[0];
   d.incl = s[1];
   d.M = s[2];
@@ -891,27 +1203,27 @@ SIM5_HD Frame<T> make_frame(const T* s) {
   d.sin_i = Sin(d.incl);
   // the reference compares against r_ms(a), not rms + 1e-3
   d.rms = d.rms_disk - T(1e-3);
-  const T a = d.a, rms = d.rms_disk;
-  const T th = Acos(Clamp(a, T(-1), T(1))) / T(3);
-  const T x1 = T(2) * Cos(th - T(kPi / 3.0));
-  const T x2 = T(2) * Cos(th + T(kPi / 3.0));
-  const T x3 = T(-2) * Cos(th);
+  const S a = d.a, rms = d.rms_disk;
+  const S th = Acos(Clamp(a, T(-1), T(1))) / T(3);
+  const S x1 = T(2) * Cos(th - T(kPi / 3.0));
+  const S x2 = T(2) * Cos(th + T(kPi / 3.0));
+  const S x3 = T(-2) * Cos(th);
   const T s3 = T(kSqrt3);
-  const T sth = Sin(th), s2th = Sin(T(2) * th), cth = Cos(th);
-  const T d12x = T(2.0 * kSqrt3) * sth;
-  const T d13x = T(3) * cth + s3 * sth;
-  const T d23x = T(3) * cth - s3 * sth;
-  const T x1ma = sth * (s3 + T(2) * s2th);
-  const T x3ma = x3 - a;
-  const T x2ma =
-      a * (T(1) - a) * (T(1) + a) / ((x1ma == T(0) ? T(1) : x1ma) * x3ma);
-  const T x2s = x2 == T(0) ? Prec<T>::guard_1e300() : x2;
+  const S sth = Sin(th), s2th = Sin(T(2) * th), cth = Cos(th);
+  const S d12x = T(2.0 * kSqrt3) * sth;
+  const S d13x = T(3) * cth + s3 * sth;
+  const S d23x = T(3) * cth - s3 * sth;
+  const S x1ma = sth * (s3 + T(2) * s2th);
+  const S x3ma = x3 - a;
+  const S x2ma =
+      a * (T(1) - a) * (T(1) + a) / ((x1ma == T(0) ? S(T(1)) : x1ma) * x3ma);
+  const S x2s = x2 == T(0) ? S(Prec<T>::guard_1e300()) : x2;
   d.c1 = T(3) * (x1ma * x1ma) / (x1 * d12x * d13x);
   d.c2 = T(-3) * (x2ma * x2ma) / (x2s * d12x * d23x);
   d.c3 = T(3) * (x3ma * x3ma) / (x3 * (x3 - x1) * (x3 - x2));
   sqrt_df(rms, d.x0h, d.x0l);
-  const T x0 = d.x0h;
-  const T rms1 = rms - T(1);
+  const S x0 = d.x0h;
+  const S rms1 = rms - T(1);
   d.x0mx1 = (rms1 - T(2) * sth * sth - s3 * s2th) / (x0 + x1);
   d.x0mx2 = (rms1 - T(2) * sth * sth + s3 * s2th) / (x0 + x2);
   d.x0mx3 = x0 + T(2) * cth;
@@ -922,24 +1234,25 @@ SIM5_HD Frame<T> make_frame(const T* s) {
 
 // nt_flux(disk, r) [erg cm-2 s-1], in the delta form, from the frame's
 // constants
-template <typename T>
-SIM5_HD T nt_flux(const Frame<T>& d, T r) {
-  const T rms = d.rms_disk;
+template <typename S>
+SIM5_HD S nt_flux(const Frame<S>& d, S r) {
+  using T = Base<S>;
+  const S rms = d.rms_disk;
   const bool inside = r <= rms;
-  const T rs = inside ? rms * T(1.0001) : r;
-  T xh, xl;
+  const S rs = inside ? rms * T(1.0001) : r;
+  S xh, xl;
   sqrt_df(rs, xh, xl);
-  const T x0 = d.x0h;
-  const T delta = (xh - d.x0h) + (xl - d.x0l);
-  const T B = delta * d.C1 + T(1.5) * d.a * vlog(delta / x0) +
+  const S x0 = d.x0h;
+  const S delta = (xh - d.x0h) + (xl - d.x0l);
+  const S B = delta * d.C1 + T(1.5) * d.a * vlog(delta / x0) +
               d.c1 * vlog(delta / d.x0mx1) + d.c2 * vlog(delta / d.x0mx2) +
               d.c3 * vlog(delta / d.x0mx3);
-  const T F = T(1) / (T(4.0 * kPi) * rs) * T(1.5) /
+  const S F = T(1) / (T(4.0 * kPi) * rs) * T(1.5) /
               (xh * xh *
                ((d.x0mx1 + delta) * (d.x0mx2 + delta) * (d.x0mx3 + delta))) *
               B;
-  const T out = T(9.1721376255e+28) * F * d.mdot / d.M;
-  return inside ? T(0) : out;
+  const S out = T(9.1721376255e+28) * F * d.mdot / d.M;
+  return inside ? S(T(0)) : out;
 }
 
 // One pixel (ix, iy) of an nx x ny frame with aspect ny / nx: image_f =
@@ -948,31 +1261,32 @@ SIM5_HD T nt_flux(const Frame<T>& d, T r) {
 // dark; order 1 only where order 0 fell inside the ISCO; the hit, of
 // either order, is shaded once.  Every lane runs the probes in the same
 // order whatever its path.
-template <typename T, typename Probe>
-SIM5_HD void nt_pixel(const Frame<T>& d, int ix, int iy, int nx, int ny,
-                      T aspect, Probe& probe, T& f_out, T& g_out) {
+template <typename S, typename Probe>
+SIM5_HD void nt_pixel(const Frame<S>& d, int ix, int iy, int nx, int ny,
+                      Base<S> aspect, Probe& probe, S& f_out, S& g_out) {
+  using T = Base<S>;
   // image_grid: pixel centres, [0, 0] at the image centre
   const T fx = (T(ix) + T(0.5)) / T(nx) - T(0.5);
   const T fy = (T(iy) + T(0.5)) / T(ny) - T(0.5);
-  const T alpha = fx * T(2) * d.rmax;
-  const T beta = fy * T(2) * d.rmax * aspect;
-  const Geod<T> g =
+  const S alpha = fx * T(2) * d.rmax;
+  const S beta = fy * T(2) * d.rmax * aspect;
+  const Geod<S> g =
       init_inf(d.incl, d.cos_i, d.sin_i, d.a, alpha, beta, probe);
   const bool ok = g.status == kOk;
 
-  const T P0 = find_midplane_crossing(g, 0);
+  const S P0 = find_midplane_crossing(g, 0);
   const bool has0 = IsFinite(P0);
-  T r = Nan<T>();
+  S r = Nan<T>();
   if (has0) r = position_rad(g, P0);
   const bool hit0 = IsFinite(r) && r >= d.rms && ok;
   const bool use1 = has0 && !hit0;
   if (use1) r = position_rad(g, find_midplane_crossing(g, 1));
   const bool hit1 = use1 && IsFinite(r) && r >= d.rms && ok;
   const bool hit = hit0 || hit1;
-  T f = T(0), gf = T(0);
+  S f = T(0), gf = T(0);
   if (hit) {
     gf = gfactorK(r, d.a, g.l);
-    const T g2 = gf * gf;
+    const S g2 = gf * gf;
     f = nt_flux(d, r) * (g2 * g2);
   }
   f_out = f;

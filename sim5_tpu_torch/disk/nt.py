@@ -7,8 +7,10 @@ given f64 values (or Python numbers) builds the f64 parity disk, one given
 f32 tensors the f32 fast-path disk.
 
 Luminosity is a fixed-grid log-Simpson rule, and the luminosity -> mdot
-inversion a fixed-depth bisection (forward only here: the implicit
-derivative waits for the derivative layer).  (reference: sim5disk-nt.c)
+inversion a fixed-depth bisection.  That bisection carries no implicit
+derivative in either package: the JAX package's `nt_mdot_for_luminosity`
+is a plain `fori_loop`, so the mdot it returns is a constant to autodiff
+there and here.  (reference: sim5disk-nt.c)
 """
 
 import dataclasses

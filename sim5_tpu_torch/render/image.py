@@ -9,6 +9,8 @@ kernel `csrc/disk_image.cu` for a disk on the card, and its plain torch
 version `render_disk_image_reference` for a disk on the CPU.  A disk of
 (n,) tensors (`nt_setup` over n spins) renders n frames at once, the
 port's form of `jax.vmap` over the JAX package's `render_disk_image`.
+Both are differentiable in (M, a, mdot, incl, rmax): on the card through
+the tangent kernel (backward and forward mode), on the CPU by autograd.
 """
 
 import torch
@@ -101,9 +103,11 @@ def render_disk_image(disk: NTDisk, incl, npix_x=512, npix_y=512, rmax=None):
       g-factor (0 where the ray misses the disk).
 
     A disk on the card renders in one launch of the CUDA kernel, all its
-    frames at once (`kernel_image.render_disk_image_cuda`, forward only: a
-    disk that requires grad raises there); a disk on the CPU takes the
-    plain torch version.
+    frames at once, whether or not an input requires grad
+    (`kernel_image.render_disk_image_cuda`); its gradients, backward and
+    forward mode, come from the tangent kernel (`kernel_image._NTImage`).
+    A disk on the CPU takes the plain torch version, which autograd
+    differentiates through the special functions' derivative rules.
     """
     dev = disk.a.device
     if dev.type == "cuda":

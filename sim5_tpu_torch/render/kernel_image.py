@@ -1,4 +1,5 @@
-"""The disk image kernel: n frames of the NT image in one launch.
+"""The disk image kernel: n frames of the NT image in one launch, and its
+derivative kernel.
 
 `render_disk_image_cuda` runs `nt_image<double>` (the f64 parity path) or
 `nt_image<float>` (the f32 fast path) of `csrc/disk_image.cu` on the
@@ -12,12 +13,28 @@ n frames: the port's form of `jax.vmap` / `jax.lax.map` over the JAX
 package's `render_disk_image`, in one launch.  The frames' scalars (a,
 incl, M, mdot, rms, rmax) go to the kernel as an (n, 6) tensor on the
 card, built by torch ops from the disk's tensors, so a frame needs no host
-round trip and one build serves every spin.  The kernel is forward only:
-inputs that require grad raise.  `LAUNCHES` counts launches by kernel: the
-prologue `nt_frames<T>` and `nt_image<T>`, one each a launch.  The entry
-point's instance has no counters; `count_disk_image` renders through the
-instance with in-kernel counters compiled in (the same bits, 4-7% slower),
-and `image_counters()` reads them.
+round trip and one build serves every spin.
+
+Gradients: the launch is a `torch.autograd.Function` (`_NTImage`) of the
+six frame columns.  Its forward is the one launch above, whether or not
+an input requires grad.  Its `jvp` (forward mode, `torch.autograd.
+forward_ad`) launches the tangent kernel `nt_image_jvp<T>` once, which
+returns the images' tangents; its `backward` launches the tangent
+kernel's reduction instance `nt_image_jvp<T, reduce>` (and `nt_reduce<T>`)
+once for each column that needs grad, which sums grad_f df + grad_g dg
+over each frame's pixels in a fixed order.  The columns are plain torch
+of the disk, so the gradient reaches `a` through rms and the default rmax
+by autograd.  The tangent kernel replaces the JAX package's autodiff of
+`render_disk_image` (XLA; no Pallas kernel); its plain version is
+autograd through `image.render_disk_image_reference`.
+
+`LAUNCHES` counts launches by kernel: the prologue `nt_frames<T>` and
+`nt_image<T>`, one each a forward launch, and `nt_frames_jvp<T>` with
+`nt_image_jvp<T>` (forward mode) or `nt_image_jvp<T, reduce>` and
+`nt_reduce<T>` (a backward column).  The entry point's instance has no
+counters; `count_disk_image` renders through the instance with in-kernel
+counters compiled in (the same bits, 4-7% slower), and `image_counters()`
+reads them.
 """
 
 import ctypes
@@ -31,8 +48,19 @@ VARIANTS = {torch.float64: "nt_image<double>",
 PROLOGUES = {dt: v.replace("nt_image", "nt_frames")
              for dt, v in VARIANTS.items()}
 COUNTED = {dt: v[:-1] + ", counted>" for dt, v in VARIANTS.items()}
+# the tangent kernel: its prologue, its forward-mode instance, and the
+# backward's reduction instance and second pass
+JVP_PROLOGUES = {dt: v.replace("nt_image", "nt_frames_jvp")
+                 for dt, v in VARIANTS.items()}
+JVP_VARIANTS = {dt: v.replace("nt_image", "nt_image_jvp")
+                for dt, v in VARIANTS.items()}
+VJP_VARIANTS = {dt: v[:-1] + ", reduce>" for dt, v in JVP_VARIANTS.items()}
+REDUCES = {dt: v.replace("nt_image", "nt_reduce")
+           for dt, v in VARIANTS.items()}
 LAUNCHES = dict.fromkeys([*PROLOGUES.values(), *VARIANTS.values(),
-                          *COUNTED.values()], 0)
+                          *COUNTED.values(), *JVP_PROLOGUES.values(),
+                          *JVP_VARIANTS.values(), *VJP_VARIANTS.values(),
+                          *REDUCES.values()], 0)
 
 # the counters' slots, in the order of sim5::Slot (csrc/analytic.cuh): the
 # stages (the init, R_roots' rf and K, the order-0 inversion, the order-1
@@ -67,6 +95,15 @@ SIGNATURES = {
         _I),
     "sim5_nt_image_config": ([_P], None),
     "sim5_nt_image_attributes": ([_I, _I, _P], _I),
+    "sim5_nt_image_jvp": (
+        [_I, _P, _P, _P, _I,              # f64, scalars, tangents, work, n
+         _P, _P, _P, _P,                  # f, g, df, dg
+         _P, _P, _P, _P, _I,              # grad_f, grad_g, partials, out,
+                                          # stride
+         _I, _I, ctypes.c_double, _P],    # nx, ny, aspect, stream
+        _I),
+    "sim5_nt_image_jvp_config": ([_I, _I, _P], None),
+    "sim5_nt_image_jvp_attributes": ([_I, _I, _P], _I),
 }
 # no FMA contraction: the error-free transforms need every rounding
 NVCC_EXTRA = ("--fmad=false",)
@@ -113,6 +150,28 @@ def kernel_attributes(dtype, counted=False):
     return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2])
 
 
+def jvp_config(nx, ny):
+    """The tangent kernel's blocks a frame of an (ny, nx) image (its
+    backward's partial sums a frame), threads a block, and the scalars of
+    a frame's dual constants."""
+    out = (ctypes.c_int * 3)()
+    _lib().sim5_nt_image_jvp_config(int(nx), int(ny), out)
+    return dict(blocks=out[0], threads=out[1], frame_words=out[2])
+
+
+def jvp_attributes(dtype, reduce=False):
+    """Registers a thread, local memory a thread (bytes) and resident
+    blocks an SM of the tangent kernel's instance for `dtype` (the
+    backward's reduction instance if `reduce`) on the current card."""
+    out = (ctypes.c_int * 3)()
+    rc = _lib().sim5_nt_image_jvp_attributes(int(dtype == torch.float64),
+                                             int(reduce), out)
+    if rc != 0:
+        name = (VJP_VARIANTS if reduce else JVP_VARIANTS)[dtype]
+        raise RuntimeError(f"{name} attributes: cudaError {rc}")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2])
+
+
 def image_counters():
     """{slot: (warps, lanes)} of the last `count_disk_image`: per stage,
     the warps that entered it (each entry runs the stage's chain once) and
@@ -140,11 +199,12 @@ def batch_shape(disk, incl, rmax=None):
     return shape
 
 
-def frame_scalars(disk, incl, rmax=None):
+def frame_columns(disk, incl, rmax=None):
     """The frames' scalars a, incl, M, mdot, rms, rmax in the disk's dtype,
-    on its device, computed there: (6,) for one frame, (n, 6) for a batch
-    of n (`batch_shape`).  The default rmax is (rms - 1e-3) + 8, as the
-    plain version computes it."""
+    on its device, computed there: six tensors of the batch shape
+    (`batch_shape`), differentiable in the disk's and the view's tensors.
+    The default rmax is (rms - 1e-3) + 8, as the plain version computes
+    it."""
     a = disk.a
     dt, dev = a.dtype, a.device
     shape = batch_shape(disk, incl, rmax)
@@ -155,8 +215,14 @@ def frame_scalars(disk, incl, rmax=None):
         return v.to(dtype=dt, device=dev).broadcast_to(shape)
 
     rmax = (disk.rms - 1e-3) + 8.0 if rmax is None else rmax
-    return torch.stack([column(v) for v in (a, incl, disk.M, disk.mdot,
-                                            disk.rms, rmax)], dim=-1)
+    return tuple(column(v) for v in (a, incl, disk.M, disk.mdot, disk.rms,
+                                     rmax))
+
+
+def frame_scalars(disk, incl, rmax=None):
+    """`frame_columns` stacked: (6,) for one frame, (n, 6) for a batch of
+    n."""
+    return torch.stack(frame_columns(disk, incl, rmax), dim=-1)
 
 
 def render_disk_image_cuda(disk, incl, npix_x=512, npix_y=512, rmax=None):
@@ -175,13 +241,6 @@ def count_disk_image(disk, incl, npix_x=512, npix_y=512, rmax=None):
 
 
 def _render(disk, incl, npix_x, npix_y, rmax, counted):
-    inputs = {"M": disk.M, "a": disk.a, "mdot": disk.mdot, "rms": disk.rms,
-              "alpha": disk.alpha, "incl": incl, "rmax": rmax}
-    for name, v in inputs.items():
-        if isinstance(v, torch.Tensor) and v.requires_grad:
-            raise RuntimeError(f"{name} requires grad: the disk image kernel "
-                               "is forward only; render a CPU disk for "
-                               "gradients")
     shape = batch_shape(disk, incl, rmax)
     n = shape.numel()
     dev, dt = disk.a.device, disk.a.dtype
@@ -192,7 +251,7 @@ def _render(disk, incl, npix_x, npix_y, rmax, counted):
         raise TypeError(f"the disk image kernel takes float64 or float32, "
                         f"not {dt}")
     for name in ("M", "a", "mdot", "rms"):
-        t = inputs[name]
+        t = getattr(disk, name)
         if t.dtype != dt or t.device != dev:
             raise ValueError(f"disk.{name} is {t.dtype} on {t.device}; the "
                              f"kernel takes {dt} on {dev}")
@@ -201,12 +260,117 @@ def _render(disk, incl, npix_x, npix_y, rmax, counted):
     npix_x, npix_y = int(npix_x), int(npix_y)
     if npix_x < 1 or npix_y < 1 or npix_x * npix_y >= 2 ** 31:
         raise ValueError(f"image of {npix_x} x {npix_y} pixels")
-    frames = frame_scalars(disk, incl, rmax).reshape(n, 6).contiguous()
-    image_f = torch.empty((n, npix_y, npix_x), dtype=dt, device=dev)
-    image_g = torch.empty_like(image_f)
-    _launch(frames, image_f, image_g, new_counters(dev) if counted else None)
+    cols = [c.reshape(n) for c in frame_columns(disk, incl, rmax)]
+    image_f, image_g = _NTImage.apply(*cols, npix_x, npix_y, counted)
     out = tuple(shape) + (npix_y, npix_x)
     return image_f.reshape(out), image_g.reshape(out)
+
+
+class _NTImage(torch.autograd.Function):
+    """The images of n frames from their six (n,) scalar columns (a, incl,
+    M, mdot, rms, rmax): forward one launch of nt_image<T>; forward mode
+    one launch of the tangent kernel; backward one reduction launch a
+    column that needs grad (module docstring).  The context is taken in
+    forward, not in a setup_context, which costs the host several times
+    more a call: the entry point renders one frame a call in about the
+    kernel's own time (PERF.md)."""
+
+    @staticmethod
+    def forward(ctx, a, incl, M, mdot, rms, rmax, nx, ny, counted):
+        cols = (a, incl, M, mdot, rms, rmax)
+        frames = torch.stack(cols, -1).contiguous()
+        n = frames.shape[0]
+        image_f = torch.empty((n, ny, nx), dtype=a.dtype, device=a.device)
+        image_g = torch.empty_like(image_f)
+        _launch(frames, image_f, image_g,
+                new_counters(a.device) if counted else None)
+        ctx.save_for_backward(*cols)
+        ctx.save_for_forward(*cols)
+        ctx.nx, ctx.ny = nx, ny
+        return image_f, image_g
+
+    @staticmethod
+    def backward(ctx, grad_f, grad_g):
+        cols = ctx.saved_tensors
+        frames = torch.stack(cols, -1).contiguous()
+        need = [c for c in range(6) if ctx.needs_input_grad[c]]
+        grads = _backward(frames, grad_f.contiguous(), grad_g.contiguous(),
+                          need)
+        return (*(grads[:, c] if c in need else None for c in range(6)),
+                None, None, None)
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        cols = ctx.saved_tensors
+        frames = torch.stack(cols, -1).contiguous()
+        tangent = torch.stack(tangents[:6], -1).to(frames.dtype).contiguous()
+        _, _, df, dg = _launch_jvp(frames, tangent, ctx.nx, ctx.ny)
+        return df, dg
+
+
+def _check_frames(frames, *others):
+    dt, dev = frames.dtype, frames.device
+    if not frames.is_cuda or dt not in VARIANTS:
+        raise ValueError(f"frames are {dt} on {dev}: the kernel takes "
+                         "float64 or float32 on a CUDA device")
+    for t in others:
+        if t.dtype != dt or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"a {t.dtype} tensor on {t.device}: the "
+                             f"kernel takes contiguous {dt} on {dev}")
+
+
+def _launch_jvp(frames, tangent, nx, ny):
+    """Forward mode: one launch of nt_frames_jvp<T> and nt_image_jvp<T> on
+    the current stream.  frames and tangent (n, 6) of type T; returns
+    (f, g, df, dg), each (n, ny, nx)."""
+    _check_frames(frames, tangent)
+    n = frames.shape[0]
+    dt, dev = frames.dtype, frames.device
+    cfg = jvp_config(nx, ny)
+    work = torch.empty((n, cfg["frame_words"]), dtype=dt, device=dev)
+    f, g, df, dg = (torch.empty((n, ny, nx), dtype=dt, device=dev)
+                    for _ in range(4))
+    rc = _lib().sim5_nt_image_jvp(
+        int(dt == torch.float64), frames.data_ptr(), tangent.data_ptr(),
+        work.data_ptr(), n, f.data_ptr(), g.data_ptr(), df.data_ptr(),
+        dg.data_ptr(), None, None, None, None, 0, nx, ny, ny / nx,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{JVP_PROLOGUES[dt]} + {JVP_VARIANTS[dt]} launch "
+                           f"failed: cudaError {rc}")
+    LAUNCHES[JVP_PROLOGUES[dt]] += 1
+    LAUNCHES[JVP_VARIANTS[dt]] += 1
+    return f, g, df, dg
+
+
+def _backward(frames, grad_f, grad_g, columns):
+    """d/d frames of sum(grad_f image_f + grad_g image_g): (n, 6) of type
+    T, the given columns filled (one launch of nt_frames_jvp<T>,
+    nt_image_jvp<T, reduce> and nt_reduce<T> each), the others 0.  The
+    sums are in a fixed order: the same inputs give the same bits."""
+    n, ny, nx = grad_f.shape
+    _check_frames(frames, grad_f, grad_g)
+    dt, dev = frames.dtype, frames.device
+    cfg = jvp_config(nx, ny)
+    work = torch.empty((n, cfg["frame_words"]), dtype=dt, device=dev)
+    partials = torch.empty((n, cfg["blocks"]), dtype=dt, device=dev)
+    out = torch.zeros((n, 6), dtype=dt, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for c in columns:
+        tangent = torch.zeros((n, 6), dtype=dt, device=dev)
+        tangent[:, c] = 1.0
+        rc = _lib().sim5_nt_image_jvp(
+            int(dt == torch.float64), frames.data_ptr(), tangent.data_ptr(),
+            work.data_ptr(), n, None, None, None, None, grad_f.data_ptr(),
+            grad_g.data_ptr(), partials.data_ptr(),
+            out.data_ptr() + c * out.element_size(), 6, nx, ny, ny / nx,
+            stream)
+        if rc != 0:
+            raise RuntimeError(f"{VJP_VARIANTS[dt]} launch failed: "
+                               f"cudaError {rc}")
+        for name in (JVP_PROLOGUES, VJP_VARIANTS, REDUCES):
+            LAUNCHES[name[dt]] += 1
+    return out
 
 
 def new_counters(device):

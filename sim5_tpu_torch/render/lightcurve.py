@@ -14,15 +14,17 @@ Port of `sim5_tpu/render/lightcurve.py`.
   accumulating I = int j e^{-tau} dl with tau = int alpha dl toward the
   observer.
 
-Two march engines:
+Three march engines:
 
 * "loop" (the JAX package's "xla"): a torch loop over `raytrace_step` in
   any dtype, with any callable emissivity and absorption;
+* "scan": the reverse-differentiable engine (`_volume_march_scan`), a
+  fixed trip count of checkpointed segments of the same masked step, in
+  eager torch (the JAX package's scan engine is XLA, not Pallas);
 * "kernel" (the JAX package's "pallas"): the f32 march kernel with fused
   transfer (`march.kernel_march.raytrace_kernel`), whose emissivity and
-  absorption are `march.emission.GaussianSource` models.
-
-Still to port: the differentiable "scan" engine.
+  absorption are `march.emission.GaussianSource` models.  Forward only,
+  as the JAX package's "pallas" engine: inputs that require grad raise.
 """
 
 import dataclasses
@@ -30,6 +32,7 @@ import math
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..core import gfactorK, OmegaK, r_bh, r_ms
 from ..core.metric import default_device
@@ -180,10 +183,10 @@ def _volume_seed(a, incl, t0, npix, rmax, r_start, precision,
                              precision)
 
 
-def _volume_march_loop(st, ok, r_start, emissivity_fn, max_steps,
-                       absorption_fn=None):
-    """Torch-loop march with transfer accumulation (any dtype, any
-    callable); the counterpart of the JAX package's `_volume_march_xla`.
+def _transfer_step(st, I, tau, active, emissivity_fn, absorption_fn, r_min,
+                   r_max, tiny):
+    """One masked march step with the transfer accumulation, shared by the
+    loop and scan engines: returns (st, I, tau, active).
 
     Backward march (observer -> source): the carried optical depth tau is
     the attenuation between the current point and the observer, so
@@ -192,6 +195,29 @@ def _volume_march_loop(st, ok, r_start, emissivity_fn, max_steps,
     The tiny guard is the dtype's smallest normal: the JAX package's 1e-300
     flushes to 0 in f32.
     """
+    st, dl = raytrace_step(st, active=active)
+    t, r, m, phi = st.x.unbind(-1)
+    j = emissivity_fn(t, r, m, phi)
+    if absorption_fn is not None:
+        al = absorption_fn(t, r, m, phi)
+        dtau = al * dl
+        seff = torch.where(dtau > 1e-10,
+                           -torch.expm1(-dtau) / torch.clamp(al, min=tiny),
+                           dl)
+        I = I + torch.where(active, j * torch.exp(-tau) * seff, 0.0)
+        tau = tau + torch.where(active, dtau, 0.0)
+    else:
+        I = I + torch.where(active, j * dl, 0.0)
+    active = (active & (r > r_min) & (r < r_max) & (st.error < 1e-2)
+              & torch.isfinite(r))
+    return st, I, tau, active
+
+
+def _volume_march_loop(st, ok, r_start, emissivity_fn, max_steps,
+                       absorption_fn=None):
+    """Torch-loop march with transfer accumulation (any dtype, any
+    callable); the counterpart of the JAX package's `_volume_march_xla`.
+    It stops when no ray is active (one `.any()` a step)."""
     r_min = 1.05 * r_bh(st.a.reshape(-1)[0])
     tiny = torch.finfo(st.x.dtype).tiny
     I = torch.zeros(ok.shape, dtype=st.x.dtype, device=st.x.device)
@@ -199,23 +225,55 @@ def _volume_march_loop(st, ok, r_start, emissivity_fn, max_steps,
     active = ok
     it = 0
     while it < max_steps and bool(active.any()):
-        st, dl = raytrace_step(st, active=active)
-        t, r, m, phi = st.x.unbind(-1)
-        j = emissivity_fn(t, r, m, phi)
-        if absorption_fn is not None:
-            al = absorption_fn(t, r, m, phi)
-            dtau = al * dl
-            seff = torch.where(dtau > 1e-10,
-                               -torch.expm1(-dtau) / torch.clamp(al, min=tiny),
-                               dl)
-            I = I + torch.where(active, j * torch.exp(-tau) * seff, 0.0)
-            tau = tau + torch.where(active, dtau, 0.0)
-        else:
-            I = I + torch.where(active, j * dl, 0.0)
-        active = (active & (r > r_min) & (r < r_start * 1.2)
-                  & (st.error < 1e-2) & torch.isfinite(r))
+        st, I, tau, active = _transfer_step(st, I, tau, active, emissivity_fn,
+                                            absorption_fn, r_min,
+                                            r_start * 1.2, tiny)
         it += 1
     return I
+
+
+def _volume_march_scan(st, ok, r_start, emissivity_fn, n_steps=1024,
+                       absorption_fn=None, segment_len=64):
+    """Reverse-differentiable march with transfer accumulation: a fixed trip
+    count of n_steps // segment_len segments of `segment_len` steps, each
+    segment under `torch.utils.checkpoint` (non-reentrant).  The backward
+    pass keeps one march state a segment and recomputes a segment's steps
+    when it reaches it, so d(image)/d(spin, source parameters) costs about
+    twice the forward march instead of memory linear in n_steps.
+
+    The same masked step and transfer weights as `_volume_march_loop`
+    (`_transfer_step`), so the two agree wherever the loop ran its rays to
+    the end; unlike the loop it pays every step (no early exit), as the JAX
+    package's `_volume_march_scan` does.
+    """
+    r_min = 1.05 * r_bh(st.a.reshape(-1)[0])
+    tiny = torch.finfo(st.x.dtype).tiny
+
+    def segment(st, I, tau, active):
+        for _ in range(segment_len):
+            st, I, tau, active = _transfer_step(
+                st, I, tau, active, emissivity_fn, absorption_fn, r_min,
+                r_start * 1.2, tiny)
+        return st, I, tau, active
+
+    I = torch.zeros(ok.shape, dtype=st.x.dtype, device=st.x.device)
+    carry = (st, I, torch.zeros_like(I), ok)
+    for _ in range(max(1, n_steps // segment_len)):
+        carry = torch.utils.checkpoint.checkpoint(segment, *carry,
+                                                  use_reentrant=False)
+    return carry[1]
+
+
+def _requires_grad(*vals):
+    """Whether a tensor among `vals`, or a tensor field of a dataclass among
+    them, requires grad."""
+    for v in vals:
+        fields = ([getattr(v, f.name) for f in dataclasses.fields(v)]
+                  if dataclasses.is_dataclass(v) else [v])
+        if any(isinstance(t, torch.Tensor) and t.requires_grad
+               for t in fields):
+            return True
+    return False
 
 
 def _as_f32(st):
@@ -241,17 +299,25 @@ def volume_image(a, incl, emissivity_fn, npix=128, rmax=25.0,
     observer.
 
     engine="loop" marches with the torch step loop in `dtype` and takes any
-    callables; engine="kernel" marches with the f32 march kernel and takes
+    callables; engine="scan" is the reverse-differentiable engine
+    (`_volume_march_scan`: checkpointed segments, every one of max_steps
+    steps paid) for gradients in the spin and the sources' tensor
+    parameters; engine="kernel" marches with the f32 march kernel and takes
     `GaussianSource` models only: the seed runs in `dtype`, then the state
     is cast to f32 for the kernel, as the JAX package's "pallas" engine
-    does.  `axisymmetric=True` declares the source independent of phi:
+    does.  The kernel engine is forward only: with an input that requires
+    grad it raises.  `axisymmetric=True` declares the source independent of phi:
     the seed skips its azimuth stage (the largest part of the seed: all
     four trajectory types' radial integrals, in f64) and starts every ray
     at phi = 0.  `device=None` means the card.  Returns I, (npix, npix), 0 on pixels
     without a valid seed.
     """
-    if engine not in ("loop", "kernel"):
-        raise ValueError(f"engine {engine!r}: 'loop' or 'kernel'")
+    if engine not in ("loop", "scan", "kernel"):
+        raise ValueError(f"engine {engine!r}: 'loop', 'scan' or 'kernel'")
+    if engine == "kernel" and _requires_grad(a, incl, t0, emissivity_fn,
+                                             absorption_fn):
+        raise ValueError("the kernel engine is forward only: an input "
+                         "requires grad; use engine='scan' for gradients")
     st, ok = _volume_seed(a, incl, t0, npix, rmax, r_start, precision,
                           axisymmetric=axisymmetric, dtype=dtype,
                           device=device)
@@ -261,6 +327,10 @@ def volume_image(a, incl, emissivity_fn, npix=128, rmax=25.0,
             error_stop=1e-2, emissivity=emissivity_fn,
             absorption=absorption_fn, active0=ok)
         return torch.where(ok, I, 0.0)
+    if engine == "scan":
+        return _volume_march_scan(st, ok, r_start, emissivity_fn,
+                                  n_steps=max_steps,
+                                  absorption_fn=absorption_fn)
     return _volume_march_loop(st, ok, r_start, emissivity_fn, max_steps,
                               absorption_fn=absorption_fn)
 

@@ -1,11 +1,29 @@
 """Jacobi elliptic functions sn, cn, dn and their inverses.
 
-Port of `sim5_tpu/special/jacobi.py` (forward only: the analytic
-derivative rules wait for the derivative layer).  The Gauss/AGM scheme of
-the reference (sim5elliptic.c:536-598) runs to a fixed depth chosen by
-dtype (13 levels in f64, 8 in f32) with per-element convergence masks, so
-a batch evaluates in lockstep.  The inverse functions are closed forms in
+Port of `sim5_tpu/special/jacobi.py`.  The Gauss/AGM scheme of the
+reference (sim5elliptic.c:536-598) runs to a fixed depth chosen by dtype
+(13 levels in f64, 8 in f32) with per-element convergence masks, so a
+batch evaluates in lockstep.  The inverse functions are closed forms in
 Carlson RF (sim5elliptic.c:480-528).
+
+Derivatives: `_sncndn_core` is a `torch.autograd.Function` carrying the
+JAX package's rule, so a gradient never differentiates through the AGM.
+The u-derivatives are algebraic in (sn, cn, dn):
+
+    d sn/du = cn dn,   d cn/du = -sn dn,   d dn/du = -m sn cn
+
+and the m-derivatives follow from the Jacobi epsilon function
+eps(u, m) = E(am u, m):
+
+    d sn/dm =  cn ((u(1-m) - eps) dn + m sn cn) / (2 m (1-m))
+    d cn/dm = -sn ((u(1-m) - eps) dn + m sn cn) / (2 m (1-m))
+    d dn/dm = -sn (sn dn + cn (u(1-m) - eps)) / (2 (1-m))
+
+with eps from Carlson RF/RD of (cn^2, dn^2, 1) plus the quasi-period
+reduction eps(u + 2nK) = eps(u) + 2nE, K and E from a second shared
+chain.  Within sqrt(eps) of m = 0 or m = 1 the closed forms cancel, and
+the rule takes the exact endpoint asymptotics there.  The inverse
+functions differentiate through rf's rule.
 
 Conventions: the modulus argument is m = k^2 (Byrd & Friedman), 0 <= m < 1.
 """
@@ -15,11 +33,145 @@ import math
 import torch
 
 from ..core.metric import _as_tensors
-from .carlson import rf
+from .carlson import rf, _rd_chain, _rd_tail, _rf_tail, _tiny_for
 
 _NAGM = 13      # f64 AGM depth (the reference's array size)
 _NAGM_F32 = 8   # f32 AGM depth
 _CA = 1.0e-8    # AGM convergence tolerance (reference sim5elliptic.c:544)
+
+
+class _SnCnDn(torch.autograd.Function):
+    """(sn, cn, dn)(u | m = 1 - emc), with the rule of the module
+    docstring for backward and jvp."""
+
+    @staticmethod
+    def forward(u, emc):
+        depth = _NAGM if u.dtype == torch.float64 else _NAGM_F32
+        a = a0 = torch.ones_like(u)
+        done = torch.zeros(u.shape, dtype=torch.bool, device=u.device)
+        l = torch.zeros(u.shape, dtype=torch.int32, device=u.device)
+        c_sel = a0
+        em_list, en_list = [], []
+        # ascending AGM with a convergence freeze
+        for i in range(depth):
+            emc_s = torch.sqrt(emc)
+            c = 0.5 * (a + emc_s)
+            newly = torch.abs(a - emc_s) <= _CA * a
+            c_sel = torch.where(done, c_sel, c)
+            l = torch.where(done, l, i)
+            stop = done | newly
+            em_list.append(a)
+            en_list.append(emc_s)
+            emc = torch.where(stop, emc, emc_s * a)
+            a = torch.where(stop, a, c)
+            done = stop
+
+        uu = u * c_sel
+        sn = torch.sin(uu)
+        cn = torch.cos(uu)
+        dn = torch.ones_like(u)
+
+        # descending Landen recurrence (masked to levels <= l)
+        sn_zero = sn == 0.0
+        sn_safe = torch.where(sn_zero, 1.0, sn)
+        aa = cn / sn_safe
+        cc = c_sel * aa
+        for ii in range(depth - 1, -1, -1):
+            b, en = em_list[ii], en_list[ii]
+            act = (ii <= l) & ~sn_zero
+            aa_n = aa * cc
+            cc_n = cc * dn
+            dn_n = (en + aa_n) / (b + aa_n)
+            aa2 = cc_n / b
+            aa = torch.where(act, aa2, aa)
+            cc = torch.where(act, cc_n, cc)
+            dn = torch.where(act, dn_n, dn)
+        amp = 1.0 / torch.sqrt(cc * cc + 1.0)
+        sn_out = torch.where(sn >= 0.0, amp, -amp)
+        cn_out = cc * sn_out
+        sn_out = torch.where(sn_zero, sn, sn_out)
+        cn_out = torch.where(sn_zero, cn, cn_out)
+        return sn_out, cn_out, dn
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, *output)
+        ctx.save_for_forward(*inputs, *output)
+
+    @staticmethod
+    def backward(ctx, g_sn, g_cn, g_dn):
+        u, emc, sn, cn, dn = ctx.saved_tensors
+        need_u, need_emc = ctx.needs_input_grad
+        du, demc = _sncndn_partials(u, emc, sn, cn, dn, need_emc)
+        gu = ((g_sn * du[0] + g_cn * du[1] + g_dn * du[2]) if need_u
+              else None)
+        gemc = ((g_sn * demc[0] + g_cn * demc[1] + g_dn * demc[2])
+                if need_emc else None)
+        return gu, gemc
+
+    @staticmethod
+    def jvp(ctx, t_u, t_emc):
+        u, emc, sn, cn, dn = ctx.saved_tensors
+        du, demc = _sncndn_partials(u, emc, sn, cn, dn, True)
+        return tuple(a * t_u + b * t_emc for a, b in zip(du, demc))
+
+
+def _sncndn_partials(u, emc, sn, cn, dn, with_emc):
+    """The partial derivatives of (sn, cn, dn) in u, and in emc if
+    `with_emc` (else None): the JAX package's rule (module docstring)."""
+    m = 1.0 - emc
+    du = (cn * dn, -sn * dn, -m * sn * cn)
+    if not with_emc:
+        return du, None
+    dt = sn.dtype
+    feps = torch.finfo(dt).eps
+    # eps(u, m) via Carlson and the quasi-period reduction; each RF + RD
+    # pair at shared arguments comes from one duplication chain
+    one = torch.ones_like(sn)
+    tiny = _tiny_for(dt)
+    ct, et, ot, fac_c, s_c, _ = _rd_chain(
+        torch.full_like(sn, tiny), torch.clamp(emc, min=tiny), one,
+        slots=(2,))
+    K = _rf_tail(ct, et, ot)
+    E = K - m * (3.0 * s_c[2] + fac_c * _rd_tail(ct, et, ot)) / 3.0
+    cn2, dn2 = cn * cn, dn * dn
+    it_, jt_, kt_, fac_i, s_i, _ = _rd_chain(
+        torch.clamp(cn2, min=tiny), torch.clamp(dn2, min=tiny), one,
+        slots=(2,))
+    F_inc = _rf_tail(it_, jt_, kt_)
+    D_inc = 3.0 * s_i[2] + fac_i * _rd_tail(it_, jt_, kt_)
+    eps_inc = sn * F_inc - (m / 3.0) * sn ** 3 * D_inc
+    n = torch.floor((u + K) / (2.0 * K))
+    sgn = torch.where(torch.remainder(n, 2.0) == 0.0, 1.0, -1.0)
+    eps_u = 2.0 * n * E + sgn * eps_inc
+
+    W = u * emc - eps_u
+    m_s = torch.clamp(m, min=1e-30)
+    emc_s = torch.clamp(emc, min=1e-30)
+    N = W * dn + m * sn * cn
+    g_sn = cn * N / (2.0 * m_s * emc_s)
+    g_cn = -sn * N / (2.0 * m_s * emc_s)
+    g_dn = -sn * (sn * dn + cn * W) / (2.0 * emc_s)
+
+    # the exact endpoint asymptotics, O(m) and O(emc)
+    ucd = u * cn * dn
+    a0_sn = -(u - sn * cn) * cn / 4.0           # m -> 0
+    a0_cn = sn * (u - sn * cn) / 4.0
+    a0_dn = -sn * sn / 2.0
+    cn_g = torch.where(torch.abs(cn) > 1e-30, cn,
+                       torch.where(cn >= 0.0, 1e-30, -1e-30))
+    a1_sn = -(sn - ucd) / 4.0                   # m -> 1
+    a1_cn = (sn / cn_g) * (sn - ucd) / 4.0
+    a1_dn = -sn * (sn + ucd) / (4.0 * torch.clamp(dn, min=1e-30))
+
+    th = feps ** 0.5
+    lo, hi = m < th, emc < th
+    # d/d emc = -d/dm
+    demc = tuple(-torch.where(lo, a0, torch.where(hi, a1, gm))
+                 for a0, a1, gm in ((a0_sn, a1_sn, g_sn),
+                                    (a0_cn, a1_cn, g_cn),
+                                    (a0_dn, a1_dn, g_dn)))
+    return du, demc
 
 
 def _sncndn_core(u, emc):
@@ -30,52 +182,7 @@ def _sncndn_core(u, emc):
     sqrt(emc))), so for m -> 1 the result keeps the complement's full
     relative accuracy.  (reference: sim5elliptic.c:536-598)
     """
-    depth = _NAGM if u.dtype == torch.float64 else _NAGM_F32
-    a = a0 = torch.ones_like(u)
-    done = torch.zeros(u.shape, dtype=torch.bool, device=u.device)
-    l = torch.zeros(u.shape, dtype=torch.int32, device=u.device)
-    c_sel = a0
-    em_list, en_list = [], []
-    # ascending AGM with a convergence freeze
-    for i in range(depth):
-        emc_s = torch.sqrt(emc)
-        c = 0.5 * (a + emc_s)
-        newly = torch.abs(a - emc_s) <= _CA * a
-        c_sel = torch.where(done, c_sel, c)
-        l = torch.where(done, l, i)
-        stop = done | newly
-        em_list.append(a)
-        en_list.append(emc_s)
-        emc = torch.where(stop, emc, emc_s * a)
-        a = torch.where(stop, a, c)
-        done = stop
-
-    uu = u * c_sel
-    sn = torch.sin(uu)
-    cn = torch.cos(uu)
-    dn = torch.ones_like(u)
-
-    # descending Landen recurrence (masked to levels <= l)
-    sn_zero = sn == 0.0
-    sn_safe = torch.where(sn_zero, 1.0, sn)
-    aa = cn / sn_safe
-    cc = c_sel * aa
-    for ii in range(depth - 1, -1, -1):
-        b, en = em_list[ii], en_list[ii]
-        act = (ii <= l) & ~sn_zero
-        aa_n = aa * cc
-        cc_n = cc * dn
-        dn_n = (en + aa_n) / (b + aa_n)
-        aa2 = cc_n / b
-        aa = torch.where(act, aa2, aa)
-        cc = torch.where(act, cc_n, cc)
-        dn = torch.where(act, dn_n, dn)
-    amp = 1.0 / torch.sqrt(cc * cc + 1.0)
-    sn_out = torch.where(sn >= 0.0, amp, -amp)
-    cn_out = cc * sn_out
-    sn_out = torch.where(sn_zero, sn, sn_out)
-    cn_out = torch.where(sn_zero, cn, cn_out)
-    return sn_out, cn_out, dn
+    return _SnCnDn.apply(*torch.broadcast_tensors(u, emc))
 
 
 def jacobi_sncndn(u, m, mc=None):

@@ -54,8 +54,10 @@ class TestWrapper:
         disk = nt_setup(10.0, a, 0.1, 0.1)
         incl = torch.tensor(INCL, dtype=torch.float64,
                             requires_grad=what == "incl")
-        # the grad check comes before the device check
-        with pytest.raises(RuntimeError, match="forward only"):
+        # the kernel takes gradients now (its autograd Function): a CPU
+        # disk that requires grad is refused by the device check, before
+        # the library is built
+        with pytest.raises(ValueError, match="needs a CUDA device"):
             kernel_image.render_disk_image_cuda(disk, incl, 8, 8)
         # the plain version on the CPU stays differentiable
         f, _ = image.render_disk_image(disk, incl, 8, 8)
@@ -85,6 +87,8 @@ class TestWrapper:
         src = (_build.CSRC / "disk_image.cu").read_text()
         assert '#include "analytic.cuh"' in src
         assert set(kernel_image.LAUNCHES) == {
-            f"{k}<{t}>" for k in ("nt_frames", "nt_image")
-            for t in ("double", "float")} | {"nt_image<double, counted>",
-                                             "nt_image<float, counted>"}
+            f"{k}<{t}>" for k in ("nt_frames", "nt_image", "nt_frames_jvp",
+                                  "nt_image_jvp", "nt_reduce")
+            for t in ("double", "float")} | {
+                f"nt_image{j}<{t}, {v}>" for t in ("double", "float")
+                for j, v in (("", "counted"), ("_jvp", "reduce"))}
