@@ -14,15 +14,17 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 The march kernel (`sim5_tpu_torch/csrc/march.cu`, all its variants, run
-in segments with the live rays compacted between them) and the disk image
-kernel (`sim5_tpu_torch/csrc/disk_image.cu`, f64 and f32) are built into
-`build/` on first use, both at once.  Phases, one line each:
+in segments with the live rays compacted between them), the disk image
+kernel (`sim5_tpu_torch/csrc/disk_image.cu`, f64 and f32) and its tangent
+kernel (`sim5_tpu_torch/csrc/disk_image_jvp.cu`) are built into `build/`
+on first use, all at once.  Phases, one line each:
 
 1. device: the card's name and power limit, the builds (with a probe of
    single-function kernels for the SASS lengths of divisions, square roots
    and transcendentals), each kernel's compile-time choices, registers,
-   spills and resident blocks of every main-path instance, and the SASS
-   instruction counts where `cuobjdump` is there;
+   spills and resident blocks of every main-path instance and of every
+   instance of the tangent kernel, and the SASS instruction counts where
+   `cuobjdump` is there;
 2. kernel vs its plain torch version on 4096 rays (GR, GR+POL, flat at
    a = 0.3 and 0.9);
 3. the march's main path, 131072 rays at a = 0.9 to r = 500, through
@@ -125,28 +127,34 @@ kernel (`sim5_tpu_torch/csrc/disk_image.cu`, f64 and f32) are built into
     f64 (< 1e-5), the card against the CPU at radres 2, angres 10 (1e-12
     of the peak), and disk_spectrum against the driver (2e-2) with its
     autograd d log sum / da against central differences (rtol 0.05);
-21. the image's gradient through the tangent kernel (nt_frames_jvp<T> +
-    nt_image_jvp<T> of csrc/disk_image.cu): bench.py's per-pixel tangent
-    in spin on the 128^2 f64 frame (a = 0.998) by forward mode through
-    render_disk_image, against the plain version's forward mode on the
-    card (1e-8 of the peak tangent on the interior pixels) and against
-    central differences of the f64 kernel (h = 1e-4, interior > 0.9,
-    pixel_grad_linf_vs_fd <= 1e-3); the backward in (a, incl, mdot) of
-    three spins at 128^2, f64, against the plain version's autograd.grad
-    (1e-9 relative); bench.py's throughput workload, value and grad of
+21. the image's gradient through the tangent kernel (nt_frames_jvp<T, K>
+    + nt_image_jvp<T, K[, reduce]> + nt_reduce<T> of
+    csrc/disk_image_jvp.cu, K tangent slots a pass): bench.py's per-pixel
+    tangent in spin on the 128^2 f64 frame (a = 0.998) by forward mode
+    through render_disk_image, against the plain version's forward mode
+    on the card (1e-8 of the peak tangent on the interior pixels) and
+    against central differences of the f64 kernel (h = 1e-4, interior >
+    0.9, pixel_grad_linf_vs_fd <= 1e-3); the backward in (a, incl, mdot)
+    of three spins at 128^2, f64, against the plain version's
+    autograd.grad (1e-9 relative), one reduction launch for its five
+    columns, timed; bench.py's throughput workload, value and grad of
     imf.sum() * 1e-25 in (a, incl, mdot) over the 64-frame f32 spin sweep
     at 512^2 through nt_setup(spins) -> render_disk_image -> backward
     (grad_rays_per_sec, the minimum of 3 on the synchronised host clock;
     finite, nonzero, two runs bitwise equal; one forward launch and one
-    reduction launch a column that needs grad); the f32 backward of four
-    frames of that sweep against the plain f32 autograd.grad, relative to
-    the f64 gradient (3e-3 for the sweep's loss; 1e-5 for the same sum
-    over the pixels whose f32 tangents the plain f32 chain resolves, each
-    within 1e-4 of the f64 tangent's peak); each instance's forward mode
-    on the headline frame against the plain version's (f64: 1e-8 of the
-    peak tangent; f32: 5e-4 of the f64 peak tangent on the resolved
-    pixels, which must be all but 0.5% of the footprint), timed by CUDA
-    events, with its bound, registers, spills and resident blocks;
+    reduction launch whatever the column count); that backward alone by
+    CUDA events with its bound, beside one one-slot launch (a column, as
+    PR 9 launched each); the f32 backward of four frames of that sweep
+    against the plain f32 autograd.grad, relative to the f64 gradient
+    (3e-3 for the sweep's loss; 1e-5 for the same sum over the pixels
+    whose f32 tangents the plain f32 chain resolves, each within 1e-4 of
+    the f64 tangent's peak), timed; the four-slot instance's tangents on
+    the headline frame, f64 and f32, bitwise those of four one-slot
+    launches; each one-slot instance's forward mode on the headline frame
+    against the plain version's (f64: 1e-8 of the peak tangent; f32: 5e-4
+    of the f64 peak tangent on the resolved pixels, which must be all but
+    0.5% of the footprint), timed by CUDA events, with its bound; the
+    registers, spills and resident blocks of every instance;
 22. volume_image(engine="scan") on example 11's torus in f64 over 2048
     steps (its 2000 in whole segments of 64): against the loop engine at
     96^2 (rtol 1e-12); at 256^2, the largest power-of-two size whose
@@ -166,10 +174,28 @@ needs a CUDA device and imports nothing of JAX.
 hashes the forward disk images (the headline frame and the 64-frame
 sweep, f64 and f32) of the checkout at DIR and of this one, each in its
 own process, and exits 0 if they are bitwise equal.
+
+    python3 chip_smoke.py --compare-grad DIR
+
+times the gradient of the checkout at DIR and of this one, each in its
+own process, in turns (DIR, this, this, DIR): the f32 sweep's value and
+grad (host clock, synchronised), its backward alone and forward mode on
+the headline frame, f64 and f32 (CUDA events); it hashes the tangents of
+forward mode beside them and prints whether the two trees' are bitwise
+equal.
+
+    python3 chip_smoke.py --tune-tangent
+
+builds the tangent kernel (csrc/disk_image_jvp.cu) at each of TUNE_SHAPES'
+(threads a block, minimum blocks an SM) pairs and at other slot layouts
+(TUNE_SLOTS), eight builds at a time, and times every instance of each
+build (about 4 minutes): what the committed jvp_threads and
+jvp_min_blocks were chosen by.
 """
 
 import contextlib
 import concurrent.futures
+import ctypes
 import hashlib
 import json
 import math
@@ -341,12 +367,17 @@ def check(ok, msg):
         raise PhaseFailed(msg)
 
 
-def card():
+def card(query="name,power.limit"):
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# the card's state read right after a timed run: SM clock, its maximum,
+# power draw, temperature and the active clock throttle reasons
+CARD_STATE = ("clocks.sm,clocks.max.sm,power.draw,temperature.gpu,"
+              "clocks_throttle_reasons.active")
 
 
 def zamo_rays(n, a, seed, dtype, device, outward=0.0, flat=False, pol=False):
@@ -663,6 +694,35 @@ def image_label(m):
             + (", counted>" if m[2] == "1" else ">"))
 
 
+# nt_image_jvp<T, C, K, R> in a mangled name (C slots through the
+# geodesic, K in all; R = 1 for the reduction instance), named by K
+JVP_INSTANCE = re.compile(
+    r"nt_image_jvpI([df])Li([0-9]+)ELi([0-9]+)ELb([01])E")
+
+
+def jvp_label(m):
+    return ("nt_image_jvp<" + ("double" if m[1] == "d" else "float")
+            + f", {m[3]}" + (", reduce>" if m[4] == "1" else ">"))
+
+
+def jvp_instances_text():
+    """Registers, local memory, resident blocks an SM and the block shape
+    of every compiled instance of the tangent kernel."""
+    from sim5_tpu_torch.render import kernel_image
+    out = []
+    for (dt, k), name in kernel_image.JVP_VARIANTS.items():
+        for red, label in ((False, name),
+                           (True, kernel_image.VJP_VARIANTS[dt, k])):
+            att = kernel_image.jvp_attributes(dt, k, red)
+            cfg = kernel_image.jvp_config(dt, k, red, N_IMAGE, N_IMAGE)
+            out.append(f"{label}: {att['registers']} registers, "
+                       f"{att['local_bytes']} bytes local, "
+                       f"{att['blocks_per_sm']} blocks of {cfg['threads']} "
+                       f"an SM (min {cfg['min_blocks']}), "
+                       f"{cfg['chain_slots']} slot(s) through the geodesic")
+    return "; ".join(out)
+
+
 def phase_device():
     from sim5_tpu_torch._build import BUILDS
     from sim5_tpu_torch.march import kernel_march
@@ -671,12 +731,19 @@ def phase_device():
     # one nvcc for each source (and the op-length probe), all started
     # together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         futs = [pool.submit(kernel_march._lib), pool.submit(kernel_image._lib),
-                pool.submit(op_lengths)]
-        lengths = [f.result() for f in futs][2]
+                pool.submit(kernel_image._jvp_lib), pool.submit(op_lengths)]
+        lengths = [f.result() for f in futs][3]
     build_s = time.perf_counter() - t0
     b, bi = BUILDS["march"], BUILDS["disk_image"]
+    bj = BUILDS["disk_image_jvp"]
+    compiled = kernel_image.jvp_backward_slots()
+    check(compiled == (kernel_image.JVP_SLOTS[-1],
+                       len(kernel_image.CHAIN_COLUMNS)),
+          f"the tangent library's backward slots {compiled} are not "
+          f"kernel_image.JVP_SLOTS {kernel_image.JVP_SLOTS} with "
+          f"CHAIN_COLUMNS {kernel_image.CHAIN_COLUMNS}")
     cfg = kernel_march.kernel_config()
     image_att = "; ".join(
         f"{names[dt]}: {att['registers']} registers, {att['local_bytes']} "
@@ -689,14 +756,17 @@ def phase_device():
     print(f"phase 1 device: {name} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | builds {build_s:.2f} s together: march "
           f"{b['seconds']:.2f} s cached={b['cached']}, disk_image "
-          f"{bi['seconds']:.2f} s cached={bi['cached']} | {cfg} | "
+          f"{bi['seconds']:.2f} s cached={bi['cached']}, disk_image_jvp "
+          f"{bj['seconds']:.2f} s cached={bj['cached']} | {cfg} | "
           + "; ".join(instance_text(rt) for rt in range(3))
           + f" | ptxas: {ptxas_summary(b['log'])} | SASS (static): "
           + "; ".join(sass_summary(sass_counts(b["path"]), (1, 0, rt))
                       for rt in range(3))
           + f" | image: {kernel_image.kernel_config()}; {image_att} | image "
           f"ptxas: " + ptxas_summary(bi["log"], IMAGE_INSTANCE, image_label)
-          + f" | image SASS (static): {image_sass_summary(image_sass)} | SASS "
+          + f" | image SASS (static): {image_sass_summary(image_sass)} | "
+          f"tangent kernel: {jvp_instances_text()} | tangent ptxas: "
+          + ptxas_summary(bj["log"], JVP_INSTANCE, jvp_label) + " | SASS "
           f"lengths (f64 d, f32 f): "
           + (", ".join(f"{op}_{t} {n}" for (op, t), n in sorted(
               lengths.items())) or "not measured (no cuobjdump)"),
@@ -1469,7 +1539,7 @@ def phase_image_timing(dev, name, errs, counters, lengths):
     launches_once = (mid - before) // (SWEEP_RUNS + 1)
     launches_loop = (kernel_image.LAUNCHES["nt_image<float>"] - mid) // (
         SWEEP_RUNS + 1)
-    libs = sorted(_build.BUILD_DIR.glob("libdisk_image_*.so"))
+    libs = sorted(_build.BUILD_DIR.glob(f"libdisk_image_{'?' * 16}.so"))
     check(launches_once == 1 and launches_loop == N_SWEEP,
           f"the sweeps launched {launches_once} and {launches_loop} times")
     check(kernel_image._lib() is lib and len(libs) == 1,
@@ -2736,97 +2806,111 @@ F32_BWD_ALL_GATE = 3e-3  # kernel vs plain, relative to the f64 gradient
 F32_BWD_GATE = 1e-5      # the same over the resolved pixels
 
 
-def dual_piece(piece):
-    """The operations of a piece run on duals (csrc/analytic.cuh's Dual<T>):
-    + and - twice, a product three multiplies and an add (the flops' mix
-    taken as half and half: 3x), a quotient a second division and two
-    flops, a square root a division and a flop, sin or cos both and a flop,
-    acos a square root, a division and two flops, log1p a division and two
-    flops; frexp, ldexp and pow run on values only (the quartic's)."""
+def dual_piece(piece, k=1):
+    """The operations of a piece run on duals of k slots (csrc/analytic.cuh's
+    Dual<T, K>): + and - 1 + k times, a product 1 + 3k (the flops' mix
+    taken as half and half: 1 + 2k times), a quotient k more divisions and
+    2k flops, a square root k divisions and a flop, sin or cos both and k
+    flops, acos a square root, k divisions and two flops, log1p k divisions
+    and 1 + k flops; frexp, ldexp and pow run on values only (the
+    quartic's)."""
     flops, ops = piece
-    f, new = 3 * flops, Counter()
-    for op, k in ops.items():
+    f, new = (1 + 2 * k) * flops, Counter()
+    for op, n in ops.items():
         if op == "div":
-            new["div"] += 2 * k
-            f += 2 * k
+            new["div"] += (1 + k) * n
+            f += 2 * k * n
         elif op == "sqrt":
-            new.update(sqrt=k, div=k)
-            f += k
+            new.update(sqrt=n, div=k * n)
+            f += n
         elif op in ("sin", "cos"):
-            new.update(sin=k, cos=k)
-            f += k
+            new.update(sin=n, cos=n)
+            f += k * n
         elif op == "acos":
-            new.update(acos=k, sqrt=k, div=k)
-            f += 2 * k
+            new.update(acos=n, sqrt=n, div=k * n)
+            f += 2 * n
         elif op == "log1p":
-            new.update(log1p=k, div=k)
-            f += 2 * k
+            new.update(log1p=n, div=k * n)
+            f += (1 + k) * n
         else:
-            new[op] += k
+            new[op] += n
     return f, dict(new)
 
 
-def jvp_pixel_pieces(dtype):
-    """pixel_pieces for the tangent kernel, by the code of analytic.cuh:
-    the generic arithmetic on duals (dual_piece), rf by its rule (the value
-    chain plus two RD accumulators a level and two RD tails), K by dual
-    arithmetic through the AGM, sncndn by its rule (the value, two
-    duplication chains with one accumulator each, their tails and the
-    epsilon-function algebra), the quartic's roots on values plus the
-    implicit rule a root."""
+def jvp_pixel_pieces(dtype, k=1, reduce=False, c=None):
+    """pixel_pieces for the tangent kernel of k slots, c of them (default
+    k) through the geodesic and all k through the shading, by the code of
+    analytic.cuh: the generic arithmetic on duals (dual_piece), rf by its
+    rule (the value chain plus two RD accumulators a level and two RD
+    tails, once; two products and a sum a slot), K by dual arithmetic
+    through the AGM, sncndn by its rule (the value, two duplication chains
+    with one accumulator each, their tails and the epsilon-function
+    algebra, once; three pairs of products and a sum a slot), the quartic's
+    roots on values plus the implicit rule a root (R'(z) once, the
+    numerator and quotient a slot); with `reduce`, the backward's k + 1
+    products and k sums a pixel."""
+    shade_k, k = k, k if c is None else c
     f64 = dtype == torch.float64
     rf_dup, k_agm, jac = (16, 9, 13) if f64 else (7, 7, 8)
     p = pixel_pieces(dtype)
     rf = _piece(10 * rf_dup + 18, sqrt=3 * rf_dup + 1, div=5)
     K = _piece(3 * k_agm + 2, sqrt=k_agm + 1, div=1)
     rd_tail = _piece(35, sqrt=1, div=4)
-    rf_rule = _add(rf, _piece(6 * rf_dup + 4, div=2 * rf_dup + 2), rd_tail,
-                   rd_tail)
+    rf_rule = _add(rf, _piece(6 * rf_dup + 1 + 3 * k, div=2 * rf_dup + 2),
+                   rd_tail, rd_tail)
     chain1 = _add(rf, _piece(3 * rf_dup, div=rf_dup), rd_tail)
     sncndn = _piece(4 * jac + 9, sqrt=jac + 1, div=4, sin=1, cos=1)
-    sn_rule = _add(sncndn, chain1, chain1, _piece(75, div=10, sqrt=1))
+    sn_rule = _add(sncndn, chain1, chain1, _piece(66 + 9 * k, div=10,
+                                                  sqrt=1))
     vlog = _piece(1, log1p=1) if f64 else _piece(14, div=3)
     rescale = _piece() if f64 else _piece(9, div=1, frexp=3, ldexp=1)
-    real, cplx = _piece(12, div=1), _piece(30, div=1)
+    real, cplx = _piece(8 + 4 * k, div=k), _piece(23 + 13 * k, div=2 * k)
     roots = {
         "RR": _add(_piece(79, div=20, sqrt=5, pow=1, acos=1, cos=3),
                    _piece(4 * 107, div=8), *[real] * 4,
-                   dual_piece(_piece(19, sqrt=2, div=4))),
+                   dual_piece(_piece(19, sqrt=2, div=4), k)),
         "RC": _add(_piece(84, div=19, sqrt=4, pow=2),
                    _piece(2 * 107 + 2 * 74, div=4), *[real] * 2,
-                   *[cplx] * 2, dual_piece(_piece(40, sqrt=4, div=7))),
+                   *[cplx] * 2, dual_piece(_piece(40, sqrt=4, div=7), k)),
         "CC": _add(_piece(84, div=19, sqrt=4, pow=2), _piece(4 * 74),
-                   *[cplx] * 4, dual_piece(_piece(37, sqrt=4, div=8)))}
+                   *[cplx] * 4, dual_piece(_piece(37, sqrt=4, div=8), k))}
     out = dict(p, **roots)
     out.update(
-        pixel=_add(dual_piece(_piece(63, div=10, sqrt=5)), dual_piece(K),
-                   rf_rule, rescale),
-        rf=rf_rule, K=dual_piece(K),
-        rad_RR=_add(dual_piece(_piece(30, sqrt=1, div=2)), sn_rule),
-        rad_RC=_add(dual_piece(_piece(45, sqrt=3, div=6)), sn_rule),
-        rad_CC=_add(dual_piece(_piece(38, sqrt=3, div=6)), sn_rule),
-        cross=dual_piece(p["cross"]),
-        shade=_add(dual_piece(_piece(65 + 42 + 3, sqrt=3, div=10)),
-                   *[dual_piece(vlog)] * 4))
+        pixel=_add(dual_piece(_piece(63, div=10, sqrt=5), k),
+                   dual_piece(K, k), rf_rule, rescale,
+                   _piece(3 * shade_k + 1 if reduce else 0)),
+        rf=rf_rule, K=dual_piece(K, k),
+        rad_RR=_add(dual_piece(_piece(30, sqrt=1, div=2), k), sn_rule),
+        rad_RC=_add(dual_piece(_piece(45, sqrt=3, div=6), k), sn_rule),
+        rad_CC=_add(dual_piece(_piece(38, sqrt=3, div=6), k), sn_rule),
+        cross=dual_piece(p["cross"], k),
+        shade=_add(dual_piece(_piece(65 + 42 + 3, sqrt=3, div=10), shade_k),
+                   *[dual_piece(vlog, shade_k)] * 4))
     return out
 
 
-def jvp_bound(dtype, counters, lengths, npix, images):
-    """(bound_ms, bound_by) of one npix^2 frame of the tangent kernel whose
-    counters are `counters` (the forward instance's of the same frame): its
-    operations (jvp_pixel_pieces) over the peak rate of the type, or its
-    bytes (`images` images of the frame read or written, twelve scalars
-    read) over the memory rate."""
+def jvp_bound(dtype, counters, lengths, npix, k=1, reduce=False):
+    """(bound_ms, bound_by) of the tangent kernel of k slots (the compiled
+    instance: all but the last through the geodesic where k > 1) over the
+    frames
+    whose counters are `counters` (the forward instance's of the same
+    frames, `count_disk_image`): its operations (jvp_pixel_pieces) over the
+    peak rate of the type, or its bytes over the memory rate (forward mode:
+    the two images and their 2k tangents written; the backward: grad_f and
+    grad_g read; each frame's six scalars and 6k tangents read)."""
     item = torch.tensor([], dtype=dtype).element_size()
     t = "d" if dtype == torch.float64 else "f"
-    pieces = jvp_pixel_pieces(dtype)
+    pieces = jvp_pixel_pieces(dtype, k, reduce, c=max(k - 1, 1))
     ops = 0
     for piece, n in pixel_mix(counters).items():
         flops, o = pieces[piece]
-        ops += n * (flops + sum(k * lengths.get((op, t), 1)
-                                for op, k in o.items()))
+        ops += n * (flops + sum(c * lengths.get((op, t), 1)
+                                for op, c in o.items()))
+    pixels = counters["pixels"][1]
+    frames = pixels // (npix * npix)
+    images = 2 if reduce else 2 + 2 * k
     t_ops = ops / PEAK[dtype]
-    t_bytes = (images * npix * npix + 12) * item / H100_BYTES
+    t_bytes = (images * pixels + frames * 6 * (1 + k)) * item / H100_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes"), ops
 
@@ -2871,13 +2955,6 @@ def spin_tangent(render, dtype, dev, npix, a=NT["a"]):
         p, t = fwAD.unpack_dual(f)
         return (p.clone(), t.clone(), fr.clone().contiguous(),
                 fr_t.clone().contiguous())
-
-
-def grad_columns(disk, incl):
-    """How many of the frames' six columns require grad."""
-    from sim5_tpu_torch.render import kernel_image
-    return sum(bool(c.requires_grad)
-               for c in kernel_image.frame_columns(disk, incl))
 
 
 def f32_tangent_check(tk, pp, tp, ok, p64, t64):
@@ -2931,7 +3008,10 @@ def f32_backward_check(dev):
     tangents the f32 chain does not resolve (f32_tangent_check), within
     F32_BWD_ALL_GATE; and for the same sum over the pixels whose tangent
     in each of a, incl and mdot the plain f32 chain resolves, within
-    F32_BWD_GATE.  Returns a note for the phase line."""
+    F32_BWD_GATE.  Returns a note for the phase line, the spins, the
+    largest |kernel - plain| of the sweep loss's gradient, and the plain
+    version's forward and backward of that loss on the synchronised host
+    clock (ms)."""
     import torch.autograd.forward_ad as fwAD
     from sim5_tpu_torch.render import render_disk_image
     from sim5_tpu_torch.render.image import render_disk_image_reference
@@ -2969,6 +3049,13 @@ def f32_backward_check(dev):
     gp = grads(render_disk_image_reference, f32)
     gt = grads(render_disk_image_reference, f64)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    disk, leaves = grad_disk(f32, dev, spins, incl)
+    imf, _ = render_disk_image_reference(disk, leaves[1], N_IMAGE, N_IMAGE)
+    torch.autograd.grad(imf.sum() * 1e-25, leaves)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    del imf, disk, leaves
     cols, notes = ("a", "incl", "mdot"), []
     for j, (what, gate) in enumerate((("all pixels", F32_BWD_ALL_GATE),
                                       ("resolved pixels", F32_BWD_GATE))):
@@ -2990,7 +3077,53 @@ def f32_backward_check(dev):
     share = 1.0 - float(resolved.double().mean())
     return (f"f32 backward, {len(spins)} frames of the sweep at {N_IMAGE}^2"
             f", relative to the f64 gradient: " + " | ".join(notes)
-            + f" ({share:.4%} of the pixels unresolved in some column)")
+            + f" ({share:.4%} of the pixels unresolved in some column)",
+            spins, float((gk[0] - gp[0]).abs().max()), plain_ms)
+
+
+def sweep_columns(frames_cols):
+    """The frame columns (of 0-5) that require grad."""
+    return [c for c, v in enumerate(frames_cols) if v.requires_grad]
+
+
+def backward_row(dt, k, ms, plain_ms, bound, err, launches):
+    """A kernels-line row of the backward's instance of `dt` with k
+    slots."""
+    from sim5_tpu_torch.render import kernel_image as ki
+    return dict(
+        name=(f"{ki.JVP_PROLOGUES[dt, k]} + {ki.VJP_VARIANTS[dt, k]} + "
+              f"{ki.REDUCES[dt]}"),
+        ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+        max_abs_err=err,
+        launches=sum(launches[v] for v in (ki.JVP_PROLOGUES[dt, k],
+                                           ki.VJP_VARIANTS[dt, k],
+                                           ki.REDUCES[dt])))
+
+
+def slots_bitwise(dt, dev, fr):
+    """The backward's instance of `dt` in forward mode on the frame `fr`
+    ((1, 6)), seeded as a backward seeds it (a, incl, rmax through the
+    geodesic, rms in the shading's last slot), against one one-slot launch
+    a column: (every slot and the images bitwise, K, the K-slot launch's
+    ms by CUDA events)."""
+    from sim5_tpu_torch.render import kernel_image as ki
+    k = ki.JVP_SLOTS[-1]
+    cols = (*ki.CHAIN_COLUMNS, ki.RMS_COLUMN)
+    tan = torch.zeros((1, 6, k), dtype=dt, device=dev)
+    for j, c in enumerate(cols):
+        tan[0, c, j] = 1.0
+    f, g, df, dg = ki._launch_jvp(fr, tan, N_IMAGE, N_IMAGE)
+    same = True
+    for j, c in enumerate(cols):
+        one = torch.zeros((1, 6), dtype=dt, device=dev)
+        one[0, c] = 1.0
+        f1, g1, df1, dg1 = ki._launch_jvp(fr, one, N_IMAGE, N_IMAGE)
+        same &= all(torch.equal(bits(x), bits(y)) for x, y in (
+            (f1, f), (g1, g), (df1, df[:, j]), (dg1, dg[:, j])))
+    same &= bool((df.abs().amax((0, 2, 3)) > 0).all())
+    ms = event_runs(lambda: ki._launch_jvp(fr, tan, N_IMAGE, N_IMAGE),
+                    IMAGE_REPS // 4)
+    return same, k, ms
 
 
 def phase_image_grad(dev, counters, lengths):
@@ -3000,20 +3133,27 @@ def phase_image_grad(dev, counters, lengths):
     against central differences of the f64 kernel (pixel_grad_linf_vs_fd <=
     1e-3, interior share > 0.9); the backward in (a, incl, mdot) of a batch
     of three spins at 128^2 in f64 against the plain version's
-    autograd.grad (1e-9 relative); bench.py's throughput workload,
+    autograd.grad (1e-9 relative), one reduction launch for its five
+    columns, timed by CUDA events; bench.py's throughput workload,
     value_and_grad of imf.sum() * 1e-25 in (a, incl, mdot) of the 64-frame
     f32 spin sweep at 512^2 (grad_rays_per_sec, the minimum of GRAD_RUNS
     on the synchronised host clock; finite, nonzero, two backward runs
-    bitwise equal; one forward launch and one backward launch a column
-    that needs grad); the f32 backward of four sweep frames against the
-    plain f32 one (f32_backward_check); each instance's forward mode on
-    the headline 512^2 frame against the plain version's (f64: 1e-8 of
-    the peak tangent; f32: f32_tangent_check), timed by CUDA events, and
-    the backward's reduction launch timed on the sweep."""
+    bitwise equal; one forward launch and one reduction launch whatever
+    the column count); the sweep's backward alone by CUDA events, one
+    launch of the four-slot instance against five of the one-slot one (the
+    design it replaced), with the bound of each; the f32 backward of four
+    sweep frames against the plain f32 one (f32_backward_check), timed;
+    the four-slot instance's tangents on the headline 512^2 frame, f64 and
+    f32, bitwise those of four one-slot launches; each one-slot instance's
+    forward mode through the entry point on that frame against the plain
+    version's (f64: 1e-8 of the peak tangent; f32: f32_tangent_check),
+    timed by CUDA events; the registers, spills and resident blocks of
+    every instance.  `counters` are the headline frame's (phase 11)."""
     from sim5_tpu_torch.render import kernel_image, render_disk_image
     from sim5_tpu_torch.render.image import render_disk_image_reference
+    ki = kernel_image
     f64, f32 = torch.float64, torch.float32
-    L = kernel_image.LAUNCHES
+    L = ki.LAUNCHES
     rows, launches = {}, {}
     # the per-pixel tangent in spin at 128^2, f64, through the entry point
     for k in L:
@@ -3021,8 +3161,8 @@ def phase_image_grad(dev, counters, lengths):
     _, tk, _, _ = spin_tangent(render_disk_image, f64, dev, N_GRAD)
     torch.cuda.synchronize()
     fwd_path = dict(L)
-    check(fwd_path[kernel_image.JVP_VARIANTS[f64]] == 1
-          and fwd_path[kernel_image.VARIANTS[f64]] == 1,
+    check(fwd_path[ki.JVP_VARIANTS[f64, 1]] == 1
+          and fwd_path[ki.VARIANTS[f64]] == 1,
           f"forward mode launched {fwd_path}")
     _, tp, _, _ = spin_tangent(render_disk_image_reference, f64, dev, N_GRAD)
     imp = render_disk_image(nt_disk(f64, dev, a=NT["a"] + GRAD_H),
@@ -3048,15 +3188,19 @@ def phase_image_grad(dev, counters, lengths):
         disk, leaves = grad_disk(f64, dev, list(BATCH_SPINS), NT["incl"])
         f, g = render(disk, leaves[1], N_BATCH, N_BATCH)
         loss = f.sum() * 1e-25 + g.sum()
-        return torch.autograd.grad(loss, leaves), grad_columns(disk,
-                                                               leaves[1])
+        return torch.autograd.grad(loss, leaves), sweep_columns(
+            ki.frame_columns(disk, leaves[1]))
 
-    gk, ncol64 = batch_grads(render_disk_image)
+    gk, cols64 = batch_grads(render_disk_image)
     torch.cuda.synchronize()
     bwd_path = dict(L)
-    check(bwd_path[kernel_image.VJP_VARIANTS[f64]] == ncol64
-          and bwd_path[kernel_image.VARIANTS[f64]] == 1,
-          f"the f64 backward launched {bwd_path} ({ncol64} columns)")
+    k64, seeds64 = ki.backward_launch(cols64)
+    check(sum(bwd_path[v] for v in ki.VJP_VARIANTS.values()) == 1
+          and bwd_path[ki.REDUCES[f64]] == 1
+          and bwd_path[ki.VJP_VARIANTS[f64, k64]] == 1
+          and bwd_path[ki.VARIANTS[f64]] == 1,
+          f"the f64 backward launched {bwd_path} ({len(cols64)} columns, "
+          f"slots {seeds64})")
     t0 = time.perf_counter()
     gp, _ = batch_grads(render_disk_image_reference)
     torch.cuda.synchronize()
@@ -3065,6 +3209,20 @@ def phase_image_grad(dev, counters, lengths):
                   for x, y in zip(gk, gp))
     check(err_bwd <= 1e-9, f"f64 backward vs plain {err_bwd:.3e} > 1e-9")
     launches[f64] = {k: fwd_path[k] + bwd_path[k] for k in L}
+    disk3 = nt_disks(f64, dev, list(BATCH_SPINS))
+    frames3 = ki.frame_scalars(disk3, NT["incl"]).contiguous()
+    gf3 = torch.full((len(BATCH_SPINS), N_BATCH, N_BATCH), 1e-25,
+                     dtype=f64, device=dev)
+    gg3 = torch.ones_like(gf3)
+    bwd64 = event_runs(lambda: ki._backward(frames3, gf3, gg3, cols64),
+                       IMAGE_REPS // 4)
+    ki.count_disk_image(disk3, NT["incl"], N_BATCH, N_BATCH)
+    bound64, _ = jvp_bound(f64, ki.image_counters(), lengths, N_BATCH, k64,
+                           reduce=True)
+    rows["f64 backward"] = backward_row(
+        f64, k64, bwd64[0], plain_bwd_s * 1e3, bound64,
+        max(float((x - y).abs().max()) for x, y in zip(gk, gp)),
+        bwd_path)
     # bench.py's throughput workload: the f32 sweep's value and grad
     spins = sweep_spins()
 
@@ -3073,24 +3231,28 @@ def phase_image_grad(dev, counters, lengths):
         imf, _ = render_disk_image(disk, leaves[1], N_IMAGE, N_IMAGE)
         loss = imf.sum() * 1e-25
         loss.backward()
-        return loss.detach(), [v.grad for v in leaves], grad_columns(
-            disk, leaves[1])
+        return loss.detach(), [v.grad for v in leaves], sweep_columns(
+            ki.frame_columns(disk, leaves[1]))
 
     for k in L:
         L[k] = 0
-    v0, g0, ncol = grad_sweep()
+    v0, g0, cols32 = grad_sweep()
     torch.cuda.synchronize()
     launches[f32] = dict(L)
-    check(L[kernel_image.VARIANTS[f32]] == 1
-          and L[kernel_image.VJP_VARIANTS[f32]] == ncol,
-          f"the sweep's value and grad launched {dict(L)} ({ncol} columns)")
+    k32, seeds32 = ki.backward_launch(cols32)
+    check(L[ki.VARIANTS[f32]] == 1
+          and sum(L[v] for v in ki.VJP_VARIANTS.values()) == 1
+          and L[ki.VJP_VARIANTS[f32, k32]] == 1
+          and L[ki.REDUCES[f32]] == 1,
+          f"the sweep's value and grad launched {dict(L)} ({len(cols32)} "
+          f"columns, slots {seeds32})")
     check(all(bool(torch.isfinite(g).all()) for g in g0)
           and bool(torch.isfinite(v0)), "non-finite gradients")
     check(all(bool((g.abs() > 0).any()) for g in g0), "zero gradients")
     _, g1, _ = grad_sweep()
     check(all(torch.equal(bits(x), bits(y)) for x, y in zip(g0, g1)),
           "two backward runs differ")
-    bwd32 = f32_backward_check(dev)
+    bwd32, spins4, err4, plain4_ms = f32_backward_check(dev)
     runs = []
     for _ in range(GRAD_RUNS):
         torch.cuda.synchronize()
@@ -3101,17 +3263,43 @@ def phase_image_grad(dev, counters, lengths):
         runs.append(time.perf_counter() - t0)
     runs.sort()
     grad_rays = N_SWEEP * N_IMAGE * N_IMAGE / runs[0]
-    # the reduction launch alone, one column of the sweep, CUDA events
-    disk, leaves = grad_disk(f32, dev, spins, NT["incl"])
-    framesN = kernel_image.frame_scalars(disk, NT["incl"]).detach()
-    gf = torch.ones((N_SWEEP, N_IMAGE, N_IMAGE), dtype=f32, device=dev)
+    # the sweep's backward alone, CUDA events: the launch the path makes,
+    # and one one-slot launch (one column), as PR 9 launched a column
+    diskN = nt_disks(f32, dev, spins)
+    framesN = ki.frame_scalars(diskN, NT["incl"]).contiguous()
+    gf = torch.full((N_SWEEP, N_IMAGE, N_IMAGE), 1e-25, dtype=f32,
+                    device=dev)
     gg = torch.zeros_like(gf)
-    red = event_runs(lambda: kernel_image._backward(framesN, gf, gg, [0]), 2)
+    red = event_runs(lambda: ki._backward(framesN, gf, gg, cols32), 2)
+    state = card(CARD_STATE)
+    red1 = event_runs(lambda: ki._backward(framesN, gf, gg, [0]), 2)
+    ki.count_disk_image(diskN, NT["incl"], N_IMAGE, N_IMAGE)
+    cN = ki.image_counters()
+    (rb, rby), _ = jvp_bound(f32, cN, lengths, N_IMAGE, k32, reduce=True)
+    (rb1, _), _ = jvp_bound(f32, cN, lengths, N_IMAGE, 1, reduce=True)
+    # the backward of the four frames f32_backward_check held, timed
+    disk4 = nt_disks(f32, dev, spins4)
+    frames4 = ki.frame_scalars(disk4, NT["incl"]).contiguous()
+    bwd4 = event_runs(lambda: ki._backward(frames4, gf[:len(spins4)],
+                                           gg[:len(spins4)], cols32),
+                      IMAGE_REPS // 4)
+    ki.count_disk_image(disk4, NT["incl"], N_IMAGE, N_IMAGE)
+    bound4, _ = jvp_bound(f32, ki.image_counters(), lengths, N_IMAGE, k32,
+                          reduce=True)
+    rows["f32 backward"] = backward_row(f32, k32, bwd4[0], plain4_ms, bound4,
+                                        err4, launches[f32])
+    # the backward's instance in forward mode on the headline frame: each
+    # slot bitwise a one-slot launch
+    slot_notes = []
     # each instance's forward mode on the headline 512^2 frame; the f64
     # plain tangent is the truth the f32 instance is read against
     parts, truth = [], None
     for dt in (f64, f32):
+        for k in L:
+            L[k] = 0
         pk, tk5, fr, fr_t = spin_tangent(render_disk_image, dt, dev, N_IMAGE)
+        torch.cuda.synchronize()
+        path = dict(L)
         pp, tp5, _, _ = spin_tangent(render_disk_image_reference, dt, dev,
                                      N_IMAGE)
         t0 = time.perf_counter()
@@ -3129,35 +3317,30 @@ def phase_image_grad(dev, counters, lengths):
             note = f"{rel:.3e} of the peak tangent, pixels of one footprint"
         else:
             diff, note = f32_tangent_check(tk5, pp, tp5, ok, *truth)
-        ms = event_runs(lambda: kernel_image._launch_jvp(fr, fr_t, N_IMAGE,
-                                                         N_IMAGE),
+        ms = event_runs(lambda: ki._launch_jvp(fr, fr_t, N_IMAGE, N_IMAGE),
                         IMAGE_REPS)
         (bound_ms, bound_by), ops = jvp_bound(dt, counters[dt], lengths,
-                                              N_IMAGE, 4)
-        name = (f"{kernel_image.JVP_PROLOGUES[dt]} + "
-                f"{kernel_image.JVP_VARIANTS[dt]}")
-        n = launches[dt]
-        rows[dt] = dict(
+                                              N_IMAGE)
+        same, kk, kms = slots_bitwise(dt, dev, fr)
+        check(same, f"{ki.JVP_VARIANTS[dt, kk]} on the headline frame: a "
+              f"slot differs from its one-slot launch")
+        (kb, _), _ = jvp_bound(dt, counters[dt], lengths, N_IMAGE, kk)
+        slot_notes.append(
+            f"{ki.JVP_VARIANTS[dt, kk]}: every slot bitwise its one-slot "
+            f"launch; {spread(kms)} ms a launch, bound {kb:.4f} ms "
+            f"({kb / kms[0]:.3f})")
+        name = f"{ki.JVP_PROLOGUES[dt, 1]} + {ki.JVP_VARIANTS[dt, 1]}"
+        rows[f"{dt} forward mode"] = dict(
             name=name, ms=ms[0], plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, max_abs_err=diff,
-            launches=sum(n[v[dt]] for v in (
-                kernel_image.JVP_PROLOGUES, kernel_image.JVP_VARIANTS,
-                kernel_image.VJP_VARIANTS, kernel_image.REDUCES)))
-        att = kernel_image.jvp_attributes(dt)
-        att_r = kernel_image.jvp_attributes(dt, reduce=True)
+            launches=path[ki.JVP_PROLOGUES[dt, 1]]
+            + path[ki.JVP_VARIANTS[dt, 1]])
         parts.append(
             f"{name}: forward mode, one 512^2 frame {spread(ms)} ms "
             f"(plain forward mode {plain_ms:.3f} ms, host clock); tangent "
             f"vs plain {diff:.3e} ({note}); bound {bound_ms:.4f} ms "
-            f"({bound_by}, "
-            f"{ops / N_IMAGE ** 2:.1f} operations a pixel; "
-            f"{bound_ms / ms[0]:.3f} of the launch); {att['registers']} "
-            f"registers, {att['local_bytes']} bytes local, "
-            f"{att['blocks_per_sm']} blocks an SM; reduce instance "
-            f"{att_r['registers']} registers, {att_r['local_bytes']} bytes "
-            f"local, {att_r['blocks_per_sm']} blocks an SM; launches on the "
-            f"path {dict((k, v) for k, v in launches[dt].items() if v)}")
-    (rb, rby), _ = jvp_bound(f32, counters[f32], lengths, N_IMAGE, 2)
+            f"({bound_by}, {ops / N_IMAGE ** 2:.1f} operations a pixel; "
+            f"{bound_ms / ms[0]:.3f} of the launch)")
     print(f"phase 21 image gradient: per-pixel tangent in spin "
           f"({N_GRAD}^2, f64, a = {NT['a']}): kernel vs plain forward mode "
           f"{err_plain:.3e} of the peak tangent (gate 1e-8), "
@@ -3165,17 +3348,27 @@ def phase_image_grad(dev, counters, lengths):
           f"{share:.4f}; gate 1e-3) | backward in (a, incl, mdot), "
           f"{len(BATCH_SPINS)} spins at {N_BATCH}^2, f64: vs plain "
           f"autograd.grad {err_bwd:.3e} relative (gate 1e-9), "
-          f"{bwd_path[kernel_image.VJP_VARIANTS[f64]]} reduction launches "
-          f"for {ncol64} columns, plain backward {plain_bwd_s:.3f} s | "
-          f"value and grad of the {N_SWEEP}-frame f32 sweep at "
-          f"{N_IMAGE}^2: {spread(runs)} s (min / median / max of "
-          f"{GRAD_RUNS}, host clock), grad_rays_per_sec={grad_rays:.4e}; "
-          f"launches {dict((k, v) for k, v in launches[f32].items() if v)} "
-          f"for {ncol} columns; finite, nonzero, two backward runs bitwise "
-          f"equal; one reduction launch (one column, {N_SWEEP} frames) "
-          f"{spread(red)} ms, {red[0] / N_SWEEP:.4f} ms a frame, bound "
-          f"{rb:.4f} ms a frame ({rby}) | {bwd32} | " + " | ".join(parts),
-          flush=True)
+          f"{bwd_path[ki.REDUCES[f64]]} reduction launch for "
+          f"{len(cols64)} columns {cols64} (slots {seeds64}), "
+          f"{spread(bwd64)} ms "
+          f"(CUDA events; bound {bound64[0]:.4f} ms, {bound64[1]}), plain "
+          f"backward {plain_bwd_s:.3f} s | value and grad of the "
+          f"{N_SWEEP}-frame f32 sweep at {N_IMAGE}^2: {spread(runs)} s (min "
+          f"/ median / max of {GRAD_RUNS}, host clock), grad_rays_per_sec="
+          f"{grad_rays:.4e}; launches "
+          f"{dict((k, v) for k, v in launches[f32].items() if v)} for "
+          f"{len(cols32)} columns {cols32} (slots {seeds32}); finite, "
+          f"nonzero, two backward runs bitwise equal | the sweep's "
+          f"backward alone (CUDA events): {spread(red)} ms, "
+          f"{red[0] / N_SWEEP:.4f} ms a frame, bound {rb:.4f} ms ({rby}; "
+          f"{rb / red[0]:.3f} of the launch; card after it: {state}); one "
+          f"one-slot launch (one "
+          f"column) {spread(red1)} ms, bound {rb1:.4f} ms "
+          f"({rb1 / red1[0]:.3f}) | {bwd32}; their "
+          f"backward {spread(bwd4)} ms (CUDA events), plain forward and "
+          f"backward {plain4_ms:.3f} ms (host clock) | "
+          + " | ".join(slot_notes) + " | " + " | ".join(parts)
+          + f" | instances: {jvp_instances_text()}", flush=True)
     return rows
 
 
@@ -3389,6 +3582,263 @@ def compare_forward(other):
     return 0 if same else 1
 
 
+def grad_times(dev):
+    """The gradient's times through entry points every checkout of the
+    port since the derivative layer has (nt_setup, render_disk_image,
+    kernel_image._backward and _launch_jvp with an (n, 6) tangent): the
+    f32 sweep's value and grad (seconds, the GRAD_RUNS host-clock runs,
+    synchronised, sorted), its backward alone (ms, CUDA events, sorted),
+    and forward mode in spin on the headline frame, f64 and f32 (ms, CUDA
+    events, sorted), with the sha256 of its tangents (image_f's and
+    image_g's)."""
+    from sim5_tpu_torch.render import kernel_image, render_disk_image
+    f32 = torch.float32
+    spins = sweep_spins()
+
+    def grad_sweep():
+        disk, leaves = grad_disk(f32, dev, spins, NT["incl"])
+        imf, _ = render_disk_image(disk, leaves[1], N_IMAGE, N_IMAGE)
+        loss = imf.sum() * 1e-25
+        loss.backward()
+        return loss.detach()
+
+    grad_sweep()
+    runs = []
+    for _ in range(GRAD_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(grad_sweep())
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    frames = kernel_image.frame_scalars(nt_disks(f32, dev, spins),
+                                        NT["incl"]).contiguous()
+    gf = torch.full((N_SWEEP, N_IMAGE, N_IMAGE), 1e-25, dtype=f32,
+                    device=dev)
+    gg = torch.zeros_like(gf)
+    # the sweep's columns: a, incl, mdot, rms and the default rmax
+    bwd = event_runs(lambda: kernel_image._backward(frames, gf, gg,
+                                                    [0, 1, 3, 4, 5]), 2)
+    state = card(CARD_STATE)
+    fwd, hashes = {}, {}
+    for dt in (torch.float64, f32):
+        _, _, fr, fr_t = spin_tangent(render_disk_image, dt, dev, N_IMAGE)
+        fwd[str(dt)] = event_runs(
+            lambda: kernel_image._launch_jvp(fr, fr_t, N_IMAGE, N_IMAGE),
+            IMAGE_REPS)
+        h = hashlib.sha256()
+        for t in kernel_image._launch_jvp(fr, fr_t, N_IMAGE, N_IMAGE)[2:]:
+            h.update(t.cpu().numpy().tobytes())
+        hashes[str(dt)] = h.hexdigest()
+    return dict(value_and_grad_s=sorted(runs), backward_ms=bwd,
+                card_after_backward=state, forward_mode_ms=fwd,
+                forward_mode_sha256=hashes)
+
+
+def compare_grad(other):
+    """The gradient's times (grad_times) of the checkout at `other` and of
+    this one, each in its own process with its tree first on sys.path
+    (each builds its own kernels), in turns: other, this, this, other.
+    Prints each run and the best of each tree side by side; 0 if every
+    run ran."""
+    here = pathlib.Path(__file__).resolve().parent
+    trees = {"other": pathlib.Path(other).resolve(), "this": here}
+    got = {k: [] for k in trees}
+    for key in ("other", "this", "this", "other"):
+        proc = subprocess.run(
+            [sys.executable, str(here / "chip_smoke.py"), "--grad-times",
+             str(trees[key])], capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return 1
+        got[key].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(f"{trees[key]}: {json.dumps(got[key][-1])}", flush=True)
+
+    def best(key, *path):
+        vals = []
+        for r in got[key]:
+            for p in path:
+                r = r[p]
+            vals.append(r[0])
+        return min(vals)
+
+    lines = []
+    for what, path in (("value and grad (s)", ("value_and_grad_s",)),
+                       ("backward (ms)", ("backward_ms",)),
+                       ("forward mode f64 (ms)",
+                        ("forward_mode_ms", str(torch.float64))),
+                       ("forward mode f32 (ms)",
+                        ("forward_mode_ms", str(torch.float32)))):
+        a, b = best("other", *path), best("this", *path)
+        lines.append(f"{what}: other {a:.6g}, this {b:.6g}, this / other "
+                     f"{b / a:.4f}")
+    same = all(r["forward_mode_sha256"] == got["other"][0][
+        "forward_mode_sha256"] for k in got for r in got[k])
+    print(f"gradient times, best of two runs each ({card()}): "
+          + " | ".join(lines) + " | forward mode's tangents of the two "
+          f"checkouts: {'bitwise equal' if same else 'DIFFERENT'}",
+          flush=True)
+    return 0
+
+
+# --tune-tangent: the (threads a block, minimum blocks an SM) pairs each
+# instance of the tangent kernel is timed at, every instance of a build at
+# one pair; and other backward instances at the committed pairs, as
+# (slots, slots through the geodesic): rms carried through the geodesic
+# as a fourth slot, and the four columns in two passes of two
+TUNE_SHAPES = ((256, 1), (128, 1), (128, 2), (128, 4), (128, 6), (256, 2),
+               (256, 3), (256, 4), (512, 1), (512, 2), (512, 3), (1024, 1))
+TUNE_SLOTS = ((None, None, 4, 4), (None, None, 2, 2))
+
+
+def tune_source(threads, blocks, slots, chain):
+    """csrc/disk_image_jvp.cu with every instance at (threads, blocks)
+    (None: the committed choices) and the backward at `slots` slots,
+    `chain` of them through the geodesic."""
+    from sim5_tpu_torch import _build
+    src = (_build.CSRC / "disk_image_jvp.cu").read_text()
+    for name, v in (("kBackwardSlots", slots), ("kChainSlots", chain)):
+        src = re.sub(rf"(constexpr int {name} = )\d+;", rf"\g<1>{v};", src,
+                     count=1)
+    if threads is not None:
+        body = r"(constexpr int {}\(\) \{{\n).*?(\n\}})"
+        for fn, v in (("jvp_threads", threads), ("jvp_min_blocks", blocks)):
+            src = re.sub(body.format(fn), rf"\g<1>  return {v};\g<2>", src,
+                         count=1, flags=re.S)
+    return src
+
+
+def tune_build(key):
+    """Build the tangent library of tune_source(*key) into build/; returns
+    (key, its ctypes library, seconds)."""
+    from sim5_tpu_torch import _build
+    from sim5_tpu_torch.render import kernel_image
+    out = _build.BUILD_DIR / "tune"
+    out.mkdir(parents=True, exist_ok=True)
+    name = "jvp_" + "_".join(str(v) for v in key)
+    src, lib = out / f"{name}.cu", out / f"lib{name}.so"
+    src.write_text(tune_source(*key))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, *kernel_image.NVCC_EXTRA, "-I",
+         str(_build.CSRC), "-o", str(lib), str(src)], capture_output=True,
+        text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr[-4000:]}")
+    dll = ctypes.CDLL(str(lib))
+    for fn, (argtypes, restype) in kernel_image.JVP_SIGNATURES.items():
+        f = getattr(dll, fn)
+        f.argtypes, f.restype = argtypes, restype
+    return key, dll, time.perf_counter() - t0
+
+
+def tune_launch(lib, frames, tangent, grad_f=None, grad_g=None):
+    """One launch of a tuning build's tangent kernel: forward mode on the
+    headline frame (no grads), or the backward."""
+    n, k = frames.shape[0], tangent.shape[2]
+    dt, dev = frames.dtype, frames.device
+    ny = nx = N_IMAGE
+    cfg = (ctypes.c_int * 4)()
+    check(lib.sim5_nt_image_jvp_config(int(dt == torch.float64), k,
+                                       int(grad_f is not None), nx, ny,
+                                       cfg) == 0, f"no {k}-slot instance")
+    work = torch.empty((n, cfg[3]), dtype=dt, device=dev)
+    if grad_f is None:
+        bufs = [torch.empty((n, *s, ny, nx), dtype=dt, device=dev)
+                for s in ((), (), (k,), (k,))]
+        ptrs = [b.data_ptr() for b in bufs] + [None] * 4
+    else:
+        bufs = [torch.empty((n, cfg[0], k + 1), dtype=dt, device=dev),
+                torch.empty((n, k + 1), dtype=dt, device=dev)]
+        ptrs = [None] * 4 + [grad_f.data_ptr(), grad_g.data_ptr(),
+                             bufs[0].data_ptr(), bufs[1].data_ptr()]
+    rc = lib.sim5_nt_image_jvp(
+        int(dt == torch.float64), k, frames.data_ptr(), tangent.data_ptr(),
+        work.data_ptr(), n, *ptrs, nx, ny, 1.0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(rc == 0, f"tuning launch failed: cudaError {rc}")
+    return bufs
+
+
+def tune_tangent(dev):
+    """Time every instance of the tangent kernel at each of TUNE_SHAPES
+    and of the committed choices, and the backward at the slot counts of
+    TUNE_SLOTS: each build's f32 backward of the 64-frame sweep (its chain
+    columns, and one column alone), f64 backward of 8 of its frames, and
+    forward mode on the headline frame (f64, f32), by CUDA events, in two
+    rounds (the second in reverse; the minimum kept), with each instance's
+    registers, local memory and resident blocks.  One line a build."""
+    from sim5_tpu_torch.render import kernel_image
+    f32, f64 = torch.float32, torch.float64
+    keys = [(None, None, 4, 3)] + [(t, b, 4, 3) for t, b in TUNE_SHAPES]
+    keys += list(TUNE_SLOTS)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
+        built = list(pool.map(tune_build, keys))
+    print(f"tune: {len(built)} builds in {time.perf_counter() - t0:.1f} s "
+          f"({os.cpu_count()} at a time) on {card()}", flush=True)
+    spins = sweep_spins()
+    frames = {f32: kernel_image.frame_scalars(nt_disks(f32, dev, spins),
+                                              NT["incl"]).contiguous(),
+              f64: kernel_image.frame_scalars(nt_disks(f64, dev, spins[:8]),
+                                              NT["incl"]).contiguous()}
+    grads = {dt: (torch.full((fr.shape[0], N_IMAGE, N_IMAGE), 1e-25,
+                             dtype=dt, device=dev),
+                  torch.ones((fr.shape[0], N_IMAGE, N_IMAGE), dtype=dt,
+                             device=dev)) for dt, fr in frames.items()}
+    head = {dt: kernel_image.frame_scalars(nt_disk(dt, dev), NT["incl"])
+            .reshape(1, 6).contiguous() for dt in (f64, f32)}
+
+    def seed(n, dt, cols, k):
+        t = torch.zeros((n, 6, k), dtype=dt, device=dev)
+        for j, c in enumerate(cols):
+            t[:, c, j] = 1.0
+        return t
+
+    seeds = [*kernel_image.CHAIN_COLUMNS, kernel_image.RMS_COLUMN]
+    res = {}
+    for rnd in range(2):
+        for key, lib, _ in (built if rnd == 0 else built[::-1]):
+            k = key[2]
+            r = res.setdefault(key, {})
+            for dt in (f32, f64):
+                t = "f32" if dt == f32 else "f64"
+                n = frames[dt].shape[0]
+                runs = {f"{t} backward": [seed(n, dt, seeds[i:i + k], k)
+                                          for i in range(0, len(seeds), k)],
+                        f"{t} backward, one column": [seed(n, dt, [0], 1)]}
+                for what, tans in runs.items():
+                    ms = event_runs(lambda: [tune_launch(
+                        lib, frames[dt], tan, *grads[dt]) for tan in tans],
+                        2)
+                    r[what] = min(r.get(what, ms[0]), ms[0])
+                one = seed(1, dt, [0], 1)
+                ms = event_runs(lambda: tune_launch(lib, head[dt], one),
+                                IMAGE_REPS)
+                what = f"{t} forward mode"
+                r[what] = min(r.get(what, ms[0]), ms[0])
+    for key, lib, sec in built:
+        att = []
+        for dt in (f64, f32):
+            for k in sorted({1, key[2]}):
+                for red in (0, 1):
+                    a = (ctypes.c_int * 3)()
+                    lib.sim5_nt_image_jvp_attributes(int(dt == f64), k, red,
+                                                     a)
+                    att.append(f"{'f64' if dt == f64 else 'f32'} K={k}"
+                               f"{' reduce' if red else ''} {a[0]}/{a[1]}/"
+                               f"{a[2]}")
+        shape = ("committed" if key[0] is None
+                 else f"{key[0]} threads x {key[1]}")
+        print(f"tune {shape}, backward in {4 // key[2]} pass(es) of "
+              f"{key[2]} slots, {key[3]} through the geodesic (built in "
+              f"{sec:.1f} s): "
+              + ", ".join(f"{w} {v:.4f} ms" for w, v in res[key].items())
+              + " | registers/local bytes/blocks an SM: " + ", ".join(att)
+              + f" ({N_SWEEP} f32 frames, 8 f64, at {N_IMAGE}^2)",
+              flush=True)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3401,6 +3851,18 @@ def main():
         return 0
     if sys.argv[1:2] == ["--compare-forward"]:
         return compare_forward(sys.argv[2])
+    if sys.argv[1:2] == ["--grad-times"]:
+        sys.path.insert(0, sys.argv[2])
+        print(json.dumps(grad_times(dev)))
+        return 0
+    if sys.argv[1:2] == ["--compare-grad"]:
+        return compare_grad(sys.argv[2])
+    if sys.argv[1:2] == ["--tune-tangent"]:
+        try:
+            return tune_tangent(dev)
+        except PhaseFailed as e:
+            print(f"FAILED: {e}", file=sys.stderr)
+            return 1
     t_start = time.perf_counter()
     try:
         name, lengths = phase_device()
@@ -3476,7 +3938,7 @@ def main():
         rows.append((f"{pro} + {v}", image_src,
                      image_launches[pro] + image_launches[v], image_t[v]))
     jvp_src = dict(route="cuda",
-                   source="sim5_tpu_torch/csrc/disk_image.cu",
+                   source="sim5_tpu_torch/csrc/disk_image_jvp.cu",
                    replaces="sim5_tpu/render/image.py:35 under jax.jvp / "
                             "jax.grad (XLA autodiff; no Pallas kernel)")
     for dt, r in grad_rows.items():

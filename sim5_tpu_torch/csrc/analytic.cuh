@@ -18,10 +18,11 @@
 // not convergence loops.
 //
 // The per-pixel chain (the geodesic, the disk, make_frame and nt_pixel) is
-// templated on its scalar S: T for the image kernel, Dual<T> (a value and
-// one tangent) for the tangent kernel, which differentiates the same
-// operations in forward mode (see Dual below).  With S = T the operations
-// are those the chain ran before it was templated, bit for bit.
+// templated on its scalar S: T for the image kernel, Dual<T, K> (a value
+// and K tangents) for the tangent kernel, which differentiates the same
+// operations in forward mode in K directions at once (see Dual below).
+// With S = T the operations are those the chain ran before it was
+// templated, bit for bit.
 //
 // Build without fast math and without FMA contraction (--fmad=false): the
 // error-free transforms (two_sum, two_prod, the Veltkamp split) need each
@@ -129,48 +130,101 @@ template <typename T>
 SIM5_HD T Sign(T x) { return T((x > T(0)) - (x < T(0))); }
 
 // ---------------------------------------------------------------------------
-// forward mode: a value and one tangent
+// forward mode: a value and K tangents
 // ---------------------------------------------------------------------------
 
-// Dual<T>: v + d eps, eps^2 = 0.  The functions of the per-pixel chain are
-// templated on their scalar S (T, or Dual<T> for the tangent kernel) with
-// T = Base<S> the type of their constants, so a constant stays a T and
-// multiplies a tangent as torch multiplies by a Python number.  Comparisons
-// and masks read the value only and carry no tangent, as torch.where's
-// condition.  The elementary functions below give the derivative torch's
+// Dual<T, K>: v + sum_j d[j] eps_j, eps_i eps_j = 0: a value and K
+// tangents (slots), one a direction.  The functions of the per-pixel chain
+// are templated on their scalar S (T, or Dual<T, K> for the tangent
+// kernel) with T = Base<S> the type of their constants, so a constant
+// stays a T and multiplies a tangent as torch multiplies by a Python
+// number.  Comparisons and masks read the value only and carry no tangent,
+// as torch.where's condition.  Every operation computes what depends on
+// the values alone once, then applies it to each slot in the expression
+// order of the one-tangent form, so slot j of a K-slot pass runs the
+// arithmetic of a one-slot pass seeded with direction j and gives its
+// bits.  The elementary functions below give the derivative torch's
 // autograd gives; the special functions whose plain version carries a
 // rule (rf, sncndn), the two-float transforms and the quartic's roots have
-// overloads of their own further on.
-template <typename T>
+// overloads of their own further on, which likewise compute the rule's
+// coefficients once and apply them to every slot.
+#define SIM5_SLOTS _Pragma("unroll") for (int j = 0; j < K; ++j)
+
+template <typename T, int K = 1>
 struct Dual {
-  T v, d;
+  T v, d[K];
   Dual() = default;
-  SIM5_HD Dual(T v_, T d_) : v(v_), d(d_) {}
   template <typename C,
             typename = typename std::enable_if<std::is_arithmetic<C>::value>::type>
-  SIM5_HD Dual(C c) : v(T(c)), d(T(0)) {}
-
-  SIM5_HD friend Dual operator-(Dual a) { return {-a.v, -a.d}; }
-  SIM5_HD friend Dual operator+(Dual a, Dual b) { return {a.v + b.v, a.d + b.d}; }
-  SIM5_HD friend Dual operator+(Dual a, T b) { return {a.v + b, a.d}; }
-  SIM5_HD friend Dual operator+(T a, Dual b) { return {a + b.v, b.d}; }
-  SIM5_HD friend Dual operator-(Dual a, Dual b) { return {a.v - b.v, a.d - b.d}; }
-  SIM5_HD friend Dual operator-(Dual a, T b) { return {a.v - b, a.d}; }
-  SIM5_HD friend Dual operator-(T a, Dual b) { return {a - b.v, -b.d}; }
-  SIM5_HD friend Dual operator*(Dual a, Dual b) {
-    return {a.v * b.v, a.d * b.v + a.v * b.d};
+  SIM5_HD Dual(C c) : v(T(c)) {
+    SIM5_SLOTS d[j] = T(0);
   }
-  SIM5_HD friend Dual operator*(Dual a, T b) { return {a.v * b, a.d * b}; }
-  SIM5_HD friend Dual operator*(T a, Dual b) { return {a * b.v, a * b.d}; }
+
+  SIM5_HD friend Dual operator-(Dual a) {
+    a.v = -a.v;
+    SIM5_SLOTS a.d[j] = -a.d[j];
+    return a;
+  }
+  SIM5_HD friend Dual operator+(Dual a, Dual b) {
+    a.v = a.v + b.v;
+    SIM5_SLOTS a.d[j] = a.d[j] + b.d[j];
+    return a;
+  }
+  SIM5_HD friend Dual operator+(Dual a, T b) {
+    a.v = a.v + b;
+    return a;
+  }
+  SIM5_HD friend Dual operator+(T a, Dual b) {
+    b.v = a + b.v;
+    return b;
+  }
+  SIM5_HD friend Dual operator-(Dual a, Dual b) {
+    a.v = a.v - b.v;
+    SIM5_SLOTS a.d[j] = a.d[j] - b.d[j];
+    return a;
+  }
+  SIM5_HD friend Dual operator-(Dual a, T b) {
+    a.v = a.v - b;
+    return a;
+  }
+  SIM5_HD friend Dual operator-(T a, Dual b) {
+    b.v = a - b.v;
+    SIM5_SLOTS b.d[j] = -b.d[j];
+    return b;
+  }
+  SIM5_HD friend Dual operator*(Dual a, Dual b) {
+    Dual r;
+    r.v = a.v * b.v;
+    SIM5_SLOTS r.d[j] = a.d[j] * b.v + a.v * b.d[j];
+    return r;
+  }
+  SIM5_HD friend Dual operator*(Dual a, T b) {
+    a.v = a.v * b;
+    SIM5_SLOTS a.d[j] = a.d[j] * b;
+    return a;
+  }
+  SIM5_HD friend Dual operator*(T a, Dual b) {
+    b.v = a * b.v;
+    SIM5_SLOTS b.d[j] = a * b.d[j];
+    return b;
+  }
   // the quotient rule as torch's forward mode writes it: (da - q db) / b
   SIM5_HD friend Dual operator/(Dual a, Dual b) {
-    const T q = a.v / b.v;
-    return {q, (a.d - q * b.d) / b.v};
+    Dual r;
+    r.v = a.v / b.v;
+    SIM5_SLOTS r.d[j] = (a.d[j] - r.v * b.d[j]) / b.v;
+    return r;
   }
-  SIM5_HD friend Dual operator/(Dual a, T b) { return {a.v / b, a.d / b}; }
+  SIM5_HD friend Dual operator/(Dual a, T b) {
+    a.v = a.v / b;
+    SIM5_SLOTS a.d[j] = a.d[j] / b;
+    return a;
+  }
   SIM5_HD friend Dual operator/(T a, Dual b) {
-    const T q = a / b.v;
-    return {q, -(q * b.d) / b.v};
+    Dual r;
+    r.v = a / b.v;
+    SIM5_SLOTS r.d[j] = -(r.v * b.d[j]) / b.v;
+    return r;
   }
 #define SIM5_DUAL_CMP(OP)                                                    \
   SIM5_HD friend bool operator OP(Dual a, Dual b) { return a.v OP b.v; }     \
@@ -189,47 +243,77 @@ template <typename S>
 struct BaseOf {
   using type = S;
 };
-template <typename T>
-struct BaseOf<Dual<T>> {
+template <typename T, int K>
+struct BaseOf<Dual<T, K>> {
   using type = T;
 };
-// the type of a scalar's value: T for T and for Dual<T>
+// the type of a scalar's value: T for T and for Dual<T, K>
 template <typename S>
 using Base = typename BaseOf<S>::type;
 
-template <typename T>
-SIM5_HD Dual<T> Sqrt(Dual<T> x) {
+// x's tangents times c (a coefficient of the values) into r
+template <typename T, int K>
+SIM5_HD Dual<T, K> scaled(T v, T c, const Dual<T, K>& x) {
+  Dual<T, K> r;
+  r.v = v;
+  SIM5_SLOTS r.d[j] = c * x.d[j];
+  return r;
+}
+// x's tangents over c into r
+template <typename T, int K>
+SIM5_HD Dual<T, K> divided(T v, const Dual<T, K>& x, T c) {
+  Dual<T, K> r;
+  r.v = v;
+  SIM5_SLOTS r.d[j] = x.d[j] / c;
+  return r;
+}
+
+template <typename T, int K>
+SIM5_HD Dual<T, K> Sqrt(Dual<T, K> x) {
   const T s = Sqrt(x.v);
-  return {s, x.d / (T(2) * s)};
+  return divided(s, x, T(2) * s);
 }
-template <typename T>
-SIM5_HD Dual<T> Sin(Dual<T> x) { return {Sin(x.v), Cos(x.v) * x.d}; }
-template <typename T>
-SIM5_HD Dual<T> Cos(Dual<T> x) { return {Cos(x.v), -Sin(x.v) * x.d}; }
-template <typename T>
-SIM5_HD Dual<T> Acos(Dual<T> x) {
-  return {Acos(x.v), -x.d / Sqrt(T(1) - x.v * x.v)};
+template <typename T, int K>
+SIM5_HD Dual<T, K> Sin(Dual<T, K> x) { return scaled(Sin(x.v), Cos(x.v), x); }
+template <typename T, int K>
+SIM5_HD Dual<T, K> Cos(Dual<T, K> x) { return scaled(Cos(x.v), -Sin(x.v), x); }
+template <typename T, int K>
+SIM5_HD Dual<T, K> Acos(Dual<T, K> x) {
+  const T den = Sqrt(T(1) - x.v * x.v);
+  Dual<T, K> r;
+  r.v = Acos(x.v);
+  SIM5_SLOTS r.d[j] = -x.d[j] / den;
+  return r;
 }
-template <typename T>
-SIM5_HD Dual<T> Log(Dual<T> x) { return {Log(x.v), x.d / x.v}; }
-template <typename T>
-SIM5_HD Dual<T> Log1p(Dual<T> x) { return {Log1p(x.v), x.d / (T(1) + x.v)}; }
-template <typename T>
-SIM5_HD Dual<T> Floor(Dual<T> x) { return {Floor(x.v), T(0)}; }
+template <typename T, int K>
+SIM5_HD Dual<T, K> Log(Dual<T, K> x) { return divided(Log(x.v), x, x.v); }
+template <typename T, int K>
+SIM5_HD Dual<T, K> Log1p(Dual<T, K> x) {
+  return divided(Log1p(x.v), x, T(1) + x.v);
+}
+template <typename T, int K>
+SIM5_HD Dual<T, K> Floor(Dual<T, K> x) { return Dual<T, K>(Floor(x.v)); }
 // torch.abs: sgn(x) dx, 0 at x == 0
-template <typename T>
-SIM5_HD Dual<T> Abs(Dual<T> x) {
-  return {Abs(x.v), x.v > T(0) ? x.d : (x.v < T(0) ? -x.d : T(0))};
+template <typename T, int K>
+SIM5_HD Dual<T, K> Abs(Dual<T, K> x) {
+  Dual<T, K> r;
+  r.v = Abs(x.v);
+  SIM5_SLOTS r.d[j] = x.v > T(0) ? x.d[j] : (x.v < T(0) ? -x.d[j] : T(0));
+  return r;
 }
-template <typename T>
-SIM5_HD bool IsFinite(Dual<T> x) { return IsFinite(x.v); }
+template <typename T, int K>
+SIM5_HD bool IsFinite(Dual<T, K> x) { return IsFinite(x.v); }
 // torch.clamp: the tangent passes where the bound does not bite
-template <typename T>
-SIM5_HD Dual<T> ClampMin(Dual<T> x, T lo) { return x < lo ? Dual<T>(lo) : x; }
-template <typename T>
-SIM5_HD Dual<T> ClampMax(Dual<T> x, T hi) { return x > hi ? Dual<T>(hi) : x; }
-template <typename T>
-SIM5_HD Dual<T> Clamp(Dual<T> x, T lo, T hi) {
+template <typename T, int K>
+SIM5_HD Dual<T, K> ClampMin(Dual<T, K> x, T lo) {
+  return x < lo ? Dual<T, K>(lo) : x;
+}
+template <typename T, int K>
+SIM5_HD Dual<T, K> ClampMax(Dual<T, K> x, T hi) {
+  return x > hi ? Dual<T, K>(hi) : x;
+}
+template <typename T, int K>
+SIM5_HD Dual<T, K> Clamp(Dual<T, K> x, T lo, T hi) {
   return ClampMax(ClampMin(x, lo), hi);
 }
 
@@ -291,28 +375,37 @@ SIM5_HD T vlog(T u) {
 // The two-float transforms on duals: the values as above; the tangent of
 // hi + lo, in plain arithmetic, all on hi (the error terms carry none, as
 // autodiff through the transforms gives them up to rounding)
-template <typename T>
-SIM5_HD void two_sum(Dual<T> a, Dual<T> b, Dual<T>& s, Dual<T>& e) {
+template <typename T, int K>
+SIM5_HD void two_sum(Dual<T, K> a, Dual<T, K> b, Dual<T, K>& s,
+                     Dual<T, K>& e) {
   two_sum(a.v, b.v, s.v, e.v);
-  s.d = a.d + b.d;
-  e.d = T(0);
+  SIM5_SLOTS {
+    s.d[j] = a.d[j] + b.d[j];
+    e.d[j] = T(0);
+  }
 }
-template <typename T>
-SIM5_HD void two_prod(Dual<T> a, Dual<T> b, Dual<T>& p, Dual<T>& e) {
+template <typename T, int K>
+SIM5_HD void two_prod(Dual<T, K> a, Dual<T, K> b, Dual<T, K>& p,
+                      Dual<T, K>& e) {
   two_prod(a.v, b.v, p.v, e.v);
-  p.d = a.d * b.v + a.v * b.d;
-  e.d = T(0);
+  SIM5_SLOTS {
+    p.d[j] = a.d[j] * b.v + a.v * b.d[j];
+    e.d[j] = T(0);
+  }
 }
-template <typename T>
-SIM5_HD void sqrt_df(Dual<T> x, Dual<T>& hi, Dual<T>& lo) {
+template <typename T, int K>
+SIM5_HD void sqrt_df(Dual<T, K> x, Dual<T, K>& hi, Dual<T, K>& lo) {
   sqrt_df(x.v, hi.v, lo.v);
-  hi.d = x.d / (T(2) * hi.v);
-  lo.d = T(0);
+  const T den = T(2) * hi.v;
+  SIM5_SLOTS {
+    hi.d[j] = x.d[j] / den;
+    lo.d[j] = T(0);
+  }
 }
 // d vlog(u) = (1 - 1 / (1 + u)) du = u / (1 + u) du
-template <typename T>
-SIM5_HD Dual<T> vlog(Dual<T> u) {
-  return {vlog(u.v), u.v / (T(1) + u.v) * u.d};
+template <typename T, int K>
+SIM5_HD Dual<T, K> vlog(Dual<T, K> u) {
+  return scaled(vlog(u.v), u.v / (T(1) + u.v), u);
 }
 
 // ---------------------------------------------------------------------------
@@ -537,33 +630,38 @@ SIM5_HD int radial_roots(T c2, T c1, T c0, T rr[4], T ri[4], T lo[4]) {
 // rule dz = -(dc2 z^2 + dc1 z + dc0) / R'(z) at each root (the polished hi
 // of a real one, in complex arithmetic for a complex one), which autodiff
 // through the closed form and the polish gives to the polish's residual;
-// lo carries none
-template <typename T>
-SIM5_HD int radial_roots(Dual<T> c2, Dual<T> c1, Dual<T> c0, Dual<T> rr[4],
-                         Dual<T> ri[4], Dual<T> lo[4]) {
+// lo carries none.  R'(z) (and its squared modulus) once a root, the
+// numerator and the quotient once a slot.
+template <typename T, int K>
+SIM5_HD int radial_roots(Dual<T, K> c2, Dual<T, K> c1, Dual<T, K> c0,
+                         Dual<T, K> rr[4], Dual<T, K> ri[4],
+                         Dual<T, K> lo[4]) {
   T vr[4], vi[4], vl[4];
   const int nrr = radial_roots(c2.v, c1.v, c0.v, vr, vi, vl);
-  for (int j = 0; j < 4; ++j) {
-    const T x = vr[j], y = vi[j];
-    T dx, dy;
+  for (int i = 0; i < 4; ++i) {
+    const T x = vr[i], y = vi[i];
+    rr[i].v = x;
+    ri[i].v = y;
+    lo[i] = Dual<T, K>(vl[i]);
     if (y == T(0)) {
       const T Rp = (T(4) * x * x + T(2) * c2.v) * x + c1.v;
-      dx = -((c2.d * x + c1.d) * x + c0.d) / Rp;
-      dy = T(0);
+      SIM5_SLOTS {
+        rr[i].d[j] = -((c2.d[j] * x + c1.d[j]) * x + c0.d[j]) / Rp;
+        ri[i].d[j] = T(0);
+      }
     } else {
       const T z2r = x * x - y * y, z2i = T(2) * x * y;
       const T z3r = z2r * x - z2i * y, z3i = z2r * y + z2i * x;
       const T pr = T(4) * z3r + T(2) * c2.v * x + c1.v;
       const T pi = T(4) * z3i + T(2) * c2.v * y;
-      const T nr = c2.d * z2r + c1.d * x + c0.d;
-      const T ni = c2.d * z2i + c1.d * y;
       const T den = pr * pr + pi * pi;
-      dx = -(nr * pr + ni * pi) / den;
-      dy = -(ni * pr - nr * pi) / den;
+      SIM5_SLOTS {
+        const T nr = c2.d[j] * z2r + c1.d[j] * x + c0.d[j];
+        const T ni = c2.d[j] * z2i + c1.d[j] * y;
+        rr[i].d[j] = -(nr * pr + ni * pi) / den;
+        ri[i].d[j] = -(ni * pr - nr * pi) / den;
+      }
     }
-    rr[j] = {x, dx};
-    ri[j] = {y, dy};
-    lo[j] = {vl[j], T(0)};
   }
   return nrr;
 }
@@ -654,14 +752,18 @@ SIM5_HD Chain<T> rd_chain(T x, T y, T z) {
 
 // RF on duals with a constant z, by the rule of special/carlson.py:
 // dRF/dx_i = -RD(., ., x_i) / 6 from one chain; a slot at the zero floor
-// has a zero coefficient.  The value is rf's, from the same chain.
-template <typename T>
-SIM5_HD Dual<T> rf(Dual<T> x, Dual<T> y, T z) {
+// has a zero coefficient.  The value is rf's, from the same chain; the
+// coefficients once, for every tangent slot.
+template <typename T, int K>
+SIM5_HD Dual<T, K> rf(Dual<T, K> x, Dual<T, K> y, T z) {
   const T fl = Prec<T>::rf_floor();
   const Chain<T> c = rd_chain<T, 3>(ClampMin(x.v, fl), ClampMin(y.v, fl), z);
   const T cx = x.v < fl ? T(0) : -c.rd(0) / T(6);
   const T cy = y.v < fl ? T(0) : -c.rd(1) / T(6);
-  return {rf_tail(c.v[0], c.v[1], c.v[2]), cx * x.d + cy * y.d};
+  Dual<T, K> r;
+  r.v = rf_tail(c.v[0], c.v[1], c.v[2]);
+  SIM5_SLOTS r.d[j] = cx * x.d[j] + cy * y.d[j];
+  return r;
 }
 
 // elliptic_k_mc: K from the complement mc = 1 - m by a fixed-depth AGM
@@ -733,22 +835,23 @@ SIM5_HD void sncndn(T u, T emc, T& sn_out, T& cn_out, T& dn) {
 // u-derivatives algebraic in (sn, cn, dn), the m-derivatives through the
 // Jacobi epsilon eps(u, m) from two duplication chains (K and E; the
 // incomplete F and D at (cn^2, dn^2, 1)) with the quasi-period reduction,
-// and the exact endpoint asymptotics within sqrt(eps) of m = 0 and m = 1
-template <typename T>
-SIM5_HD void sncndn(Dual<T> u, Dual<T> emc, Dual<T>& sn, Dual<T>& cn,
-                    Dual<T>& dn) {
+// and the exact endpoint asymptotics within sqrt(eps) of m = 0 and m = 1;
+// the six coefficients once, for every tangent slot
+template <typename T, int K>
+SIM5_HD void sncndn(Dual<T, K> u, Dual<T, K> emc, Dual<T, K>& sn,
+                    Dual<T, K>& cn, Dual<T, K>& dn) {
   sncndn(u.v, emc.v, sn.v, cn.v, dn.v);
   const T U = u.v, E_ = emc.v, s = sn.v, c = cn.v, d = dn.v;
   const T m = T(1) - E_;
   const T tiny = Prec<T>::rf_floor();
   const Chain<T> ck = rd_chain<T, 4>(tiny, ClampMin(E_, tiny), T(1));
-  const T K = rf_tail(ck.v[0], ck.v[1], ck.v[2]);
-  const T E = K - m * ck.rd(2) / T(3);
+  const T Kc = rf_tail(ck.v[0], ck.v[1], ck.v[2]);   // K(m)
+  const T E = Kc - m * ck.rd(2) / T(3);
   const Chain<T> ci =
       rd_chain<T, 4>(ClampMin(c * c, tiny), ClampMin(d * d, tiny), T(1));
   const T F_inc = rf_tail(ci.v[0], ci.v[1], ci.v[2]);
   const T eps_inc = s * F_inc - m / T(3) * (s * s * s) * ci.rd(2);
-  const T n = Floor((U + K) / (T(2) * K));
+  const T n = Floor((U + Kc) / (T(2) * Kc));
   const T sgn = n - T(2) * Floor(n / T(2)) == T(0) ? T(1) : T(-1);
   const T eps_u = T(2) * n * E + sgn * eps_inc;
   const T W = U * E_ - eps_u;
@@ -772,9 +875,14 @@ SIM5_HD void sncndn(Dual<T> u, Dual<T> emc, Dual<T>& sn, Dual<T>& cn,
   const T e_sn = -(lo ? a0_sn : (hi ? a1_sn : g_sn));
   const T e_cn = -(lo ? a0_cn : (hi ? a1_cn : g_cn));
   const T e_dn = -(lo ? a0_dn : (hi ? a1_dn : g_dn));
-  sn.d = c * d * u.d + e_sn * emc.d;
-  cn.d = -s * d * u.d + e_cn * emc.d;
-  dn.d = -m * s * c * u.d + e_dn * emc.d;
+  // the u-coefficients once (the products left to right, as the
+  // one-tangent form rounds them), then every slot
+  const T u_sn = c * d, u_cn = -s * d, u_dn = -m * s * c;
+  SIM5_SLOTS {
+    sn.d[j] = u_sn * u.d[j] + e_sn * emc.d[j];
+    cn.d[j] = u_cn * u.d[j] + e_cn * emc.d[j];
+    dn.d[j] = u_dn * u.d[j] + e_dn * emc.d[j];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -821,8 +929,8 @@ struct NoProbe {
   SIM5_HD void classes(int, int, int) const {}
 };
 
-// The functions below are templated on the scalar S (T, or Dual<T> for the
-// tangent kernel), T = Base<S> the type of their constants.
+// The functions below are templated on the scalar S (T, or Dual<T, K> for
+// the tangent kernel), T = Base<S> the type of their constants.
 
 template <typename S>
 struct Geod {
@@ -1255,16 +1363,37 @@ SIM5_HD S nt_flux(const Frame<S>& d, S r) {
   return inside ? S(T(0)) : out;
 }
 
+// x as a scalar of the shading: x itself where the chain and the shading
+// share their scalar; else x's slots, then zero slots (a direction that
+// enters the shading only, which the chain does not carry)
+template <typename S>
+SIM5_HD S widen(const S& x, const S*) {
+  return x;
+}
+template <typename T, int K, int KW,
+          typename = typename std::enable_if<(K < KW)>::type>
+SIM5_HD Dual<T, KW> widen(const Dual<T, K>& x, const Dual<T, KW>*) {
+  Dual<T, KW> w(x.v);
+#pragma unroll
+  for (int j = 0; j < K; ++j) w.d[j] = x.d[j];
+  return w;
+}
+
 // One pixel (ix, iy) of an nx x ny frame with aspect ny / nx: image_f =
 // F g^4 and image_g = g, 0 where the ray misses the disk.  The reference
 // control flow (disk-image.c:73-104): no order-0 crossing leaves the pixel
 // dark; order 1 only where order 0 fell inside the ISCO; the hit, of
 // either order, is shaded once.  Every lane runs the probes in the same
-// order whatever its path.
-template <typename S, typename Probe>
-SIM5_HD void nt_pixel(const Frame<S>& d, int ix, int iy, int nx, int ny,
-                      Base<S> aspect, Probe& probe, S& f_out, S& g_out) {
+// order whatever its path.  The geodesic runs on S from the frame d; the
+// shading (gfactorK, nt_flux) on W from the frame dw, the same frame on
+// a scalar with the slots of S and more after them: directions that move
+// only the flux constants (the disk's rms) need no slot in the chain.
+template <typename S, typename W, typename Probe>
+SIM5_HD void nt_pixel(const Frame<S>& d, const Frame<W>& dw, int ix, int iy,
+                      int nx, int ny, Base<S> aspect, Probe& probe,
+                      W& f_out, W& g_out) {
   using T = Base<S>;
+  const W* wide = nullptr;
   // image_grid: pixel centres, [0, 0] at the image centre
   const T fx = (T(ix) + T(0.5)) / T(nx) - T(0.5);
   const T fy = (T(iy) + T(0.5)) / T(ny) - T(0.5);
@@ -1283,11 +1412,12 @@ SIM5_HD void nt_pixel(const Frame<S>& d, int ix, int iy, int nx, int ny,
   if (use1) r = position_rad(g, find_midplane_crossing(g, 1));
   const bool hit1 = use1 && IsFinite(r) && r >= d.rms && ok;
   const bool hit = hit0 || hit1;
-  S f = T(0), gf = T(0);
+  W f = T(0), gf = T(0);
   if (hit) {
-    gf = gfactorK(r, d.a, g.l);
-    const S g2 = gf * gf;
-    f = nt_flux(d, r) * (g2 * g2);
+    const W rw = widen(r, wide);
+    gf = gfactorK(rw, dw.a, widen(g.l, wide));
+    const W g2 = gf * gf;
+    f = nt_flux(dw, rw) * (g2 * g2);
   }
   f_out = f;
   g_out = gf;
@@ -1321,6 +1451,13 @@ SIM5_HD void nt_pixel(const Frame<S>& d, int ix, int iy, int nx, int ny,
   for (int k = 0; k < 8; ++k) err = g.status == codes[k] ? k : err;
   probe(kSlotStatus0, ok);
   probe.classes(kSlotStatus3, err, 8);
+}
+
+// the pixel with the chain and the shading on one scalar and one frame
+template <typename S, typename Probe>
+SIM5_HD void nt_pixel(const Frame<S>& d, int ix, int iy, int nx, int ny,
+                      Base<S> aspect, Probe& probe, S& f_out, S& g_out) {
+  nt_pixel(d, d, ix, iy, nx, ny, aspect, probe, f_out, g_out);
 }
 
 }  // namespace sim5

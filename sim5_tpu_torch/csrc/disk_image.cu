@@ -37,29 +37,8 @@
 // The frame's scalars are read from a device tensor, never compiled in.
 // Built with --fmad=false (see analytic.cuh) and without fast math.
 //
-// The tangent kernel, nt_image_jvp<T, kReduce> after its prologue
-// nt_frames_jvp<T>, differentiates the same pixel in forward mode: each
-// thread runs sim5::nt_pixel on sim5::Dual<T> (a value and one tangent),
-// the frame's constants made on duals from the frames' scalars and one
-// tangent of them.  It replaces the JAX package's autodiff of the same
-// program (jax.jvp / jax.grad of render_disk_image, bench.py:337-401; XLA,
-// no Pallas kernel).  Where plain forward mode would differentiate an
-// iteration or a degenerate closed form, the tangent follows the rule the
-// plain torch version uses (analytic.cuh: rf's RD rule, sncndn's
-// epsilon-function rule, the quartic's implicit root rule).  kReduce = false
-// writes the images and their tangents; kReduce = true reads grad_f and
-// grad_g and sums grad_f df + grad_g dg over each block's pixels into one
-// partial a block, which nt_reduce then sums a frame in a fixed order: the
-// backward of the image in one column of the frames, with no float atomics,
-// so a repeated backward is bitwise the same and a frame's sum does not
-// depend on the other frames of its launch.  One tangent a pass: the
-// backward launches once a column that needs grad, forward mode once.
-// What bounds it: twice or more the forward's FP64 / FP32 operations (the
-// tangent of every product and quotient, the rules' extra duplication
-// chains) with twice the live values, so registers: it takes 256 threads a
-// block and lets the compiler take up to 255 registers, one block an SM
-// at least; the registers, spills and resident blocks are in PERF.md.  Not
-// tuned.
+// The tangent kernel, which differentiates the same pixel in forward mode,
+// is in disk_image_jvp.cu.
 //
 // In-kernel counters, in the instance nt_image<T, true> only (the
 // entry point launches nt_image<T, false>, which has none, and a caller
@@ -188,145 +167,6 @@ nt_image(const sim5::Frame<T>* __restrict__ frames, T* __restrict__ image_f,
   }
 }
 
-// ---------------------------------------------------------------------------
-// the tangent kernel
-// ---------------------------------------------------------------------------
-
-constexpr int kJvpThreads = 256;
-constexpr int kJvpTileH = kJvpThreads / 32;
-// scalars of type T in a frame's dual constants, sim5::Frame<Dual<T>>
-constexpr int kJvpFrameWords = 2 * kFrameWords;
-static_assert(sizeof(sim5::Frame<sim5::Dual<double>>) ==
-                      kJvpFrameWords * sizeof(double) &&
-                  sizeof(sim5::Frame<sim5::Dual<float>>) ==
-                      kJvpFrameWords * sizeof(float),
-              "sim5::Frame<Dual<T>> is kJvpFrameWords scalars of T");
-
-// each frame's dual constants from its scalars and their tangents
-template <typename T>
-__global__ void nt_frames_jvp(const T* __restrict__ scalars,
-                              const T* __restrict__ tangents,
-                              sim5::Frame<sim5::Dual<T>>* __restrict__ frames,
-                              int n) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  sim5::Dual<T> s[6];
-  for (int i = 0; i < 6; ++i)
-    s[i] = sim5::Dual<T>(scalars[6 * k + i], tangents[6 * k + i]);
-  frames[k] = sim5::make_frame(s);
-}
-
-// kReduce = false: f, g, df, dg are (n, ny, nx) outputs.  kReduce = true: f
-// and g are grad_f and grad_g (n, ny, nx) inputs, and partials (n,
-// gridDim.x) takes each block's sum of grad_f df + grad_g dg.
-template <typename T, bool kReduce>
-__global__ void __launch_bounds__(kJvpThreads, 1)
-nt_image_jvp(const sim5::Frame<sim5::Dual<T>>* __restrict__ frames,
-             T* __restrict__ f, T* __restrict__ g, T* __restrict__ df,
-             T* __restrict__ dg, T* __restrict__ partials, int nx, int ny,
-             T aspect) {
-  const int lane = threadIdx.x & 31;
-  const long long k = blockIdx.y;
-  const int tiles_x = (nx + kTileW - 1) / kTileW;
-  const int ix = (blockIdx.x % tiles_x) * kTileW + lane;
-  const int iy = (blockIdx.x / tiles_x) * kJvpTileH + (threadIdx.x >> 5);
-  const bool live = ix < nx && iy < ny;
-  const long long o = (k * ny + iy) * nx + ix;
-  T part = T(0);
-  if (live) {
-    sim5::NoProbe probe;
-    sim5::Dual<T> fv, gv;
-    sim5::nt_pixel(frames[k], ix, iy, nx, ny, aspect, probe, fv, gv);
-    if constexpr (kReduce) {
-      part = f[o] * fv.d + g[o] * gv.d;
-    } else {
-      f[o] = fv.v;
-      g[o] = gv.v;
-      df[o] = fv.d;
-      dg[o] = gv.d;
-    }
-  }
-  if constexpr (kReduce) {
-    // the block's sum, in a fixed tree order
-    __shared__ T buf[kJvpThreads];
-    buf[threadIdx.x] = part;
-    __syncthreads();
-    for (int w = kJvpThreads / 2; w > 0; w >>= 1) {
-      if (threadIdx.x < w) buf[threadIdx.x] += buf[threadIdx.x + w];
-      __syncthreads();
-    }
-    if (threadIdx.x == 0) partials[k * gridDim.x + blockIdx.x] = buf[0];
-  }
-}
-
-// out[k * stride] = the sum of frame k's m partials, one block a frame, in a
-// fixed order (each thread a strided run, then a tree)
-template <typename T>
-__global__ void nt_reduce(const T* __restrict__ partials, int m,
-                          T* __restrict__ out, int stride) {
-  __shared__ T buf[kJvpThreads];
-  const long long k = blockIdx.x;
-  T acc = T(0);
-  for (int i = threadIdx.x; i < m; i += kJvpThreads) acc += partials[k * m + i];
-  buf[threadIdx.x] = acc;
-  __syncthreads();
-  for (int w = kJvpThreads / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) buf[threadIdx.x] += buf[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[k * stride] = buf[0];
-}
-
-// grad_f/grad_g null: forward mode into f, g, df, dg.  Else the backward:
-// out[k * stride] = sum over frame k's pixels of grad_f df + grad_g dg, with
-// partials room for n x jvp_blocks(nx, ny) scalars of type T.
-template <typename T>
-int launch_jvp(const void* scalars, const void* tangents, void* work, int n,
-               void* f, void* g, void* df, void* dg, const void* grad_f,
-               const void* grad_g, void* partials, void* out, int stride,
-               int nx, int ny, double aspect, cudaStream_t stream) {
-  auto* frames = static_cast<sim5::Frame<sim5::Dual<T>>*>(work);
-  nt_frames_jvp<T><<<(n + 63) / 64, 64, 0, stream>>>(
-      static_cast<const T*>(scalars), static_cast<const T*>(tangents), frames,
-      n);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const unsigned blocks = (unsigned)((nx + kTileW - 1) / kTileW) *
-                          (unsigned)((ny + kJvpTileH - 1) / kJvpTileH);
-  const dim3 grid(blocks, (unsigned)n);
-  if (grad_f == nullptr) {
-    nt_image_jvp<T, false><<<grid, kJvpThreads, 0, stream>>>(
-        frames, static_cast<T*>(f), static_cast<T*>(g), static_cast<T*>(df),
-        static_cast<T*>(dg), nullptr, nx, ny, T(aspect));
-    return static_cast<int>(cudaGetLastError());
-  }
-  nt_image_jvp<T, true><<<grid, kJvpThreads, 0, stream>>>(
-      frames, const_cast<T*>(static_cast<const T*>(grad_f)),
-      const_cast<T*>(static_cast<const T*>(grad_g)), nullptr, nullptr,
-      static_cast<T*>(partials), nx, ny, T(aspect));
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  nt_reduce<T><<<n, kJvpThreads, 0, stream>>>(static_cast<T*>(partials),
-                                              (int)blocks, static_cast<T*>(out),
-                                              stride);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, bool kReduce>
-int jvp_attributes(int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t e =
-      cudaFuncGetAttributes(&attr, (const void*)nt_image_jvp<T, kReduce>);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, nt_image_jvp<T, kReduce>, kJvpThreads, 0);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = blocks;
-  return static_cast<int>(e);
-}
-
 template <typename T>
 int launch(const void* scalars, void* work, int n, void* image_f,
            void* image_g, int nx, int ny, double aspect, void* counters,
@@ -407,47 +247,4 @@ extern "C" int sim5_nt_image_attributes(int f64, int counted, int* out) {
   if (f64) return counted ? attributes<double, true>(out)
                           : attributes<double, false>(out);
   return counted ? attributes<float, true>(out) : attributes<float, false>(out);
-}
-
-// The tangent kernel, T double if f64, else float: nt_frames_jvp<T> (each
-// frame's dual constants into work, n x kJvpFrameWords scalars of T, from
-// scalars and tangents, each n x 6 of T) then nt_image_jvp<T, ...>.  With
-// grad_f null, forward mode: f, g, df, dg (n, ny, nx) of T take the images
-// and their tangents.  Else the backward in the tangents' direction:
-// grad_f and grad_g (n, ny, nx) of T are read, partials has room for n x
-// sim5_nt_image_jvp_blocks(nx, ny) scalars of T, and nt_reduce<T> writes
-// frame k's sum of grad_f df + grad_g dg to out[k * stride].  Returns
-// cudaGetLastError() (0 on success).
-extern "C" int sim5_nt_image_jvp(int f64, const void* scalars,
-                                 const void* tangents, void* work, int n,
-                                 void* f, void* g, void* df, void* dg,
-                                 const void* grad_f, const void* grad_g,
-                                 void* partials, void* out, int stride,
-                                 int nx, int ny, double aspect,
-                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f64 ? launch_jvp<double>(scalars, tangents, work, n, f, g, df, dg,
-                                  grad_f, grad_g, partials, out, stride, nx,
-                                  ny, aspect, s)
-             : launch_jvp<float>(scalars, tangents, work, n, f, g, df, dg,
-                                 grad_f, grad_g, partials, out, stride, nx,
-                                 ny, aspect, s);
-}
-
-// The tangent kernel's blocks a frame for an (ny, nx) image, its threads a
-// block and the scalars of a frame's dual constants, into out[0..2].
-extern "C" void sim5_nt_image_jvp_config(int nx, int ny, int* out) {
-  out[0] = ((nx + kTileW - 1) / kTileW) * ((ny + kJvpTileH - 1) / kJvpTileH);
-  out[1] = kJvpThreads;
-  out[2] = kJvpFrameWords;
-}
-
-// Registers a thread, local memory a thread (bytes) and resident blocks an
-// SM of nt_image_jvp<T, reduce != 0>, T double if f64, else float, into
-// out[0..2]; returns the CUDA error.
-extern "C" int sim5_nt_image_jvp_attributes(int f64, int reduce, int* out) {
-  if (f64) return reduce ? jvp_attributes<double, true>(out)
-                         : jvp_attributes<double, false>(out);
-  return reduce ? jvp_attributes<float, true>(out)
-                : jvp_attributes<float, false>(out);
 }

@@ -17,21 +17,30 @@ round trip and one build serves every spin.
 
 Gradients: the launch is a `torch.autograd.Function` (`_NTImage`) of the
 six frame columns.  Its forward is the one launch above, whether or not
-an input requires grad.  Its `jvp` (forward mode, `torch.autograd.
-forward_ad`) launches the tangent kernel `nt_image_jvp<T>` once, which
-returns the images' tangents; its `backward` launches the tangent
-kernel's reduction instance `nt_image_jvp<T, reduce>` (and `nt_reduce<T>`)
-once for each column that needs grad, which sums grad_f df + grad_g dg
-over each frame's pixels in a fixed order.  The columns are plain torch
-of the disk, so the gradient reaches `a` through rms and the default rmax
-by autograd.  The tangent kernel replaces the JAX package's autodiff of
-`render_disk_image` (XLA; no Pallas kernel); its plain version is
-autograd through `image.render_disk_image_reference`.
+an input requires grad.  The tangent kernel (`csrc/disk_image_jvp.cu`)
+runs the pixel on duals of K tangent slots, each pixel's value chain and
+the derivative rules' chains once for all slots.  The `jvp` (forward
+mode, `torch.autograd.forward_ad`) launches its one-slot instance
+`nt_image_jvp<T, 1>` once, which returns the images' tangents.  The
+`backward` launches its reduction instance `nt_image_jvp<T, K, reduce>`
+(and `nt_reduce<T>`) once, for all the columns that need grad
+(`backward_launch`): the columns that enter the pixel's geodesic (a,
+incl, rmax; `CHAIN_COLUMNS`) are the four-slot instance's first three
+slots, and rms, which moves only the flux constants, its last, which the
+geodesic does not carry.  It sums grad_f df_j + grad_g dg_j over each
+frame's pixels in a fixed order, with grad_f f beside them, from which M
+and mdot take their gradient (f is proportional to mdot / M).  The
+columns are plain torch of the disk, so the gradient reaches `a` through
+rms and the default rmax by autograd: a backward in (a, incl, mdot) is
+one launch of the four-slot instance.  The tangent kernel replaces the
+JAX package's autodiff of `render_disk_image` (XLA; no Pallas kernel);
+its plain version is autograd through
+`image.render_disk_image_reference`.
 
 `LAUNCHES` counts launches by kernel: the prologue `nt_frames<T>` and
-`nt_image<T>`, one each a forward launch, and `nt_frames_jvp<T>` with
-`nt_image_jvp<T>` (forward mode) or `nt_image_jvp<T, reduce>` and
-`nt_reduce<T>` (a backward column).  The entry point's instance has no
+`nt_image<T>`, one each a forward launch, and `nt_frames_jvp<T, K>` with
+`nt_image_jvp<T, K>` (forward mode) or `nt_image_jvp<T, K, reduce>` and
+`nt_reduce<T>` (a backward).  The entry point's instance has no
 counters; `count_disk_image` renders through the instance with in-kernel
 counters compiled in (the same bits, 4-7% slower), and `image_counters()`
 reads them.
@@ -48,13 +57,29 @@ VARIANTS = {torch.float64: "nt_image<double>",
 PROLOGUES = {dt: v.replace("nt_image", "nt_frames")
              for dt, v in VARIANTS.items()}
 COUNTED = {dt: v[:-1] + ", counted>" for dt, v in VARIANTS.items()}
-# the tangent kernel: its prologue, its forward-mode instance, and the
-# backward's reduction instance and second pass
-JVP_PROLOGUES = {dt: v.replace("nt_image", "nt_frames_jvp")
-                 for dt, v in VARIANTS.items()}
-JVP_VARIANTS = {dt: v.replace("nt_image", "nt_image_jvp")
-                for dt, v in VARIANTS.items()}
-VJP_VARIANTS = {dt: v[:-1] + ", reduce>" for dt, v in JVP_VARIANTS.items()}
+# the tangent kernel's compiled slot counts (the library's
+# sim5_nt_image_jvp_slots): one, for forward mode and a backward in one
+# column, and the backward's, whose geodesic carries all its slots but the
+# last
+JVP_SLOTS = (1, 4)
+# the frame columns (a, incl, M, mdot, rms, rmax) that enter the pixel's
+# geodesic, and rms, which enters only the flux constants (M and mdot
+# only scale the flux)
+CHAIN_COLUMNS = (0, 1, 5)
+RMS_COLUMN = 4
+
+
+def _jvp_names(kernel, suffix=""):
+    return {(dt, k): f"{kernel}<{v[len('nt_image<'):-1]}, {k}{suffix}>"
+            for dt, v in VARIANTS.items() for k in JVP_SLOTS}
+
+
+# the tangent kernel by (dtype, K): its prologue, its forward-mode
+# instance, and the backward's reduction instance; and the backward's
+# second pass by dtype
+JVP_PROLOGUES = _jvp_names("nt_frames_jvp")
+JVP_VARIANTS = _jvp_names("nt_image_jvp")
+VJP_VARIANTS = _jvp_names("nt_image_jvp", ", reduce")
 REDUCES = {dt: v.replace("nt_image", "nt_reduce")
            for dt, v in VARIANTS.items()}
 LAUNCHES = dict.fromkeys([*PROLOGUES.values(), *VARIANTS.values(),
@@ -83,7 +108,7 @@ FRAME_WORDS = 18
 # 2) int64 on the device: warps with a lane counted, and lanes
 LAST_COUNTERS = None
 
-_LIB = None
+_LIB = _JVP_LIB = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # (argtypes, restype) of the library's extern "C" functions
 # (csrc/disk_image.cu)
@@ -95,15 +120,19 @@ SIGNATURES = {
         _I),
     "sim5_nt_image_config": ([_P], None),
     "sim5_nt_image_attributes": ([_I, _I, _P], _I),
+}
+# the same of the tangent kernel's library (csrc/disk_image_jvp.cu)
+JVP_SIGNATURES = {
     "sim5_nt_image_jvp": (
-        [_I, _P, _P, _P, _I,              # f64, scalars, tangents, work, n
+        [_I, _I, _P, _P, _P, _I,          # f64, K, scalars, tangents, work,
+                                          # n
          _P, _P, _P, _P,                  # f, g, df, dg
-         _P, _P, _P, _P, _I,              # grad_f, grad_g, partials, out,
-                                          # stride
+         _P, _P, _P, _P,                  # grad_f, grad_g, partials, out
          _I, _I, ctypes.c_double, _P],    # nx, ny, aspect, stream
         _I),
-    "sim5_nt_image_jvp_config": ([_I, _I, _P], None),
-    "sim5_nt_image_jvp_attributes": ([_I, _I, _P], _I),
+    "sim5_nt_image_jvp_config": ([_I, _I, _I, _I, _I, _P], _I),
+    "sim5_nt_image_jvp_slots": ([_P], None),
+    "sim5_nt_image_jvp_attributes": ([_I, _I, _I, _P], _I),
 }
 # no FMA contraction: the error-free transforms need every rounding
 NVCC_EXTRA = ("--fmad=false",)
@@ -111,17 +140,29 @@ NVCC_EXTRA = ("--fmad=false",)
 MAX_FRAMES = 65535
 
 
+def _load(name, signatures):
+    from .._build import load
+    lib = load(name, extra_flags=NVCC_EXTRA)
+    for fname, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, fname)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib
+
+
 def _lib():
     """The built disk image library, with its signatures declared."""
     global _LIB
     if _LIB is None:
-        from .._build import load
-        lib = load("disk_image", extra_flags=NVCC_EXTRA)
-        for name, (argtypes, restype) in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = argtypes, restype
-        _LIB = lib
+        _LIB = _load("disk_image", SIGNATURES)
     return _LIB
+
+
+def _jvp_lib():
+    """The built tangent kernel's library, with its signatures declared."""
+    global _JVP_LIB
+    if _JVP_LIB is None:
+        _JVP_LIB = _load("disk_image_jvp", JVP_SIGNATURES)
+    return _JVP_LIB
 
 
 def kernel_config():
@@ -150,24 +191,41 @@ def kernel_attributes(dtype, counted=False):
     return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2])
 
 
-def jvp_config(nx, ny):
-    """The tangent kernel's blocks a frame of an (ny, nx) image (its
-    backward's partial sums a frame), threads a block, and the scalars of
-    a frame's dual constants."""
-    out = (ctypes.c_int * 3)()
-    _lib().sim5_nt_image_jvp_config(int(nx), int(ny), out)
-    return dict(blocks=out[0], threads=out[1], frame_words=out[2])
-
-
-def jvp_attributes(dtype, reduce=False):
-    """Registers a thread, local memory a thread (bytes) and resident
-    blocks an SM of the tangent kernel's instance for `dtype` (the
-    backward's reduction instance if `reduce`) on the current card."""
-    out = (ctypes.c_int * 3)()
-    rc = _lib().sim5_nt_image_jvp_attributes(int(dtype == torch.float64),
-                                             int(reduce), out)
+def jvp_config(dtype, slots, reduce, nx, ny):
+    """The tangent kernel's instance of `dtype` with `slots` tangent slots
+    (the backward's reduction instance if `reduce`) for an (ny, nx) image:
+    its blocks a frame (the backward's partial sums a frame), threads a
+    block, minimum resident blocks, the scalars of a frame's dual
+    constants in the work space, and the slots its geodesic carries."""
+    out = (ctypes.c_int * 5)()
+    rc = _jvp_lib().sim5_nt_image_jvp_config(
+        int(dtype == torch.float64), int(slots), int(reduce), int(nx),
+        int(ny), out)
     if rc != 0:
-        name = (VJP_VARIANTS if reduce else JVP_VARIANTS)[dtype]
+        raise ValueError(f"no tangent kernel of {slots} slots for {dtype}: "
+                         f"cudaError {rc}")
+    return dict(blocks=out[0], threads=out[1], min_blocks=out[2],
+                frame_words=out[3], chain_slots=out[4])
+
+
+def jvp_backward_slots():
+    """(slots of the backward's instance, those its geodesic carries), as
+    the library was compiled (JVP_SLOTS and CHAIN_COLUMNS mirror it)."""
+    out = (ctypes.c_int * 2)()
+    _jvp_lib().sim5_nt_image_jvp_slots(out)
+    return out[0], out[1]
+
+
+def jvp_attributes(dtype, slots=1, reduce=False):
+    """Registers a thread, local memory a thread (bytes) and resident
+    blocks an SM of the tangent kernel's instance for `dtype` with `slots`
+    slots (the backward's reduction instance if `reduce`) on the current
+    card."""
+    out = (ctypes.c_int * 3)()
+    rc = _jvp_lib().sim5_nt_image_jvp_attributes(
+        int(dtype == torch.float64), int(slots), int(reduce), out)
+    if rc != 0:
+        name = (VJP_VARIANTS if reduce else JVP_VARIANTS)[dtype, slots]
         raise RuntimeError(f"{name} attributes: cudaError {rc}")
     return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2])
 
@@ -269,11 +327,11 @@ def _render(disk, incl, npix_x, npix_y, rmax, counted):
 class _NTImage(torch.autograd.Function):
     """The images of n frames from their six (n,) scalar columns (a, incl,
     M, mdot, rms, rmax): forward one launch of nt_image<T>; forward mode
-    one launch of the tangent kernel; backward one reduction launch a
-    column that needs grad (module docstring).  The context is taken in
-    forward, not in a setup_context, which costs the host several times
-    more a call: the entry point renders one frame a call in about the
-    kernel's own time (PERF.md)."""
+    one launch of the tangent kernel's one-slot instance; backward one
+    reduction launch for every column that needs grad (module docstring).
+    The context is taken in forward, not in a setup_context, which costs
+    the host several times more a call: the entry point renders one frame
+    a call in about the kernel's own time (PERF.md)."""
 
     @staticmethod
     def forward(ctx, a, incl, M, mdot, rms, rmax, nx, ny, counted):
@@ -303,9 +361,10 @@ class _NTImage(torch.autograd.Function):
     def jvp(ctx, *tangents):
         cols = ctx.saved_tensors
         frames = torch.stack(cols, -1).contiguous()
-        tangent = torch.stack(tangents[:6], -1).to(frames.dtype).contiguous()
-        _, _, df, dg = _launch_jvp(frames, tangent, ctx.nx, ctx.ny)
-        return df, dg
+        tangent = torch.stack(tangents[:6], -1).to(frames.dtype)
+        _, _, df, dg = _launch_jvp(frames, tangent[..., None].contiguous(),
+                                   ctx.nx, ctx.ny)
+        return df[:, 0], dg[:, 0]
 
 
 def _check_frames(frames, *others):
@@ -319,57 +378,120 @@ def _check_frames(frames, *others):
                              f"kernel takes contiguous {dt} on {dev}")
 
 
+def _slots(dt, tangent):
+    """The slot count of an (n, 6, K) tangent matrix, if compiled."""
+    n = tangent.shape[0]
+    if tangent.dim() != 3 or tangent.shape[:2] != (n, 6):
+        raise ValueError(f"a tangent matrix of shape {tuple(tangent.shape)}"
+                         ": the kernel takes (n, 6, K)")
+    k = tangent.shape[2]
+    if k not in JVP_SLOTS:
+        raise ValueError(f"{k} tangent slots: the tangent kernel is "
+                         f"compiled for {JVP_SLOTS}")
+    return k
+
+
 def _launch_jvp(frames, tangent, nx, ny):
-    """Forward mode: one launch of nt_frames_jvp<T> and nt_image_jvp<T> on
-    the current stream.  frames and tangent (n, 6) of type T; returns
-    (f, g, df, dg), each (n, ny, nx)."""
+    """Forward mode in K directions: one launch of nt_frames_jvp<T, K> and
+    nt_image_jvp<T, K> on the current stream.  frames (n, 6) and tangent
+    (n, 6, K) of type T, K in JVP_SLOTS, or (n, 6) for K = 1; in
+    the four-slot instance the geodesic does not carry the last slot, so
+    it takes a tangent in rms alone (or M and mdot).  Returns (f, g, df,
+    dg), f and g (n, ny, nx), df and dg (n, K, ny, nx), or (n, ny, nx) for
+    an (n, 6) tangent."""
+    flat = tangent.dim() == 2
+    if flat:
+        tangent = tangent[..., None]
     _check_frames(frames, tangent)
+    k = _slots(frames.dtype, tangent)
     n = frames.shape[0]
     dt, dev = frames.dtype, frames.device
-    cfg = jvp_config(nx, ny)
+    cfg = jvp_config(dt, k, False, nx, ny)
     work = torch.empty((n, cfg["frame_words"]), dtype=dt, device=dev)
-    f, g, df, dg = (torch.empty((n, ny, nx), dtype=dt, device=dev)
-                    for _ in range(4))
-    rc = _lib().sim5_nt_image_jvp(
-        int(dt == torch.float64), frames.data_ptr(), tangent.data_ptr(),
+    f, g = (torch.empty((n, ny, nx), dtype=dt, device=dev) for _ in range(2))
+    df, dg = (torch.empty((n, k, ny, nx), dtype=dt, device=dev)
+              for _ in range(2))
+    rc = _jvp_lib().sim5_nt_image_jvp(
+        int(dt == torch.float64), k, frames.data_ptr(), tangent.data_ptr(),
         work.data_ptr(), n, f.data_ptr(), g.data_ptr(), df.data_ptr(),
-        dg.data_ptr(), None, None, None, None, 0, nx, ny, ny / nx,
+        dg.data_ptr(), None, None, None, None, nx, ny, ny / nx,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{JVP_PROLOGUES[dt]} + {JVP_VARIANTS[dt]} launch "
-                           f"failed: cudaError {rc}")
-    LAUNCHES[JVP_PROLOGUES[dt]] += 1
-    LAUNCHES[JVP_VARIANTS[dt]] += 1
+        raise RuntimeError(f"{JVP_PROLOGUES[dt, k]} + {JVP_VARIANTS[dt, k]} "
+                           f"launch failed: cudaError {rc}")
+    LAUNCHES[JVP_PROLOGUES[dt, k]] += 1
+    LAUNCHES[JVP_VARIANTS[dt, k]] += 1
+    if flat:
+        return f, g, df[:, 0], dg[:, 0]
     return f, g, df, dg
+
+
+def _launch_vjp(frames, tangent, grad_f, grad_g):
+    """The backward in K directions: one launch of nt_frames_jvp<T, K>,
+    nt_image_jvp<T, K, reduce> and nt_reduce<T> on the current stream.
+    frames (n, 6), tangent (n, 6, K) (as `_launch_jvp` takes it), grad_f
+    and grad_g (n, ny, nx), all of type T; returns (n, K + 1) of type T:
+    column j < K frame k's sum over its pixels of grad_f df_j + grad_g
+    dg_j, column K that of grad_f f.  The sums are in a fixed order: the
+    same inputs give the same bits."""
+    _check_frames(frames, tangent, grad_f, grad_g)
+    k = _slots(frames.dtype, tangent)
+    n, ny, nx = grad_f.shape
+    dt, dev = frames.dtype, frames.device
+    cfg = jvp_config(dt, k, True, nx, ny)
+    work = torch.empty((n, cfg["frame_words"]), dtype=dt, device=dev)
+    partials = torch.empty((n, cfg["blocks"], k + 1), dtype=dt, device=dev)
+    out = torch.empty((n, k + 1), dtype=dt, device=dev)
+    rc = _jvp_lib().sim5_nt_image_jvp(
+        int(dt == torch.float64), k, frames.data_ptr(), tangent.data_ptr(),
+        work.data_ptr(), n, None, None, None, None, grad_f.data_ptr(),
+        grad_g.data_ptr(), partials.data_ptr(), out.data_ptr(), nx, ny,
+        ny / nx, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{VJP_VARIANTS[dt, k]} launch failed: "
+                           f"cudaError {rc}")
+    for name in (JVP_PROLOGUES[dt, k], VJP_VARIANTS[dt, k], REDUCES[dt]):
+        LAUNCHES[name] += 1
+    return out
+
+
+def backward_launch(columns):
+    """The one launch of a backward in the frame `columns` (of 0-5, at
+    least one): (K, seeds), seeds[j] the column slot j is seeded with
+    (None: a zero slot).  The one-slot instance where one column of the
+    geodesic or rms needs grad, or only M or mdot (a zero seed: they take
+    theirs from the sum of grad_f f); else the four-slot instance, with
+    the columns of the geodesic that need grad in its first three slots
+    and rms, where it does, in its last."""
+    chain = [c for c in columns if c in CHAIN_COLUMNS]
+    rms = [RMS_COLUMN] if RMS_COLUMN in columns else []
+    if len(chain) + len(rms) <= 1:
+        return 1, chain + rms or [None]
+    k = JVP_SLOTS[-1]
+    return k, chain + [None] * (k - 1 - len(chain)) + (rms or [None])
 
 
 def _backward(frames, grad_f, grad_g, columns):
     """d/d frames of sum(grad_f image_f + grad_g image_g): (n, 6) of type
-    T, the given columns filled (one launch of nt_frames_jvp<T>,
-    nt_image_jvp<T, reduce> and nt_reduce<T> each), the others 0.  The
-    sums are in a fixed order: the same inputs give the same bits."""
-    n, ny, nx = grad_f.shape
-    _check_frames(frames, grad_f, grad_g)
+    T, the given columns filled, the others 0, from one launch
+    (`backward_launch`); M and mdot take theirs from the sum of grad_f f
+    (df/dmdot = f / mdot, df/dM = -f / M, g depends on neither)."""
+    n = frames.shape[0]
     dt, dev = frames.dtype, frames.device
-    cfg = jvp_config(nx, ny)
-    work = torch.empty((n, cfg["frame_words"]), dtype=dt, device=dev)
-    partials = torch.empty((n, cfg["blocks"]), dtype=dt, device=dev)
+    k, seeds = backward_launch(columns)
+    tangent = torch.zeros((n, 6, k), dtype=dt, device=dev)
+    for j, c in enumerate(seeds):
+        if c is not None:
+            tangent[:, c, j] = 1.0
+    sums = _launch_vjp(frames, tangent, grad_f, grad_g)
     out = torch.zeros((n, 6), dtype=dt, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for c in columns:
-        tangent = torch.zeros((n, 6), dtype=dt, device=dev)
-        tangent[:, c] = 1.0
-        rc = _lib().sim5_nt_image_jvp(
-            int(dt == torch.float64), frames.data_ptr(), tangent.data_ptr(),
-            work.data_ptr(), n, None, None, None, None, grad_f.data_ptr(),
-            grad_g.data_ptr(), partials.data_ptr(),
-            out.data_ptr() + c * out.element_size(), 6, nx, ny, ny / nx,
-            stream)
-        if rc != 0:
-            raise RuntimeError(f"{VJP_VARIANTS[dt]} launch failed: "
-                               f"cudaError {rc}")
-        for name in (JVP_PROLOGUES, VJP_VARIANTS, REDUCES):
-            LAUNCHES[name[dt]] += 1
+    for j, c in enumerate(seeds):
+        if c is not None:
+            out[:, c] = sums[:, j]
+    if 3 in columns:
+        out[:, 3] = sums[:, k] / frames[:, 3]
+    if 2 in columns:
+        out[:, 2] = -sums[:, k] / frames[:, 2]
     return out
 
 

@@ -84,11 +84,14 @@ class TestWrapper:
     def test_build_flags(self):
         assert "--fmad=false" in kernel_image.NVCC_EXTRA
         assert not any("fast" in f for f in kernel_image.NVCC_EXTRA)
-        src = (_build.CSRC / "disk_image.cu").read_text()
-        assert '#include "analytic.cuh"' in src
+        for name in ("disk_image.cu", "disk_image_jvp.cu"):
+            src = (_build.CSRC / name).read_text()
+            assert '#include "analytic.cuh"' in src
         assert set(kernel_image.LAUNCHES) == {
-            f"{k}<{t}>" for k in ("nt_frames", "nt_image", "nt_frames_jvp",
-                                  "nt_image_jvp", "nt_reduce")
+            f"{k}<{t}>" for k in ("nt_frames", "nt_image", "nt_reduce")
             for t in ("double", "float")} | {
-                f"nt_image{j}<{t}, {v}>" for t in ("double", "float")
-                for j, v in (("", "counted"), ("_jvp", "reduce"))}
+                f"nt_image<{t}, counted>" for t in ("double", "float")} | {
+                f"{k}<{t}, {n}{r}>" for t in ("double", "float")
+                for n in (1, 4)
+                for k, r in (("nt_frames_jvp", ""), ("nt_image_jvp", ""),
+                             ("nt_image_jvp", ", reduce"))}

@@ -27,7 +27,8 @@ from sim5_tpu_torch.render import kernel_image
 C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
            "float": ctypes.c_float, "double": ctypes.c_double}
 # every CUDA library's declared signatures, by function
-SIGNATURES = {**kernel_march.SIGNATURES, **kernel_image.SIGNATURES}
+SIGNATURES = {**kernel_march.SIGNATURES, **kernel_image.SIGNATURES,
+              **kernel_image.JVP_SIGNATURES}
 
 
 def _extern_c_functions():
