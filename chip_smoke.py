@@ -5,9 +5,9 @@ azimuth and travel time, the hot-spot light curve, the equatorial
 thin-disk products (the shadow, polarized images and spectra, line
 profiles and transfer functions), the disk raytracing driver (the
 thick-disk surface solve, DiskRaytrace images and spectra, and the
-differentiable spectrum), and the derivative layer (the disk image's
+differentiable spectrum), the derivative layer (the disk image's
 gradient through its tangent kernel, and the reverse-differentiable
-march).
+march), and the spectral tables, frame checkpoints and host IO.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -155,15 +155,40 @@ on first use, all at once.  Phases, one line each:
     of the f64 peak tangent on the resolved pixels, which must be all but
     0.5% of the footprint), timed by CUDA events, with its bound; the
     registers, spills and resident blocks of every instance;
-22. volume_image(engine="scan") on example 11's torus in f64 over 2048
-    steps (its 2000 in whole segments of 64): against the loop engine at
+22. volume_image(engine="scan") on example 11's torus in f64 over 1024
+    steps (its 2000 cut to 16 whole segments of 64, to leave room for
+    phases 23-24): against the loop engine at
     96^2 (rtol 1e-12); at 256^2, the largest power-of-two size whose
     checkpointed segments fit, the forward and the backward of d I.sum()
     / d(a, the torus' radius) timed, and the gradient against central
     differences (h = 1e-5, rel < 1e-5) on the rays where FD is a
     derivative (the trial count holds within +-h, and FD with h and h / 2
     agree to 1e-6), with the dropped rays' count by cause, their gradient
-    and their FD at h, h / 2 and h / 4.
+    and their FD at h, h / 2 and h / 4;
+23. the spectral tables (no kernel: eager torch rows): example 08's grid
+    at its full size (3 spins x 3 mdots x 3 inclinations, 64 energies
+    over 0.1-30 keV, radres 0.5, angres 20) through generate_disk_table
+    on the card in f64 and fast (f32), each row timed with its save; the
+    fast rows within 1e-5 relative of the f64 rows on the bins above 1e-6
+    of each peak; three f64 rows again on the host's CPU (1e-9 there); a
+    child process running the grid, SIGKILLed after 5 rows, then resumed
+    here: bitwise the uninterrupted table; the polarized grid (3 spins x 3
+    inclinations, 128^2, 20 energies) through generate_polarized_table;
+    a table's save() against save_async through the native writer;
+24. frame checkpoints and host IO: checkpointed_frames over the first 32
+    frames of the spin sweep (f32, 512^2, one nt_image launch a frame,
+    flushed every 4 frames through the native AsyncWriter), uninterrupted
+    and interrupted after 12 frames then resumed: bitwise each other and
+    the frames of one launch of all 32; the stack's save() against
+    save_async; a 4-frame stack of example 07's orbiting spot through
+    volume_image(engine="kernel") at 128^2 (t0 a quarter period apart),
+    interrupted after 2 frames and resumed, bitwise; the checkpointed hot
+    spot light curve (16 times over two periods in chunks of 8, 128^2,
+    orders 0 and 1: the chunks one period apart within 1e-9); the external
+    disk bridge (tests/data/external_diskmodel.c built with cc into
+    build/) rendering a 48^2 DiskRaytrace image on the card against the
+    model written in torch (the same footprint, 1e-5); the native writer
+    built under build/ and loaded, native/ unchanged.
 
 Then one JSON line on the kernels, the card's name and power limit, and
 the result as the last line.  Any failed check exits non-zero.  The script
@@ -205,6 +230,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 
@@ -2792,9 +2818,12 @@ N_SCAN_CMP = 96          # the scan engine against the loop engine
 SCAN_H = 1e-5
 SCAN_SIZE = 256          # its gradient vs FD and timing (512^2 does not fit
                          # at 2048 steps in f64)
-# example 11's 2000 steps rounded up to whole segments of 64: the scan
-# engine runs max_steps // 64 segments, the loop engine up to max_steps
-SCAN_STEPS = 2048
+# the scan engine runs max_steps // 64 segments, the loop engine up to
+# max_steps: example 11's 2000 steps were 2048 (whole segments of 64)
+# until phases 23-24 came; cut to 1024, the march's first half (the
+# torus image holds about half its 2048-step intensity), so the script
+# stays within its time
+SCAN_STEPS = 1024
 # the f32 instance against the f32 plain version (f32_tangent_check,
 # f32_backward_check); limits set from the readings in PERF.md
 F32_RESOLVED = 1e-4      # a pixel whose plain f32 tangent is this close to
@@ -3839,6 +3868,460 @@ def tune_tangent(dev):
     return 0
 
 
+# --- phases 23-24: spectral tables, frame checkpoints and host IO (no
+# kernel of their own: the table rows are eager torch, the frame stacks
+# launch the disk image and march kernels)
+
+# example 08's grid (examples/08_spectral_table.py at its full size)
+TABLE = dict(spins=[0.0, 0.5, 0.9], mdots=[0.05, 0.1, 0.3],
+             incls=[30.0, 60.0, 75.0], energies=np.geomspace(0.1, 30.0, 64),
+             radres=0.5, angres=20.0)
+TABLE_CPU_ROWS = (0, 13, 26)   # rows run again on the host's CPU
+TABLE_KILL_AT = 5              # rows the killed child reports before its kill
+POL_TABLE = dict(spins=[0.0, 0.5, 0.9], incls=[30.0, 60.0, 75.0],
+                 energies=POL_E, npix=128)
+SAVE_RUNS = 5                  # timed saves (the minimum is kept)
+N_STACK = 32                   # frames of the checkpointed spin sweep
+STACK_STOP = 12                # frames computed before the interruption
+STACK_FLUSH = 4                # frames between two flushes
+N_VOL_STACK = 128              # the orbiting spot's checkpointed stack
+VOL_STACK = 4
+HOTSPOT_CK = dict(n_t=16, chunk=8, npix=128, n_orders=2)
+N_BRIDGE = 48                  # the external disk's image
+
+
+class Interrupted(Exception):
+    """Raised by a frame function to stop a checkpointed stack midway."""
+
+
+def rows_rel(got, want):
+    """Largest relative difference of two tables' rows on the bins above
+    1e-6 of each row's peak."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        nz = w > 1e-6 * w.max()
+        worst = max(worst, float((np.abs(g[nz] - w[nz]) / w[nz]).max()))
+    return worst
+
+
+def timed_rows(fn):
+    """fn()'s result and the seconds between its "[tables] row" lines
+    (verbose=True), on the host clock."""
+    class Lines:
+        def __init__(self):
+            self.t = [time.perf_counter()]
+
+        def write(self, s):
+            if s.startswith("[tables]"):
+                self.t.append(time.perf_counter())
+
+        def flush(self):
+            pass
+
+    lines = Lines()
+    with contextlib.redirect_stdout(lines):
+        out = fn()
+    return out, np.diff(lines.t)
+
+
+def save_times(obj, path_async):
+    """(ms of a synchronous save(), ms of save_async's submit, ms until
+    the writer has written it), each the minimum of SAVE_RUNS."""
+    from sim5_tpu_torch.native import AsyncWriter
+    sync, submit, done = [], [], []
+    with AsyncWriter() as w:
+        for _ in range(SAVE_RUNS):
+            t0 = time.perf_counter()
+            obj.save()
+            sync.append(time.perf_counter() - t0)
+            path = obj.path
+            obj.path = path_async
+            t0 = time.perf_counter()
+            obj.save_async(w)
+            submit.append(time.perf_counter() - t0)
+            w.flush()
+            done.append(time.perf_counter() - t0)
+            obj.path = path
+        check(w.errors == 0, f"the writer reports {w.errors} failed writes")
+    return tuple(1e3 * min(v) for v in (sync, submit, done))
+
+
+TABLE_CHILD = """
+import sys
+sys.path.insert(0, {root!r})
+import numpy as np
+from sim5_tpu_torch.tables import generate_disk_table
+generate_disk_table(sys.argv[1], verbose=True, energies=np.geomspace(
+    0.1, 30.0, 64), **{grid!r})
+"""
+
+
+def killed_table(path):
+    """Start generate_disk_table over TABLE in a child process on the
+    card, SIGKILL it once it has reported TABLE_KILL_AT rows, and return
+    the rows its table holds then."""
+    import signal
+    from sim5_tpu_torch.tables import SpectralTable
+    grid = {k: v for k, v in TABLE.items() if k != "energies"}
+    src = TABLE_CHILD.format(root=str(pathlib.Path(__file__).resolve()
+                                      .parent), grid=grid)
+    proc = subprocess.Popen([sys.executable, "-u", "-c", src, path],
+                            stdout=subprocess.PIPE, text=True)
+    rows = 0
+    try:
+        for line in proc.stdout:
+            rows += line.startswith("[tables] row")
+            if rows >= TABLE_KILL_AT:
+                os.kill(proc.pid, signal.SIGKILL)
+                break
+    finally:
+        proc.kill()
+        proc.wait(timeout=120)
+    check(proc.returncode == -signal.SIGKILL, f"the table's child ended "
+          f"with {proc.returncode} before it was killed")
+    return SpectralTable.open(path).progress[0]
+
+
+def phase_tables(dev, tmp):
+    """Example 08's grid at its full size through generate_disk_table on
+    the card, f64 and fast (f32), rows timed; three f64 rows against the
+    same rows on the host's CPU; a child process killed after
+    TABLE_KILL_AT rows and resumed, bitwise the uninterrupted table; the
+    polarized grid; a table's save() against save_async."""
+    from sim5_tpu_torch.march import kernel_march
+    from sim5_tpu_torch.render import kernel_image
+    from sim5_tpu_torch.tables import (SpectralTable, generate_disk_table,
+                                       generate_polarized_table)
+    for counts in (kernel_march.LAUNCHES, kernel_image.LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
+    n_rows = int(np.prod([len(TABLE[k]) for k in ("spins", "mdots",
+                                                  "incls")]))
+    t0 = time.perf_counter()
+    t64, rows64 = timed_rows(lambda: generate_disk_table(
+        os.path.join(tmp, "t64.npz"), device=dev, verbose=True, **TABLE))
+    total64 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t32, rows32 = timed_rows(lambda: generate_disk_table(
+        os.path.join(tmp, "t32.npz"), device=dev, verbose=True, fast=True,
+        **TABLE))
+    total32 = time.perf_counter() - t0
+    for tag, t in (("f64", t64), ("fast", t32)):
+        check(t.progress == (n_rows, n_rows), f"{tag} table: {t.progress}")
+        check(bool(np.isfinite(t.spectra).all()
+                   and (t.spectra.max(1) > 0).all()),
+              f"{tag} table: rows not finite and positive")
+    check(t32.meta["fast"] is True and t64.meta["fast"] is False,
+          "the tables' meta does not record their mode")
+    fast_rel = rows_rel(t32.spectra, t64.spectra)
+    check(fast_rel < 1e-5, f"fast rows vs f64 rows {fast_rel:.3e} > 1e-5")
+    # three rows again on the host's CPU, as one-row tables
+    t0 = time.perf_counter()
+    cpu_rel = []
+    for idx in TABLE_CPU_ROWS:
+        p = t64.row_params(idx)
+        one = generate_disk_table(
+            os.path.join(tmp, f"cpu{idx}.npz"), [p["spin"]], [p["mdot"]],
+            [p["incl"]], TABLE["energies"], radres=TABLE["radres"],
+            angres=TABLE["angres"], device="cpu")
+        cpu_rel.append(rows_rel(t64.spectra[idx:idx + 1], one.spectra))
+    cpu_s = time.perf_counter() - t0
+    check(max(cpu_rel) <= 1e-9, f"card rows vs CPU rows {max(cpu_rel):.3e} "
+          f"> 1e-9")
+    # a child process killed mid-grid, then resumed here
+    t0 = time.perf_counter()
+    killed_path = os.path.join(tmp, "killed.npz")
+    done = killed_table(killed_path)
+    child_s = time.perf_counter() - t0
+    check(TABLE_KILL_AT <= done < n_rows, f"the killed table holds {done} "
+          f"of {n_rows} rows")
+    t0 = time.perf_counter()
+    resumed, rows_resumed = timed_rows(lambda: generate_disk_table(
+        killed_path, device=dev, verbose=True, **TABLE))
+    resume_s = time.perf_counter() - t0
+    check(len(rows_resumed) == n_rows - done, f"the resume computed "
+          f"{len(rows_resumed)} rows, not the {n_rows - done} missing")
+    check(np.array_equal(resumed.spectra, t64.spectra), "the resumed table "
+          "is not bitwise the uninterrupted one")
+    # the polarized grid
+    t0 = time.perf_counter()
+    pol, pol_rows = timed_rows(lambda: generate_polarized_table(
+        os.path.join(tmp, "pol.npz"), device=dev, verbose=True, **POL_TABLE))
+    pol_s = time.perf_counter() - t0
+    ne = len(POL_TABLE["energies"])
+    I, Q, U = (pol.spectra[:, k * ne:(k + 1) * ne] for k in range(3))
+    deg = np.hypot(Q, U) / I
+    check(pol.progress == (9, 9) and bool(np.isfinite(pol.spectra).all())
+          and bool((I > 0).all()) and float(deg.max()) < 0.12,
+          f"polarized table: {pol.progress}, degree up to {deg.max():.4f}")
+    sync_ms, submit_ms, async_ms = save_times(
+        t64, os.path.join(tmp, "t64_async.npz"))
+    check(SpectralTable.open(os.path.join(tmp, "t64_async.npz")).progress
+          == (n_rows, n_rows), "the asynchronously saved table")
+    launches = sum(kernel_march.LAUNCHES.values()) + sum(
+        kernel_image.LAUNCHES.values())
+    check(launches == 0, f"the tables launched {launches} kernels")
+    print(f"phase 23 tables (example 08: {n_rows} rows of "
+          f"{len(TABLE['energies'])} energies, radres {TABLE['radres']}, "
+          f"angres {TABLE['angres']}; {card()}): f64 grid {total64:.3f} s, a "
+          f"row {spread(sorted(rows64 * 1e3))} ms min / median / max (the "
+          f"first {rows64[0] * 1e3:.1f} ms; rows include their save) | fast "
+          f"grid {total32:.3f} s, a row {spread(sorted(rows32 * 1e3))} ms, "
+          f"vs f64 {fast_rel:.3e} relative (gate 1e-5) | rows "
+          f"{list(TABLE_CPU_ROWS)} on the host's CPU {cpu_s:.3f} s, vs the "
+          f"card " + ", ".join(f"{v:.3e}" for v in cpu_rel) + " relative "
+          f"(gate 1e-9) | a child killed after {done} rows ({child_s:.2f} s "
+          f"with its start), resumed here ({len(rows_resumed)} rows) in "
+          f"{resume_s:.3f} s: bitwise the uninterrupted table | polarized "
+          f"grid (3 spins x 3 inclinations, npix {POL_TABLE['npix']}, {ne} energies) "
+          f"{pol_s:.3f} s, a row {spread(sorted(pol_rows * 1e3))} ms, "
+          f"degree {deg.min():.4f} to {deg.max():.4f} | the table's save() "
+          f"{sync_ms:.3f} ms, save_async {submit_ms:.3f} ms to submit, "
+          f"{async_ms:.3f} ms until written (min of {SAVE_RUNS}) | kernel "
+          f"launches 0 (eager torch)", flush=True)
+    return dict(row_ms=float(np.median(rows64)) * 1e3, total64=total64,
+                total32=total32, save_ms=sync_ms, async_ms=submit_ms)
+
+
+def stack(path, fn, n, shape, stop=None, **kw):
+    """checkpointed_frames(path, fn, n, shape, **kw), interrupted when fn
+    would start frame `stop` (None: never).  Returns (the checkpoint, or
+    the frames its file holds after the interruption; the frames this
+    call computed)."""
+    from sim5_tpu_torch.render import FrameCheckpoint, checkpointed_frames
+    computed = []
+
+    def frame(i):
+        if i == stop:
+            raise Interrupted(i)
+        computed.append(i)
+        return fn(i)
+
+    try:
+        return checkpointed_frames(path, frame, n, shape, **kw), len(computed)
+    except Interrupted:
+        writer = kw.get("writer")
+        if writer is not None:
+            writer.flush()
+        return FrameCheckpoint.open(path).progress[0], len(computed)
+
+
+def bridge_twin(dev):
+    """tests/data/external_diskmodel.c's model written in torch on `dev`
+    (tests/test_torch_external_disk.py's PyTwin)."""
+    rin = 6.0 * (1.0 - 0.5 * 0.7)
+
+    class Twin:
+        def _r(self, r):
+            return torch.as_tensor(r, dtype=torch.float64, device=dev)
+
+        def r_min(self):
+            return self._r(rin)
+
+        def mdot(self):
+            return self._r(0.1)
+
+        def lumi(self):
+            return self._r(0.05)
+
+        def flux(self, r):
+            r = self._r(r)
+            rs = torch.clamp(r, min=rin * (1 + 1e-12))
+            return torch.where(r > rin, 1.0e26 * rs ** -3.0 * (
+                1.0 - torch.sqrt(rin / rs)), 0.0)
+
+        def t_eff(self, r):
+            from sim5_tpu_torch import consts
+            return (torch.clamp(self.flux(r), min=0.0)
+                    / consts.sb_sigma) ** 0.25
+
+        def sigma(self, r):
+            return 1.0e5 * self._r(r) ** -0.6
+
+        def ell(self, r):
+            r = self._r(r)
+            return torch.sqrt(r) / (1.0 + 1.0 / r)
+
+        def vr(self, r):
+            return torch.zeros_like(self._r(r))
+
+        h = dhdr = vr
+
+    return Twin()
+
+
+def phase_checkpoints(dev, tmp, native_hash):
+    """checkpointed_frames over the spin sweep's first N_STACK frames (f32,
+    512^2, through nt_image, flushed through the AsyncWriter every
+    STACK_FLUSH frames): uninterrupted, and interrupted after STACK_STOP
+    frames and resumed, bitwise each other and the frames of the one
+    launch of N_STACK; a VOL_STACK-frame stack of example 07's orbiting
+    spot through volume_image(engine="kernel") (t0 a quarter period
+    apart, N_VOL_STACK^2), interrupted and resumed; the checkpointed hot
+    spot light curve; the external disk bridge's image on the card against
+    its torch twin; the native writer built under build/, native/
+    untouched."""
+    from sim5_tpu_torch import _build
+    from sim5_tpu_torch.core import OmegaK
+    from sim5_tpu_torch.disk import ExternalDisk
+    from sim5_tpu_torch.march import kernel_march
+    from sim5_tpu_torch.native import AsyncWriter, native_available
+    from sim5_tpu_torch.render import (DiskRaytrace, DiskSpectrum_BlackBody,
+                                       hotspot_lightcurve_checkpointed,
+                                       kernel_image, render_disk_image,
+                                       volume_image)
+    check(native_available(), "the native writer did not build or load")
+    lib = pathlib.Path(_build.BUILDS["sim5io"]["path"])
+    check(lib.parent == _build.BUILD_DIR, f"the native writer is {lib}")
+    # the spin sweep as a checkpointed stack of one-frame launches
+    spins = sweep_spins()[:N_STACK]
+    shape = (N_IMAGE, N_IMAGE)
+
+    def nt_frame(i):
+        return render_disk_image(nt_disk(torch.float32, dev, spins[i]),
+                                 NT["incl"], N_IMAGE, N_IMAGE)[0]
+
+    kernel_image.LAUNCHES.update(dict.fromkeys(kernel_image.LAUNCHES, 0))
+    meta = dict(sweep="spin", a0=spins[0], npix=N_IMAGE)
+    with AsyncWriter() as w:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clean, _ = stack(os.path.join(tmp, "nt_clean.npz"), nt_frame,
+                         N_STACK, shape, flush_every=STACK_FLUSH, meta=meta,
+                         writer=w)
+        clean_s = time.perf_counter() - t0
+        nt_launches = dict(kernel_image.LAUNCHES)
+        path = os.path.join(tmp, "nt_stop.npz")
+        done, _ = stack(path, nt_frame, N_STACK, shape, stop=STACK_STOP,
+                        flush_every=STACK_FLUSH, meta=meta, writer=w)
+        t0 = time.perf_counter()
+        resumed, n_resumed = stack(path, nt_frame, N_STACK, shape,
+                                   flush_every=STACK_FLUSH, meta=meta,
+                                   writer=w)
+        resume_s = time.perf_counter() - t0
+        bytes_written = w.bytes_written
+    for v in ("nt_frames<float>", "nt_image<float>"):
+        check(nt_launches[v] == N_STACK, f"the stack launched {v} "
+              f"{nt_launches[v]} times, not {N_STACK}")
+    check(0 < done <= STACK_STOP and n_resumed == N_STACK - done,
+          f"the interrupted stack holds {done} frames, and its resume "
+          f"computed {n_resumed}")
+    check(np.array_equal(resumed.frames, clean.frames), "the resumed NT "
+          "stack is not bitwise the uninterrupted one")
+    sweep = render_disk_image(nt_disks(torch.float32, dev, spins),
+                              NT["incl"], N_IMAGE, N_IMAGE)[0]
+    launch_equal = np.array_equal(sweep.double().cpu().numpy(), clean.frames)
+    check(launch_equal, "the stack's frames are not bitwise the frames of "
+          f"one launch of {N_STACK}")
+    check(float(clean.frames.max()) > 0, "the NT stack is dark")
+    sync_ms, submit_ms, async_ms = save_times(
+        clean, os.path.join(tmp, "nt_async.npz"))
+    # example 07's orbiting spot, one volume image a frame
+    period = 2.0 * math.pi / float(OmegaK(torch.tensor(
+        SPOT["r_spot"], dtype=torch.float64), SPOT["a"]))
+
+    def vol_frame(i):
+        return volume_image(VOL_SPOT["a"], VOL_SPOT["incl"], spot(),
+                            engine="kernel", t0=0.25 * period * i, device=dev,
+                            **volume_kw(VOL_SPOT, N_VOL_STACK))
+
+    kernel_march.LAUNCHES.update(dict.fromkeys(kernel_march.LAUNCHES, 0))
+    vshape = (N_VOL_STACK, N_VOL_STACK)
+    t0 = time.perf_counter()
+    vclean, _ = stack(os.path.join(tmp, "vol_clean.npz"), vol_frame,
+                      VOL_STACK, vshape)
+    vol_s = time.perf_counter() - t0
+    vol_launches = dict(kernel_march.LAUNCHES)
+    vpath = os.path.join(tmp, "vol_stop.npz")
+    vdone, _ = stack(vpath, vol_frame, VOL_STACK, vshape,
+                     stop=VOL_STACK // 2)
+    vres, v_resumed = stack(vpath, vol_frame, VOL_STACK, vshape)
+    variant = kernel_march.VARIANTS[1]
+    check(vol_launches[variant] >= VOL_STACK, f"the volume stack launched "
+          f"{variant} {vol_launches[variant]} times")
+    check(vdone == VOL_STACK // 2 and v_resumed == VOL_STACK - vdone,
+          f"the interrupted volume stack holds {vdone} frames, and its "
+          f"resume computed {v_resumed}")
+    check(np.array_equal(vres.frames, vclean.frames), "the resumed volume "
+          "stack is not bitwise the uninterrupted one")
+    check(bool((vclean.frames.reshape(VOL_STACK, -1).max(1) > 0).all()),
+          "a dark volume frame")
+    # the checkpointed hot spot light curve: two chunks, one period apart
+    hc = HOTSPOT_CK
+    t_obs = np.arange(hc["n_t"]) / hc["n_t"] * 2 * period
+    t0 = time.perf_counter()
+    _, lc = hotspot_lightcurve_checkpointed(
+        os.path.join(tmp, "lc.npz"), SPOT["a"], SPOT["incl"], SPOT["r_spot"],
+        SPOT["size"], t_obs, npix=hc["npix"], n_orders=hc["n_orders"],
+        chunk=hc["chunk"], device=dev)
+    lc_s = time.perf_counter() - t0
+    half = hc["n_t"] // 2
+    per_rel = float(np.abs(lc[half:] - lc[:half]).max() / lc[:half].min())
+    check(bool(np.isfinite(lc).all() and (lc > 0).all()) and per_rel <= 1e-9,
+          f"checkpointed light curve: one period apart {per_rel:.3e} > 1e-9")
+    # the external disk bridge on the card against its torch twin
+    cc = shutil.which("cc") or shutil.which("gcc")
+    check(cc is not None, "no C compiler for the external disk model")
+    so = _build.BUILD_DIR / "external_diskmodel.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cc, "-shared", "-fPIC", "-O2", "-o", str(so),
+                    str(pathlib.Path(__file__).resolve().parent / "tests" /
+                        "data" / "external_diskmodel.c"), "-lm"], check=True)
+    t0 = time.perf_counter()
+    disk = ExternalDisk.create(str(so), 10.0, 0.7, device=dev)
+    bridge_s = time.perf_counter() - t0
+    images = [DiskRaytrace(10.0, 0.7, 10.0, d, DiskSpectrum_BlackBody(),
+                           device=dev).image(60.0, 20.0, N_BRIDGE)["flux"]
+              for d in (disk, bridge_twin(dev))]
+    hit = torch.isfinite(images[0])
+    check(images[0].device == disk.rmin_.device == dev,
+          "the bridge image did not run on the card")
+    check(bool((hit == torch.isfinite(images[1])).all())
+          and int(hit.sum()) > 100,
+          "the bridge image's footprint is not its twin's")
+    b_rel = float(((images[0] - images[1]).abs() / images[1].abs())[hit]
+                  .max())
+    check(b_rel <= 1e-5, f"bridge image vs twin {b_rel:.3e} > 1e-5")
+    check(_native_hash() == native_hash, "native/ changed")
+    print(f"phase 24 checkpoints and IO ({card()}): spin sweep of {N_STACK} "
+          f"f32 frames at {N_IMAGE}^2 through checkpointed_frames (flushed "
+          f"every {STACK_FLUSH} through the native AsyncWriter) in "
+          f"{clean_s:.3f} s, LAUNCHES={launched(nt_launches)}; interrupted "
+          f"at frame "
+          f"{STACK_STOP} with {done} on disk, resumed ({n_resumed} frames) "
+          f"in {resume_s:.3f} s: "
+          f"bitwise the uninterrupted stack and the one launch of "
+          f"{N_STACK} | the stack's save() {sync_ms:.3f} ms, save_async "
+          f"{submit_ms:.3f} ms to submit, {async_ms:.3f} ms until written "
+          f"({clean.frames.nbytes / 2 ** 20:.0f} MiB; min of {SAVE_RUNS}; "
+          f"{bytes_written / 2 ** 20:.0f} MiB written by the writer) | "
+          f"orbiting spot, {VOL_STACK} frames at {N_VOL_STACK}^2 through "
+          f"volume_image(engine=\"kernel\") in {vol_s:.3f} s, "
+          f"LAUNCHES={launched(vol_launches)}; interrupted with {vdone} done, "
+          f"resumed ({v_resumed} frames) bitwise | "
+          f"hotspot_lightcurve_checkpointed ({hc['n_t']} times in chunks "
+          f"of {hc['chunk']}, {hc['npix']}^2, {hc['n_orders']} orders) {lc_s:.3f} s, chunks one period apart "
+          f"within {per_rel:.3e} (gate 1e-9) | external disk bridge: "
+          f"tables {bridge_s:.3f} s, {N_BRIDGE}^2 image vs its twin "
+          f"{b_rel:.3e} (gate 1e-5), footprints equal | native writer "
+          f"{lib.name}, native/ unchanged", flush=True)
+    return dict(stack_s=clean_s, vol_s=vol_s, lc_s=lc_s, save_ms=sync_ms,
+                async_ms=submit_ms)
+
+
+def launched(counts):
+    """The kernels of a LAUNCHES dict launched at least once."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def _native_hash():
+    """sha256 of the files under native/ (the JAX package's writer)."""
+    h = hashlib.sha256()
+    root = pathlib.Path(__file__).resolve().parent / "native"
+    for p in sorted(root.iterdir()):
+        h.update(p.name.encode() + p.read_bytes())
+    return h.hexdigest()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3864,6 +4347,7 @@ def main():
             print(f"FAILED: {e}", file=sys.stderr)
             return 1
     t_start = time.perf_counter()
+    native_hash = _native_hash()
     try:
         name, lengths = phase_device()
         torch.cuda.synchronize()
@@ -3909,6 +4393,10 @@ def main():
         grad_rows = phase_image_grad(dev, image_counts, lengths)
         torch.cuda.synchronize()
         phase_scan(dev)
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory(prefix="sim5_smoke_") as tmp:
+            phase_tables(dev, tmp)
+            phase_checkpoints(dev, tmp, native_hash)
         torch.cuda.synchronize()
     except PhaseFailed as e:
         print(f"FAILED: {e}", file=sys.stderr)

@@ -5,13 +5,18 @@ counterpart sits at the same path.  It holds the Novikov-Thorne disk image,
 the disk raytracing driver (thick-disk surface solves, `DiskRaytrace`
 images and spectra, the differentiable spectrum fit), the equatorial
 thin-disk products (the shadow, polarized images and spectra, line
-profiles), the stepwise Kerr ray march and volume radiative transfer: the spacetime core (`core`), the special functions (`special`,
-`utils`), the analytic geodesic engine (`geodesic`), the thin disk and its
-model protocol (`disk`), blackbody emission (`radiation`), Walker-Penrose
-transport (`polarization`), the march (`march`) and the renderers
-(`render`), with two kernels written in CUDA C++ for
-Hopper and built by `_build.py` on first use: the march
-(`csrc/march.cu`) and the disk image (`csrc/disk_image.cu`).
+profiles), the stepwise Kerr ray march and volume radiative transfer,
+resumable spectral tables and frame checkpoints: the spacetime core
+(`core`), the special functions with interpolation and tabulated
+distributions (`special`, `utils`), the analytic geodesic engine
+(`geodesic`), the thin disk, external compiled disks and the model
+protocol (`disk`), blackbody emission (`radiation`), Walker-Penrose
+transport (`polarization`), the march (`march`), the renderers and frame
+checkpoints (`render`), the spectral tables (`tables`) and the native
+asynchronous writer (`native`), with three kernels written in CUDA C++
+for Hopper and built by `_build.py` on first use: the march
+(`csrc/march.cu`), the disk image (`csrc/disk_image.cu`) and its tangent
+kernel (`csrc/disk_image_jvp.cu`).
 
 Design notes
 ------------
@@ -36,5 +41,6 @@ from . import radiation
 from . import polarization
 from . import march
 from . import render
+from . import tables
 
 __version__ = "0.1.0"

@@ -6,7 +6,8 @@ sources and flags, so an unchanged source is built once and reused.  The
 library exposes a plain C interface and is loaded with `ctypes`; the
 caller declares each function's signature.  The compiler's register and
 spill report (`-Xptxas -v`) is kept beside the library as
-`lib<name>_<hash>.log`.
+`lib<name>_<hash>.log`.  `load_host` builds a host C++ source (the native
+IO runtime) the same way with g++.
 
 No fast math: the kernels use the IEEE-accurate cosf, sqrtf and division.
 """
@@ -23,6 +24,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "sim5_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the host libraries (the native IO runtime, native/sim5io.cpp)
+HOST_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-pthread", "-shared")
 
 # name -> {"path", "log", "seconds", "cached"} of each library loaded in
 # this process
@@ -43,11 +46,22 @@ def _nvcc():
 def load(name, extra_flags=()):
     """Build (if needed) and load `csrc/<name>.cu` as a ctypes library,
     with `extra_flags` after NVCC_FLAGS (this library's own options)."""
-    src = CSRC / f"{name}.cu"
-    headers = sorted(CSRC.glob("*.cuh"))
-    flags = NVCC_FLAGS + tuple(extra_flags)
+    return _load(name, [_nvcc()], NVCC_FLAGS + tuple(extra_flags),
+                 CSRC / f"{name}.cu", sorted(CSRC.glob("*.cuh")))
+
+
+def load_host(name, src, compiler):
+    """Build (if needed) and load the C++ file `src` with the host compiler
+    `compiler` (a path to g++) and HOST_FLAGS, as library `name`."""
+    return _load(name, [compiler], HOST_FLAGS, pathlib.Path(src), [])
+
+
+def _load(name, cmd, flags, src, headers):
+    """Compile `src` by `cmd` + `flags` into BUILD_DIR, named by a hash of
+    the flags, the source and `headers`, unless that library exists, and
+    load it."""
     digest = hashlib.sha256(" ".join(flags).encode())
-    for p in [src] + headers:
+    for p in [src] + list(headers):
         digest.update(p.read_bytes())
     lib_path = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
     log = lib_path.with_suffix(".log")
@@ -59,10 +73,10 @@ def load(name, extra_flags=()):
         # never load a half-written library
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
         proc = subprocess.run(
-            [_nvcc(), *flags, "-o", str(tmp), str(src)],
+            [*cmd, *flags, "-o", str(tmp), str(src)],
             capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+            raise RuntimeError(f"{cmd[0]} failed on {src}:\n{proc.stderr}")
         log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))

@@ -1,8 +1,8 @@
 """Disk models: the Novikov-Thorne thin disk and the pluggable model
 protocol.
 
-Port of `sim5_tpu/disk` (the external-library disk waits for a later
-slice).
+Port of `sim5_tpu/disk`, with the bridge to external compiled disk
+models (`ExternalDisk`).
 """
 
 from .nt import (
@@ -11,3 +11,4 @@ from .nt import (
     nt_sigma, nt_ell, nt_vr, nt_h, nt_dhdr, nt_dump,
 )
 from .base import DiskModel, ThinDisk
+from .external import ExternalDisk, ExternalDiskLibrary

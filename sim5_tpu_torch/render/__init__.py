@@ -2,9 +2,10 @@
 the disk raytracing driver (thick-disk surface solves, `DiskRaytrace`
 images and spectra) and the differentiable spectrum fit, the black-hole
 shadow, polarized images and spectra, line profiles and transfer
-functions, volume radiative transfer and the hot-spot light curve.
+functions, volume radiative transfer, the hot-spot light curve and
+resumable frame checkpoints.
 
-Port of `sim5_tpu/render` (the checkpoints wait for a later slice).
+Port of `sim5_tpu/render`.
 """
 
 from .image import image_grid, render_disk_image, render_disk_image_reference
@@ -19,5 +20,7 @@ from .polarized import (render_polarized_image, chandrasekhar_poldeg,
                         polarized_spectrum)
 from .lightcurve import (equatorial_crossing_map, hotspot_lightcurve,
                          volume_image, volume_lightcurve)
+from .checkpoint import (FrameCheckpoint, checkpointed_frames,
+                         hotspot_lightcurve_checkpointed)
 from .lineprofile import disk_g_map, line_profile, transfer_function
 from .shadow import BHImage, gfactor_plunge, render_bh_image

@@ -2,14 +2,17 @@
 integrals, the Legendre forms, the Jacobi elliptic functions and their
 inverses, and the Byrd & Friedman tabulated integrals.
 
-Port of `sim5_tpu/special` (all but interpolation, distributions and the
-Gauss-Legendre helpers).  Every function broadcasts and keeps its inputs'
-dtype and device; the fixed iteration depths are chosen by dtype (f64 or
-f32), not by a global switch.
+Port of `sim5_tpu/special`, with its interpolation tables, tabulated
+distributions and quadrature rules.  Every function broadcasts and keeps
+its inputs' dtype and device; the fixed iteration depths are chosen by
+dtype (f64 or f32), not by a global switch.  The JAX package's
+`set_duplication_mode` has no counterpart: precision follows the dtype.
 """
 
 from .polyroots import (quadratic_roots, cubic_roots, quartic_roots,
-                        sort_quartic_roots, polish_quartic_real_roots_df)
+                        quartic_roots_c, sort_quartic_roots,
+                        polish_quartic_real_roots,
+                        polish_quartic_real_roots_df)
 from .carlson import rf, rd, rc, rj
 from .legendre import (
     elliptic_k, elliptic_k_mc, elliptic_f, elliptic_f_cos, elliptic_f_sin,
@@ -33,3 +36,11 @@ from .integrals import (
     integral_T_m0, integral_T_m2, integral_T_mp,
     integral_T_m0_dn, integral_T_m2_dn, integral_T_mp_dn,
 )
+from .interp import (Interp, interp_init, interp_eval,
+                     InterpBuilder, interp_init_build,
+                     INTERP_TYPE_LINLIN, INTERP_TYPE_LOGLOG,
+                     INTERP_TYPE_LOGLIN, INTERP_TYPE_SPLINE,
+                     INTERP_OPT_ALLOW_EXTRAPOLATION)
+from .quadrature import integrate_trapezoid, integrate_simpson, gauleg, qgaus
+from .roots import rtbis
+from .distributions import Distrib, distrib_init, distrib_icdf, distrib_hit

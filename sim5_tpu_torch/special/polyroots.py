@@ -157,6 +157,21 @@ def quartic_roots(a3, a2, a1, a0):
     return re, im, n1 + n2
 
 
+def quartic_roots_c(a3, a2, a1, a0):
+    """Roots of z^4 + a3 z^3 + a2 z^2 + a1 z + a0 = 0 (real coefficients)
+    handed back as four separate complex roots (re, im) plus n_real: the
+    roots of `quartic_roots`, sorted (real first, descending; conjugate
+    pairs adjacent) and unpacked one a slot.  (reference: quartic_eq_c,
+    sim5polyroots.c:450-479)
+
+    Returns (n_real, (re1, im1), (re2, im2), (re3, im3), (re4, im4)).
+    """
+    re, im, _ = quartic_roots(a3, a2, a1, a0)
+    re, im, n_real = sort_quartic_roots(re, im)
+    return n_real, (re[..., 0], im[..., 0]), (re[..., 1], im[..., 1]), \
+        (re[..., 2], im[..., 2]), (re[..., 3], im[..., 3])
+
+
 def _split(a):
     """Veltkamp split a = hi + lo (both halves exact)."""
     c = a * _splitter(a.dtype)
@@ -195,6 +210,17 @@ def _newton_step_compensated(z, im, c2, c1, c0):
     ok = (im == 0.0) & (torch.abs(dR) > 1e-5 * scale) & torch.isfinite(R)
     delta = torch.where(ok, -R / torch.where(ok, dR, 1.0), 0.0)
     return z + delta, delta, ok
+
+
+def polish_quartic_real_roots(re, im, c2, c1, c0):
+    """One compensated-Newton step on the real roots of the depressed
+    quartic z^4 + c2 z^2 + c1 z + c0: the closed form leaves roots 10-40
+    ulp off in f32, and one step with R evaluated as if in twice the
+    precision lands them at ~1 ulp.  Near-double roots (|R'| ~ 0) and
+    complex roots pass through unchanged."""
+    z, _, _ = _newton_step_compensated(
+        re, im, c2[..., None], c1[..., None], c0[..., None])
+    return z
 
 
 def polish_quartic_real_roots_df(re, im, c2, c1, c0):

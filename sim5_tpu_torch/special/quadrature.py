@@ -1,12 +1,14 @@
-"""Fixed-grid quadrature: trapezoid and composite Simpson rules.
+"""Fixed-grid quadrature: trapezoid and composite Simpson rules, and
+Gauss-Legendre.
 
-Port of `sim5_tpu/special/quadrature.py` (the fixed-grid rules; the
-Gauss-Legendre nodes wait for the slices that need them).  Fixed node
-counts replace the reference's adaptive refinement (sim5integration.c),
-so a rule evaluates in lockstep.  Weights are float64 tensors on
-`device`; cast them to the integrand's dtype where it differs.
+Port of `sim5_tpu/special/quadrature.py`.  Fixed node counts replace the
+reference's adaptive refinement (sim5integration.c), so a rule evaluates
+in lockstep.  Weights are float64 tensors on `device`; cast them to the
+integrand's dtype where it differs.  The Gauss-Legendre nodes are numpy's
+`leggauss` on the host, sent to the device.
 """
 
+import numpy as np
 import torch
 
 from ..core.metric import default_device
@@ -49,3 +51,23 @@ def integrate_simpson(f, a, b, n=4096):
     ys = f(xs)
     w = simpson_weights(n, xs.device).to(ys.dtype)
     return (b - a) / n / 3.0 * torch.sum(w * ys)
+
+
+def gauleg(a, b, n, dtype=torch.float64, device=None):
+    """Gauss-Legendre nodes and weights on [a, b] (Python numbers), as
+    `dtype` tensors on `device` (the card unless the caller asks for the
+    CPU).  (reference: gauleg, sim5integration.c:163-213)"""
+    x, w = np.polynomial.legendre.leggauss(n)
+    x = 0.5 * (b - a) * x + 0.5 * (b + a)
+    w = 0.5 * (b - a) * w
+    dev = default_device(device)
+    return (torch.as_tensor(x, dtype=dtype, device=dev),
+            torch.as_tensor(w, dtype=dtype, device=dev))
+
+
+def qgaus(f, a, b, n=10, device=None):
+    """Fixed-order Gauss-Legendre quadrature of f on [a, b], on `device`
+    (the card unless the caller asks for the CPU).  (reference: qgaus,
+    sim5integration.c:138-155)"""
+    x, w = gauleg(float(a), float(b), n, device=device)
+    return torch.sum(w * f(x))

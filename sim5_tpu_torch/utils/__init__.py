@@ -1,5 +1,7 @@
 """Numerical utilities: error-free transforms, accurate transcendentals,
-the small math helpers of sim5math.c and structured run logging."""
+the small math helpers of sim5math.c, option parsing, structured run
+logging, the FITS subset (`utils.fitsio`) and the host boundary of the
+tables and checkpoints (`utils.host`)."""
 
 from .fastmath import (two_sum, two_prod, sqrt_df, vlog, log_accurate,
                        exp_accurate, expm1_accurate)
@@ -9,4 +11,5 @@ from .math import (
     cartesian_to_spherical, spherical_to_cartesian, sim5round,
     cartesian_vector_to_spherical, cartesian_vector_to_spherical_at,
 )
+from .options import key_value_get
 from .log import get_logger, log_run
