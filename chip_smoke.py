@@ -7,7 +7,10 @@ profiles and transfer functions), the disk raytracing driver (the
 thick-disk surface solve, DiskRaytrace images and spectra, and the
 differentiable spectrum), the derivative layer (the disk image's
 gradient through its tangent kernel, and the reverse-differentiable
-march), and the spectral tables, frame checkpoints and host IO.
+march), the spectral tables, frame checkpoints and host IO, the parallel
+layer (row windows of the image kernels, the sharded render, the
+data-parallel Adam fit, DiskRaytrace and the tables with mesh=) and
+every example of the port.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -188,7 +191,25 @@ on first use, all at once.  Phases, one line each:
     disk bridge (tests/data/external_diskmodel.c built with cc into
     build/) rendering a 48^2 DiskRaytrace image on the card against the
     model written in torch (the same footprint, 1e-5); the native writer
-    built under build/ and loaded, native/ unchanged.
+    built under build/ and loaded, native/ unchanged;
+25. the parallel layer on the card: make_mesh() as a one-rank NCCL group;
+    the headline frame (512^2, f64 and f32) in the row windows that
+    meshes of 1, 3 and 7 ranks give their ranks (blocks of 512, 171 and
+    74 rows), bitwise the one-launch frame, and the backward in (a, incl,
+    M, mdot) summed over the windows against the whole frame's (1e-12
+    relative in f64, 1e-5 of the f64 gradient in f32);
+    render_disk_image_sharded bitwise render_disk_image; fit_step_sharded
+    at 512^2 in f64 for 5 Adam steps toward the headline frame (the loss
+    falls; each step timed on the synchronised host clock, its launches
+    counted from 0: 2 forward, 3 backward, 1 all-reduce), step 1's
+    gradient at 128^2 against the plain version's autograd.grad (1e-9
+    relative); DiskRaytrace.image(mesh=) on the cone at 96^2 and
+    .spectrum(mesh=) at example 05's size, and a generate_disk_table(mesh=)
+    row, each bitwise its call without a mesh;
+26. every examples/torch_*.py on the card in this process (runpy): 01,
+    04, 05 and 11 at full size, the others at SIM5_FAST (their full-size
+    paths are phases 15-17, 23 and 24); each one's printed numbers finite
+    and not all zero.
 
 Then one JSON line on the kernels, the card's name and power limit, and
 the result as the last line.  Any failed check exits non-zero.  The script
@@ -3518,6 +3539,10 @@ def phase_scan(dev):
     fd_s = time.perf_counter() - t0
     groups = {"kept": held & conv, "trial count changes": ~held,
               "FD unconverged": held & ~conv}
+    print(f"phase 22 rays whose FD does not converge at {SCAN_SIZE}^2 "
+          f"(row-major pixel indices): "
+          f"{groups['FD unconverged'].flatten().nonzero().flatten().tolist()}",
+          flush=True)
     # one forward and one backward of I.sum(), timed, with a leaf of each
     # parameter for each group of rays (the image is the same bit for bit),
     # so the backward gives each group's share of d I.sum() / d(a, radius)
@@ -3782,7 +3807,7 @@ def tune_launch(lib, frames, tangent, grad_f=None, grad_g=None):
                              bufs[0].data_ptr(), bufs[1].data_ptr()]
     rc = lib.sim5_nt_image_jvp(
         int(dt == torch.float64), k, frames.data_ptr(), tangent.data_ptr(),
-        work.data_ptr(), n, *ptrs, nx, ny, 1.0,
+        work.data_ptr(), n, *ptrs, nx, ny, 0, ny, 1.0,
         torch.cuda.current_stream(dev).cuda_stream)
     check(rc == 0, f"tuning launch failed: cudaError {rc}")
     return bufs
@@ -4308,6 +4333,382 @@ def phase_checkpoints(dev, tmp, native_hash):
                 async_ms=submit_ms)
 
 
+# the parallel layer on one card (phase 25)
+WINDOW_SPLITS = (1, 3, 7)      # the headline frame cut as meshes of 1, 3 and
+                               # 7 ranks would cut it (3 and 7 divide no 512)
+FIT_STEPS = 5
+FIT_START = dict(M=10.1, a=0.995, mdot=0.105, incl=math.radians(79.0))
+FIT_LR = 5e-4
+N_FIT_GRAD = 128               # step 1's gradient against the plain version
+# the examples on the card (phase 26): (file, arguments before the device,
+# full size); the others run at SIM5_FAST, their full-size paths being
+# phases 15-17, 23 and 24
+EXAMPLES = (
+    ("torch_01_kerr_spacetime.py", (), True),
+    ("torch_04_disk_image.py", ("0.0", "60", "512"), True),
+    ("torch_05_disk_spectrum.py", ("0.7", "60"), True),
+    ("torch_06_polarization_map.py", ("0.9", "70", "32"), False),
+    ("torch_07_hotspot_lightcurve.py", ("0.5", "70", "7"), False),
+    ("torch_08_spectral_table.py", ("tab.npz",), False),
+    ("torch_09_black_hole_shadow.py", ("0.9", "70", "32"), False),
+    ("torch_10_polarized_spectrum.py", ("0.9", "70"), False),
+    ("torch_11_thick_volume_transfer.py", ("0.9", "70"), True),
+    ("torch_12_checkpointed_survey.py", ("0.7", "60"), False),
+)
+NUMBER = re.compile(r"[-+]?\d+\.\d+e?[-+]?\d*")
+
+
+def window_split(n, k):
+    """[(row0, rows)] of an n-row frame cut as a mesh of k ranks cuts it
+    (parallel.mesh: blocks of ceil(n / k) rows, the last shorter)."""
+    block = -(-n // k)
+    return [(r0, min(block, n - r0)) for r0 in range(0, n, block)]
+
+
+def window_grads(dev, dtype, windows):
+    """The headline frame in the given row windows: the concatenated
+    images, and d/d(a, incl, M, mdot) of the sum over the windows of
+    image_f 1e-25 + image_g, one backward per window."""
+    from sim5_tpu_torch.disk import nt_setup
+    from sim5_tpu_torch.render import render_disk_image
+    leaves = [torch.tensor(v, dtype=dtype, device=dev, requires_grad=True)
+              for v in (NT["a"], NT["incl"], NT["M"], NT["mdot"])]
+    disk = nt_setup(leaves[2], leaves[0], leaves[3],
+                    torch.tensor(NT["alpha"], dtype=dtype, device=dev))
+    fs, gs, grads = [], [], None
+    for r0, rows in windows:
+        f, g = render_disk_image(disk, leaves[1], N_IMAGE, N_IMAGE, None,
+                                 r0, rows)
+        part = torch.autograd.grad((f * 1e-25).sum() + g.sum(), leaves,
+                                   retain_graph=True)
+        grads = part if grads is None else [x + y for x, y in zip(grads,
+                                                                   part)]
+        fs.append(f.detach())
+        gs.append(g.detach())
+    return torch.cat(fs), torch.cat(gs), torch.stack(grads).double()
+
+
+def phase_parallel(dev):
+    """The parallel layer on one card: make_mesh() as a one-rank NCCL
+    group; the headline frame (512^2, f64 and f32) rendered in the row
+    windows that meshes of 1, 3 and 7 ranks would give their ranks,
+    bitwise the one-launch frame, and the backward in (a, incl, M, mdot)
+    summed over the windows against the whole frame's (1e-12 relative in
+    f64, 1e-5 of the f64 gradient in f32); render_disk_image_sharded
+    bitwise render_disk_image; fit_step_sharded at 512^2 in f64 for
+    FIT_STEPS Adam steps from FIT_START toward the headline frame (the
+    loss falls; each step timed on the synchronised host clock, its kernel
+    launches and collectives counted: 2 forward, 3 backward, 1
+    all-reduce), step 1's gradient at 128^2 against the plain version's
+    autograd.grad on the card (1e-9 relative); DiskRaytrace.image(mesh=)
+    at example 12's size and .spectrum(mesh=) at example 05's, and a
+    generate_disk_table(mesh=) row, each bitwise its unsharded call.  The
+    group is destroyed at the end."""
+    import torch.distributed as dist
+    from sim5_tpu_torch.core import r_ms
+    from sim5_tpu_torch.disk import nt_setup
+    from sim5_tpu_torch.parallel import (fit_step_sharded,
+                                         loss_and_grad_sharded, make_mesh,
+                                         render_disk_image_sharded)
+    from sim5_tpu_torch.parallel import mesh as pmesh
+    from sim5_tpu_torch.render import (DiskRaytrace, DiskSpectrum_BlackBody,
+                                       kernel_image, render_disk_image)
+    from sim5_tpu_torch.render.image import render_disk_image_reference
+    from sim5_tpu_torch.tables import generate_disk_table
+    f64, f32 = torch.float64, torch.float32
+    t_phase = time.perf_counter()
+    mesh = make_mesh()
+    check(dist.get_backend(mesh.get_group()) == "nccl" and mesh.size() == 1,
+          f"make_mesh(): {dist.get_backend(mesh.get_group())} group of "
+          f"{mesh.size()}")
+    parts = [f"make_mesh(): one-rank {dist.get_backend(mesh.get_group())} "
+             f"DeviceMesh {mesh.mesh_dim_names}"]
+    # 1. row windows of the headline frame
+    truth = None
+    for dt in (f64, f32):
+        f1, g1, grad1 = window_grads(dev, dt, window_split(N_IMAGE, 1))
+        if dt == f64:
+            truth = grad1
+        errs = []
+        for k in WINDOW_SPLITS[1:]:
+            w = window_split(N_IMAGE, k)
+            fk, gk, gradk = window_grads(dev, dt, w)
+            check(torch.equal(bits(fk), bits(f1))
+                  and torch.equal(bits(gk), bits(g1)),
+                  f"{dt} frame in {len(w)} windows differs from one launch")
+            err = float(((gradk - grad1).abs() / truth.abs()).max())
+            errs.append(err)
+            gate = 1e-12 if dt == f64 else 1e-5
+            check(err <= gate, f"{dt} backward summed over {len(w)} windows "
+                  f"vs the whole frame's: {err:.3e} > {gate}")
+        parts.append(f"{dt} headline frame in windows of "
+                     f"{[window_split(N_IMAGE, k)[0][1] for k in WINDOW_SPLITS]}"
+                     f" rows: bitwise one launch; backward over the windows "
+                     f"vs the whole frame's {max(errs):.3e} (of the f64 "
+                     f"gradient)")
+    # 2. the sharded render against the entry point
+    rmax = float(r_ms(torch.tensor(NT["a"], dtype=f64))) + 8.0
+    fs, gs = render_disk_image_sharded(mesh, NT["M"], NT["a"], NT["mdot"],
+                                       NT["alpha"], NT["incl"], N_IMAGE,
+                                       N_IMAGE, rmax=rmax)
+    fu, gu = render_disk_image(nt_disk(f64, dev), NT["incl"], N_IMAGE,
+                               N_IMAGE, rmax)
+    check(torch.equal(bits(fs), bits(fu)) and torch.equal(bits(gs), bits(gu)),
+          "render_disk_image_sharded differs from render_disk_image")
+    parts.append("render_disk_image_sharded bitwise render_disk_image")
+    # 3. the fit at 512^2, f64
+    target = fu
+    p0 = torch.tensor([FIT_START[k] for k in ("M", "a", "mdot", "incl")],
+                      dtype=f64, device=dev)
+    # step 1's loss and gradient at N_FIT_GRAD^2 against the plain version
+    t128 = render_disk_image(nt_disk(f64, dev), NT["incl"], N_FIT_GRAD,
+                             N_FIT_GRAD, rmax)[0]
+    lg, gk = loss_and_grad_sharded(mesh, p0, t128, None, N_FIT_GRAD,
+                                   N_FIT_GRAD, rmax)
+    leaf = p0.clone().requires_grad_(True)
+    disk = nt_setup(leaf[0], leaf[1], leaf[2], 0.1)
+    imp, _ = render_disk_image_reference(disk, leaf[3], N_FIT_GRAD,
+                                         N_FIT_GRAD, rmax)
+    loss_p = (((imp - t128) ** 2).mean()
+              / torch.clamp((t128 ** 2).mean(), min=1e-300))
+    (gp,) = torch.autograd.grad(loss_p, leaf)
+    loss_p = loss_p.detach()
+    gerr = float(((gk - gp).abs() / gp.abs()).max())
+    check(gerr <= 1e-9, f"fit gradient at {N_FIT_GRAD}^2 vs the plain "
+          f"version's autograd.grad: {gerr:.3e} > 1e-9")
+    check(abs(float(lg) - float(loss_p)) <= 1e-9 * abs(float(loss_p)),
+          f"fit loss {float(lg):.9e} vs plain {float(loss_p):.9e}")
+    L = kernel_image.LAUNCHES
+    C = pmesh.COLLECTIVES
+    fit_path = ([kernel_image.PROLOGUES[f64], kernel_image.VARIANTS[f64]],
+                [kernel_image.JVP_PROLOGUES[f64, 4],
+                 kernel_image.VJP_VARIANTS[f64, 4], kernel_image.REDUCES[f64]])
+    # torch.optim's first step in a process imports its compiler hooks
+    # (seconds): taken once on a scratch tensor, timed apart
+    scratch = torch.zeros(4, dtype=f64, device=dev, requires_grad=True)
+    scratch.grad = torch.ones_like(scratch)
+    t0 = time.perf_counter()
+    torch.optim.Adam([scratch], lr=FIT_LR).step()
+    torch.cuda.synchronize()
+    optim_first_s = time.perf_counter() - t0
+    p, st, losses, step_s = p0, None, [], []
+    for i in range(FIT_STEPS):
+        for c in (L, C):
+            for key in c:
+                c[key] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, loss, st = fit_step_sharded(mesh, p, target, None, N_IMAGE,
+                                       N_IMAGE, lr=FIT_LR, opt_state=st,
+                                       rmax=rmax)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        got = {key: v for key, v in L.items() if v}
+        want = dict.fromkeys(fit_path[0] + fit_path[1], 1)
+        check(got == want and C == {"all_reduce": 1, "all_gather": 0},
+              f"fit step {i + 1} launched {got} and {C}")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"the fit's loss did not fall: {losses}")
+    prof = fit_profile(mesh, p, target, st)
+    check(st[1] == rmax, f"the fit's grid moved: rmax {st[1]} vs {rmax}")
+    parts.append(
+        f"fit_step_sharded at {N_IMAGE}^2, f64, (M, a, mdot, incl) from "
+        f"{tuple(FIT_START.values())}: loss {' -> '.join(f'{v:.6e}' for v in losses)}; "
+        f"step {' / '.join(f'{1e3 * v:.3f}' for v in step_s)} ms (host "
+        f"clock, synchronised; torch.optim's first step in the process "
+        f"{optim_first_s:.3f} s before them); launches a step: "
+        f"{len(fit_path[0])} forward "
+        f"{fit_path[0]}, {len(fit_path[1])} backward {fit_path[1]}, "
+        f"1 all_reduce; one more step under torch.profiler: {prof} | "
+        f"step 1's gradient at {N_FIT_GRAD}^2 vs plain "
+        f"autograd.grad {gerr:.3e} (gate 1e-9); params after "
+        f"{FIT_STEPS} steps {[round(float(v), 9) for v in p]}")
+    # 4. DiskRaytrace with mesh=, and a table row
+    cone = DiskRaytrace(10.0, CONE["a"], 10.0, Cone(),
+                        DiskSpectrum_BlackBody(), device=dev)
+    (im_u, im_s), t_im = synced(lambda: (
+        cone.image(55.0, CONE["rmax"], N_THICK_IMAGE),
+        cone.image(55.0, CONE["rmax"], N_THICK_IMAGE, mesh=mesh)))
+    for key in im_u:
+        check(torch.equal(bits(im_u[key]), bits(im_s[key])),
+              f"DiskRaytrace.image(mesh=) {key} differs from unsharded")
+    rt = thin_driver(dev)
+    kw05 = dict(radres=SPEC05["radres"], angres=SPEC05["angres"],
+                return_diagnostics=True)
+    (s_u, s_s), t_sp = synced(lambda: (
+        rt.spectrum(SPEC05["incl_deg"], SPEC05["E"], **kw05),
+        rt.spectrum(SPEC05["incl_deg"], SPEC05["E"], mesh=mesh, **kw05)))
+    check(all(torch.equal(bits(x), bits(y)) for x, y in zip(s_u[:2], s_s[:2]))
+          and s_u[2] == s_s[2],
+          "DiskRaytrace.spectrum(mesh=) differs from unsharded")
+    with tempfile.TemporaryDirectory(prefix="sim5_mesh_") as tmp:
+        kw = dict(spins=[0.5], mdots=[0.1], incls=[60.0],
+                  energies=np.geomspace(0.1, 30.0, 64), radres=0.5,
+                  angres=20.0, device=dev)
+        t_u = generate_disk_table(os.path.join(tmp, "u.npz"), **kw)
+        t_s = generate_disk_table(os.path.join(tmp, "s.npz"), mesh=mesh,
+                                  **kw)
+        check(np.array_equal(t_u.spectra, t_s.spectra)
+              and np.isfinite(t_s.spectra).all(),
+              "generate_disk_table(mesh=) row differs from unsharded")
+    parts.append(
+        f"DiskRaytrace.image(mesh=) on the cone at {N_THICK_IMAGE}^2 and "
+        f".spectrum(mesh=) at example 05's size, each bitwise unsharded "
+        f"({t_im:.3f} s and {t_sp:.3f} s for both calls); a "
+        f"generate_disk_table(mesh=) row (example 08's radres 0.5, angres "
+        f"20, 64 energies) bitwise the row without a mesh")
+    dist.destroy_process_group()
+    print(f"phase 25 parallel layer ({time.perf_counter() - t_phase:.1f} s): "
+          + " | ".join(parts), flush=True)
+    return dict(losses=losses, step_s=step_s, grad_err=gerr)
+
+
+def fit_profile(mesh, p, target, st):
+    """Two more fit steps (their results dropped), each under its own
+    torch.profiler, the first a warm-up, the second split by the step's
+    record_function stages (`mesh.FIT_STAGES`): each stage's host time
+    and the CUDA launches (cudaLaunch* / cuLaunch* calls) and copies
+    (cudaMemcpy* / cudaMemset*) that start inside it, on any thread (the
+    backward's run on autograd's device thread), the rest under "other";
+    the ops that made the most launches; the device time of the image
+    kernels and of every kernel; the recorded step's wall time
+    (synchronised); and the host's cost, with no profiler running, of an
+    empty record_function range and of the fit's stage (`mesh._stage`,
+    which then opens none).  As text."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from sim5_tpu_torch.parallel import fit_step_sharded
+    from sim5_tpu_torch.parallel.mesh import FIT_STAGES, _stage
+    reps = 20000
+    cost = {}
+    for name, enter in (("range", record_function), ("stage", _stage)):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            with enter("fit.empty"):
+                pass
+        cost[name] = 1e6 * (time.perf_counter() - t0) / reps
+    walls = []
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit_step_sharded(mesh, p, target, None, N_IMAGE, N_IMAGE,
+                             lr=FIT_LR, opt_state=st)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    wall = walls[-1]
+    events = prof.events()
+    # a range shows twice, on the host and as the device's annotation
+    spans = {e.name: e.time_range for e in events
+             if e.name in FIT_STAGES and str(e.device_type).endswith("CPU")}
+    check(sorted(spans) == sorted(FIT_STAGES),
+          f"the profiler saw the fit stages {sorted(spans)}")
+    stages = {name: [spans[name].elapsed_us(), 0, 0]
+              for name in FIT_STAGES}
+    stages["other"] = [1e6 * wall - sum(v[0] for v in stages.values()), 0,
+                       0]
+    by_op = Counter()
+    for e in events:
+        launch = e.name.startswith(("cudaLaunch", "cuLaunch"))
+        if not launch and not e.name.startswith(("cudaMemcpy",
+                                                 "cudaMemset")):
+            continue
+        at = e.time_range.start
+        name = next((k for k, r in spans.items() if r.start <= at < r.end),
+                    "other")
+        stages[name][1 if launch else 2] += 1
+        if launch:
+            by_op[getattr(e.cpu_parent, "name", "(none)")] += 1
+    averages = prof.key_averages()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    launches = sum(v[1] for v in stages.values())
+    # the device's own events (kernels, copies), not the host ops that
+    # the profiler also credits with their kernels' time, nor the
+    # stages' annotations
+    device = [e for e in averages if str(e.device_type).endswith("CUDA")
+              and e.key not in FIT_STAGES]
+    total = sum(device_us(e) for e in device)
+    image = sum(device_us(e) for e in device
+                if re.search(r"\bnt_(frames|image|reduce)", e.key))
+    check(launches > 0 and total > 0, "the profiler saw no device work")
+    split = "; ".join(f"{k} {v[0] / 1e3:.4f} ms host, {v[1]} launches, "
+                      f"{v[2]} copies" for k, v in stages.items())
+    top = ", ".join(f"{k} {n}" for k, n in by_op.most_common(8))
+    return (f"{launches} CUDA launches, device busy {total / 1e3:.4f} ms "
+            f"(image kernels {image / 1e3:.4f} ms) in a {1e3 * wall:.3f} ms "
+            f"step (warm-up step {1e3 * walls[0]:.3f} ms); by stage: "
+            f"{split}; launches by op: {top}; with no profiler an empty "
+            f"record_function range costs {cost['range']:.3f} us, the "
+            f"fit's stage {cost['stage']:.3f} us")
+
+
+def run_example(name, args, full, dev, tmp):
+    """examples/NAME run in this process by runpy, with `args` and the
+    card's device as its arguments, SIM5_FAST unless `full`, in `tmp`:
+    (its standard output, seconds)."""
+    import io
+    import runpy
+    root = pathlib.Path(__file__).resolve().parent
+    argv, cwd, env = sys.argv, os.getcwd(), os.environ.get("SIM5_FAST")
+    sys.argv = [str(root / "examples" / name), *args, str(dev)]
+    if full:
+        os.environ.pop("SIM5_FAST", None)
+    else:
+        os.environ["SIM5_FAST"] = "1"
+    out = io.StringIO()
+    try:
+        os.chdir(tmp)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            runpy.run_path(sys.argv[0], run_name="__main__")
+        torch.cuda.synchronize()
+        return out.getvalue(), time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        sys.argv = argv
+        if env is None:
+            os.environ.pop("SIM5_FAST", None)
+        else:
+            os.environ["SIM5_FAST"] = env
+
+
+def phase_examples(dev):
+    """Every examples/torch_*.py on the card in this process (runpy):
+    EXAMPLES' full-size ones at full size, the others at SIM5_FAST; each
+    one's printed numbers finite and not all zero (example 08 prints its
+    table's progress, read back instead)."""
+    from sim5_tpu_torch.tables import SpectralTable
+    root = pathlib.Path(__file__).resolve().parent / "examples"
+    listed = sorted(n for n, _, _ in EXAMPLES)
+    check(listed == sorted(p.name for p in root.glob("torch_*.py")),
+          f"phase 26 lists {listed}")
+    parts = []
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sim5_examples_") as tmp:
+        for name, args, full in EXAMPLES:
+            out, secs = run_example(name, args, full, dev, tmp)
+            if name.startswith("torch_08"):
+                spectra = SpectralTable.open(os.path.join(tmp, args[0])).spectra
+                vals = spectra.ravel().tolist()
+            else:
+                vals = [float(v) for v in NUMBER.findall(out)]
+            check(vals and all(math.isfinite(v) for v in vals)
+                  and any(v != 0 for v in vals),
+                  f"{name}: {len(vals)} numbers, finite and not all zero "
+                  f"expected")
+            parts.append(f"{name[6:8]} {'full' if full else 'fast'} "
+                         f"{secs:.2f} s ({len(vals)} numbers)")
+    print(f"phase 26 examples on the card "
+          f"({time.perf_counter() - t_phase:.1f} s): " + ", ".join(parts),
+          flush=True)
+
+
 def launched(counts):
     """The kernels of a LAUNCHES dict launched at least once."""
     return {k: v for k, v in counts.items() if v}
@@ -4397,6 +4798,10 @@ def main():
         with tempfile.TemporaryDirectory(prefix="sim5_smoke_") as tmp:
             phase_tables(dev, tmp)
             phase_checkpoints(dev, tmp, native_hash)
+        torch.cuda.synchronize()
+        phase_parallel(dev)
+        torch.cuda.synchronize()
+        phase_examples(dev)
         torch.cuda.synchronize()
     except PhaseFailed as e:
         print(f"FAILED: {e}", file=sys.stderr)

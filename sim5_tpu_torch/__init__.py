@@ -12,8 +12,10 @@ distributions (`special`, `utils`), the analytic geodesic engine
 (`geodesic`), the thin disk, external compiled disks and the model
 protocol (`disk`), blackbody emission (`radiation`), Walker-Penrose
 transport (`polarization`), the march (`march`), the renderers and frame
-checkpoints (`render`), the spectral tables (`tables`) and the native
-asynchronous writer (`native`), with three kernels written in CUDA C++
+checkpoints (`render`), the spectral tables (`tables`), the native
+asynchronous writer (`native`) and the data parallelism over GPUs
+(`parallel`: rows and rays sharded over a device mesh, the sharded fit
+step), with three kernels written in CUDA C++
 for Hopper and built by `_build.py` on first use: the march
 (`csrc/march.cu`), the disk image (`csrc/disk_image.cu`) and its tangent
 kernel (`csrc/disk_image_jvp.cu`).
@@ -42,5 +44,6 @@ from . import polarization
 from . import march
 from . import render
 from . import tables
+from . import parallel
 
 __version__ = "0.1.0"

@@ -119,12 +119,14 @@ __global__ void nt_frames(const T* __restrict__ scalars,
 }
 
 // frames: the n frames' constants (nt_frames); blockIdx.y is the frame,
-// blockIdx.x its pixel tile; kCount: count into `counters` (else unused)
+// blockIdx.x its pixel tile in the row window [row0, row0 + rows) of the
+// (ny, nx) frame, whose row iy is row iy of the (n, rows, nx) images;
+// kCount: count into `counters` (else unused)
 template <typename T, bool kCount>
 __global__ void __launch_bounds__(kThreads, min_blocks<T>())
 nt_image(const sim5::Frame<T>* __restrict__ frames, T* __restrict__ image_f,
-         T* __restrict__ image_g, int nx, int ny, T aspect,
-         unsigned long long* __restrict__ counters) {
+         T* __restrict__ image_g, int nx, int ny, int row0, int rows,
+         T aspect, unsigned long long* __restrict__ counters) {
   __shared__ unsigned int tally[kCount ? sim5::kSlots : 1];
   const int lane = threadIdx.x & 31;
   const long long k = blockIdx.y;
@@ -133,13 +135,14 @@ nt_image(const sim5::Frame<T>* __restrict__ frames, T* __restrict__ image_f,
     for (int s = threadIdx.x; s < sim5::kSlots; s += kThreads) tally[s] = 0;
     __syncthreads();
   }
-  // every lane runs the pixel (a lane past the edge runs the last one), so
-  // that the ballots see full warps; only live lanes write and count
+  // every lane runs the pixel (a lane past the edge runs the window's last
+  // one), so that the ballots see full warps; only live lanes write and
+  // count.  The pixel is that of the whole frame's grid (nx, ny, aspect).
   const int tiles_x = (nx + kTileW - 1) / kTileW;
   const int ix = (blockIdx.x % tiles_x) * kTileW + lane;
   const int iy = (blockIdx.x / tiles_x) * kTileH + (threadIdx.x >> 5);
-  const bool live = ix < nx && iy < ny;
-  const int px = live ? ix : nx - 1, py = live ? iy : ny - 1;
+  const bool live = ix < nx && iy < rows;
+  const int px = live ? ix : nx - 1, py = row0 + (live ? iy : rows - 1);
   T f, g;
   if constexpr (kCount) {
     Tally probe{tally, lane, live};
@@ -149,7 +152,7 @@ nt_image(const sim5::Frame<T>* __restrict__ frames, T* __restrict__ image_f,
     sim5::nt_pixel(frame, px, py, nx, ny, aspect, probe, f, g);
   }
   if (live) {
-    const long long o = (k * ny + iy) * nx + ix;
+    const long long o = (k * rows + iy) * nx + ix;
     image_f[o] = f;
     image_g[o] = g;
   }
@@ -169,25 +172,25 @@ nt_image(const sim5::Frame<T>* __restrict__ frames, T* __restrict__ image_f,
 
 template <typename T>
 int launch(const void* scalars, void* work, int n, void* image_f,
-           void* image_g, int nx, int ny, double aspect, void* counters,
-           cudaStream_t stream) {
+           void* image_g, int nx, int ny, int row0, int rows, double aspect,
+           void* counters, cudaStream_t stream) {
   sim5::Frame<T>* frames = static_cast<sim5::Frame<T>*>(work);
   nt_frames<T><<<(n + 63) / 64, 64, 0, stream>>>(
       static_cast<const T*>(scalars), frames, n);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((unsigned)((nx + kTileW - 1) / kTileW) *
-                      (unsigned)((ny + kTileH - 1) / kTileH),
+                      (unsigned)((rows + kTileH - 1) / kTileH),
                   (unsigned)n);
   unsigned long long* c = static_cast<unsigned long long*>(counters);
   if (c != nullptr)
     nt_image<T, true><<<grid, kThreads, 0, stream>>>(
         frames, static_cast<T*>(image_f), static_cast<T*>(image_g), nx, ny,
-        T(aspect), c);
+        row0, rows, T(aspect), c);
   else
     nt_image<T, false><<<grid, kThreads, 0, stream>>>(
         frames, static_cast<T*>(image_f), static_cast<T*>(image_g), nx, ny,
-        T(aspect), c);
+        row0, rows, T(aspect), c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -208,21 +211,23 @@ int attributes(int* out) {
 
 }  // namespace
 
-// Render n (ny, nx) frames on `stream`: nt_frames<T> then nt_image<T, C>, T
-// double if f64, else float, and C whether counters is not null.  scalars holds n x 6 scalars of type T (a,
+// Render rows [row0, row0 + rows) of n (ny, nx) frames on `stream`:
+// nt_frames<T> then nt_image<T, C>, T double if f64, else float, and C
+// whether counters is not null.  scalars holds n x 6 scalars of type T (a,
 // incl, M, mdot, rms, rmax); work has room for n frames' constants (n x
-// kFrameWords of type T); image_f and image_g are (n, ny, nx) of type T;
+// kFrameWords of type T); image_f and image_g are (n, rows, nx) of type T;
 // aspect is ny / nx; counters is null, or kCounterCopies x kSlots x 2
-// zeroed 64-bit counts (warps, lanes), added to.  Returns cudaGetLastError() (0 on
-// success).
+// zeroed 64-bit counts (warps, lanes), added to.  row0 = 0 and rows = ny
+// render the whole frames.  Returns cudaGetLastError() (0 on success).
 extern "C" int sim5_nt_image(int f64, const void* scalars, void* work, int n,
                              void* image_f, void* image_g, int nx, int ny,
-                             double aspect, void* counters, void* stream) {
+                             int row0, int rows, double aspect,
+                             void* counters, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return f64 ? launch<double>(scalars, work, n, image_f, image_g, nx, ny,
-                              aspect, counters, s)
+                              row0, rows, aspect, counters, s)
              : launch<float>(scalars, work, n, image_f, image_g, nx, ny,
-                             aspect, counters, s);
+                             row0, rows, aspect, counters, s);
 }
 
 // The compile-time choices into out[0..7]: threads a block, the block's

@@ -136,17 +136,21 @@ __global__ void nt_frames_jvp(const T* __restrict__ scalars,
   }
 }
 
-// kReduce = false: f, g (n, ny, nx) and df, dg (n, K, ny, nx) are outputs.
-// kReduce = true: f and g are grad_f and grad_g (n, ny, nx) inputs, and
-// partials (n, gridDim.x, K + 1) takes each block's sums of grad_f df_j +
-// grad_g dg_j, slot by slot, then of grad_f f.
+// The pixels are those of rows [row0, row0 + rows) of the (ny, nx) frame,
+// row iy of the window row iy of the arrays below.
+// kReduce = false: f, g (n, rows, nx) and df, dg (n, K, rows, nx) are
+// outputs.  kReduce = true: f and g are grad_f and grad_g (n, rows, nx)
+// inputs, and partials (n, gridDim.x, K + 1) takes each block's sums of
+// grad_f df_j + grad_g dg_j, slot by slot, then of grad_f f, over the
+// window's pixels.
 template <typename T, int C, int K, bool kReduce>
 __global__ void __launch_bounds__(jvp_threads<T, K, kReduce>(),
                                   jvp_min_blocks<T, K, kReduce>())
 nt_image_jvp(const DualFrame<T, K>* __restrict__ wide,
              const DualFrame<T, C>* __restrict__ chain, T* __restrict__ f,
              T* __restrict__ g, T* __restrict__ df, T* __restrict__ dg,
-             T* __restrict__ partials, int nx, int ny, T aspect) {
+             T* __restrict__ partials, int nx, int ny, int row0, int rows,
+             T aspect) {
   constexpr int kThr = jvp_threads<T, K, kReduce>();
   static_assert(kThr % kTileW == 0 && (kThr & (kThr - 1)) == 0,
                 "a block is a power of two of whole warps");
@@ -156,8 +160,8 @@ nt_image_jvp(const DualFrame<T, K>* __restrict__ wide,
   const int ix = (blockIdx.x % tiles_x) * kTileW + lane;
   const int iy =
       (blockIdx.x / tiles_x) * (kThr / kTileW) + (threadIdx.x >> 5);
-  const bool live = ix < nx && iy < ny;
-  const long long npix = (long long)nx * ny;
+  const bool live = ix < nx && iy < rows;
+  const long long npix = (long long)nx * rows;
   const long long p = (long long)iy * nx + ix;
   T part[K + 1];
 #pragma unroll
@@ -166,10 +170,11 @@ nt_image_jvp(const DualFrame<T, K>* __restrict__ wide,
     sim5::NoProbe probe;
     sim5::Dual<T, K> fv, gv;
     if constexpr (C < K)
-      sim5::nt_pixel(chain[k], wide[k], ix, iy, nx, ny, aspect, probe, fv,
-                     gv);
+      sim5::nt_pixel(chain[k], wide[k], ix, row0 + iy, nx, ny, aspect,
+                     probe, fv, gv);
     else
-      sim5::nt_pixel(wide[k], ix, iy, nx, ny, aspect, probe, fv, gv);
+      sim5::nt_pixel(wide[k], ix, row0 + iy, nx, ny, aspect, probe, fv,
+                     gv);
     if constexpr (kReduce) {
       const T wf = f[k * npix + p], wg = g[k * npix + p];
 #pragma unroll
@@ -230,12 +235,13 @@ __global__ void nt_reduce(const T* __restrict__ partials, int m, int slots,
 
 // grad_f null: forward mode into f, g, df, dg.  Else the backward: out (n,
 // K + 1) takes frame k's sums, partials room for n x jvp_blocks<T, K,
-// true>(nx, ny) x (K + 1) scalars of type T.
+// true>(nx, rows) x (K + 1) scalars of type T.  The pixels are the row
+// window [row0, row0 + rows) of (ny, nx) frames.
 template <typename T, int C, int K>
 int launch_jvp(const void* scalars, const void* tangents, void* work, int n,
                void* f, void* g, void* df, void* dg, const void* grad_f,
                const void* grad_g, void* partials, void* out, int nx, int ny,
-               double aspect, cudaStream_t stream) {
+               int row0, int rows, double aspect, cudaStream_t stream) {
   auto* wide = static_cast<DualFrame<T, K>*>(work);
   auto* chain = reinterpret_cast<DualFrame<T, C>*>(wide + n);
   nt_frames_jvp<T, C, K><<<(n + 63) / 64, 64, 0, stream>>>(
@@ -244,20 +250,21 @@ int launch_jvp(const void* scalars, const void* tangents, void* work, int n,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   if (grad_f == nullptr) {
-    const dim3 grid((unsigned)jvp_blocks<T, K, false>(nx, ny), (unsigned)n);
+    const dim3 grid((unsigned)jvp_blocks<T, K, false>(nx, rows),
+                    (unsigned)n);
     nt_image_jvp<T, C, K, false>
         <<<grid, jvp_threads<T, K, false>(), 0, stream>>>(
             wide, chain, static_cast<T*>(f), static_cast<T*>(g),
-            static_cast<T*>(df), static_cast<T*>(dg), nullptr, nx, ny,
-            T(aspect));
+            static_cast<T*>(df), static_cast<T*>(dg), nullptr, nx, ny, row0,
+            rows, T(aspect));
     return static_cast<int>(cudaGetLastError());
   }
-  const int blocks = jvp_blocks<T, K, true>(nx, ny);
+  const int blocks = jvp_blocks<T, K, true>(nx, rows);
   const dim3 grid((unsigned)blocks, (unsigned)n);
   nt_image_jvp<T, C, K, true><<<grid, jvp_threads<T, K, true>(), 0, stream>>>(
       wide, chain, const_cast<T*>(static_cast<const T*>(grad_f)),
       const_cast<T*>(static_cast<const T*>(grad_g)), nullptr, nullptr,
-      static_cast<T*>(partials), nx, ny, T(aspect));
+      static_cast<T*>(partials), nx, ny, row0, rows, T(aspect));
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   nt_reduce<T><<<n, kReduceThreads, 0, stream>>>(
@@ -336,23 +343,26 @@ struct Attributes {
 // and tangents (n, 6, K) of T), then nt_image_jvp<T, C, K, ...>, whose
 // geodesic carries the first C slots (the config's out[4]) and whose
 // shading all K: seed the slots after the first C with rms alone (or M
-// and mdot), which no part of the geodesic reads.  With grad_f null,
-// forward mode: f and g (n, ny, nx) take the images and df and dg (n, K,
-// ny, nx) their tangents.  Else the backward: grad_f and grad_g (n, ny,
-// nx) are read, partials has room for n x blocks x (K + 1) scalars
-// (sim5_nt_image_jvp_config with reduce = 1), and nt_reduce<T> writes
-// frame k's sums of grad_f df_j + grad_g dg_j (j < K) and of grad_f f (j
-// = K) to out[k * (K + 1) + j].  Returns cudaGetLastError() (0 on
-// success), or cudaErrorInvalidValue for a K that is not compiled.
+// and mdot), which no part of the geodesic reads.  The pixels are rows
+// [row0, row0 + rows) of the (ny, nx) frames (row0 = 0 and rows = ny: the
+// whole frames).  With grad_f null, forward mode: f and g (n, rows, nx)
+// take the images and df and dg (n, K, rows, nx) their tangents.  Else
+// the backward: grad_f and grad_g (n, rows, nx) are read, partials has
+// room for n x blocks x (K + 1) scalars (sim5_nt_image_jvp_config with
+// reduce = 1 for (nx, rows)), and nt_reduce<T> writes frame k's sums over
+// the window of grad_f df_j + grad_g dg_j (j < K) and of grad_f f (j = K)
+// to out[k * (K + 1) + j].  Returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a K that is not compiled.
 extern "C" int sim5_nt_image_jvp(int f64, int K, const void* scalars,
                                  const void* tangents, void* work, int n,
                                  void* f, void* g, void* df, void* dg,
                                  const void* grad_f, const void* grad_g,
                                  void* partials, void* out, int nx, int ny,
-                                 double aspect, void* stream) {
+                                 int row0, int rows, double aspect,
+                                 void* stream) {
   return by_type<Launch>(f64, K, scalars, tangents, work, n, f, g, df, dg,
-                         grad_f, grad_g, partials, out, nx, ny, aspect,
-                         static_cast<cudaStream_t>(stream));
+                         grad_f, grad_g, partials, out, nx, ny, row0, rows,
+                         aspect, static_cast<cudaStream_t>(stream));
 }
 
 // The compile-time choices of the K-slot instance (reduce != 0: the

@@ -388,6 +388,22 @@ def find_surface(g, disk: DiskModel, n_scan=24):
     return P_out, r_out, m_out, ok
 
 
+def _ray_block(alpha, beta, dOmega, mesh):
+    """This rank's block of a batch of rays (numpy): the batch padded to a
+    multiple of the mesh's size with its last ray at zero weight (dOmega
+    = 0), cut into equal blocks in rank order."""
+    from ..parallel.mesh import check_mesh
+    size, rank = check_mesh(mesh).size(), mesh.get_local_rank()
+    block = -(-len(alpha) // size)
+    pad = block * size - len(alpha)
+    if pad:
+        alpha = np.concatenate([alpha, np.full(pad, alpha[-1])])
+        beta = np.concatenate([beta, np.full(pad, beta[-1])])
+        dOmega = np.concatenate([dOmega, np.zeros(pad)])
+    sl = slice(rank * block, (rank + 1) * block)
+    return alpha[sl], beta[sl], dOmega[sl]
+
+
 def polar_grid(r_in, incl, radres, angres, r_max):
     """The reference spectrum driver's polar observer-plane quadrature
     (sim5diskraytrace.py:79-90), built on the host in numpy: rings from
@@ -421,9 +437,10 @@ class DiskRaytrace:
 
     Rays are built on `device` (None: the card) in `dtype` (float64, or
     float32 for the fast mode; this replaces the JAX package's x64
-    switch); the disk's tensors should sit on the same device.  The JAX
-    package's `mesh=` (rows sharded over devices) is not ported: multi-GPU
-    is a later slice.
+    switch); the disk's tensors should sit on the same device.  `image`
+    and `spectrum` take a `mesh` (`parallel.make_mesh`): each rank of it
+    then traces its share of the rows or rays on its own device, which
+    should be this one.
     (reference: DiskRaytrace, python/sim5diskraytrace.py:16-462)
     """
     bh_mass: float
@@ -470,10 +487,15 @@ class DiskRaytrace:
                             g.Rpc - P_s, torch.ones_like(r_s))
         return r_s, m_s, g, k, ok
 
-    def image(self, incl_deg, rmax, N, limbdk=1):
+    def image(self, incl_deg, rmax, N, limbdk=1, mesh=None):
         """Disk image: flux, g-factor, emission angle, T, R, H, vr maps,
         each (N, N) with beta along rows and alpha along columns, NaN off
         the disk.
+
+        With `mesh` (a 1-D DeviceMesh, `parallel.make_mesh`), the grid's
+        rows are padded with the last row to a multiple of the mesh's
+        size, each rank solves and shades its block of rows, and one
+        all-gather gives every rank the whole maps, the pad dropped.
 
         (reference: DiskRaytrace.image, sim5diskraytrace.py:138-210, a
         per-pixel Python loop)
@@ -485,6 +507,10 @@ class DiskRaytrace:
         xs = ((torch.arange(N, dtype=self.dtype, device=self.device) + 0.5)
               / N - 0.5) * 2.0 * rmax
         alpha, beta = torch.meshgrid(xs, xs, indexing="xy")
+        if mesh is not None:
+            from ..parallel.mesh import shard_image_rows
+            alpha = shard_image_rows(alpha, mesh)
+            beta = shard_image_rows(beta, mesh)
 
         r, m, g, k, ok = self.geodesic(incl, alpha, beta)
         R = r * torch.sqrt(1.0 - m * m)
@@ -500,7 +526,7 @@ class DiskRaytrace:
         ok = ok & (gf > 0.0)
 
         z = torch.where(ok, torch.ones_like(r), torch.nan)
-        return {
+        maps = {
             "flux": z * F * gf ** 4 * limb * dOmega,
             "gfactor": z * gf,
             "mue": z * torch.rad2deg(torch.arccos(mue)),
@@ -509,10 +535,15 @@ class DiskRaytrace:
             "H": z * r * m,
             "V": z * V,
         }
+        if mesh is None:
+            return maps
+        from ..parallel.mesh import gather_rows
+        both = gather_rows(torch.stack(list(maps.values()), 1), mesh, N)
+        return {key: both[:, i].contiguous() for i, key in enumerate(maps)}
 
     def spectrum(self, incl_deg, energies, limbdk=1, flat=0,
                  radres=0.15, angres=90.0, hardening=0.0, batch=8192,
-                 return_diagnostics=False):
+                 return_diagnostics=False, mesh=None):
         """Observed disk spectrum [erg/s/cm2/keV] on the detector energy
         grid, by solid-angle-weighted accumulation over a polar grid of
         the observer plane.  Returns (spec_f, spec_0), the hardened and
@@ -526,6 +557,11 @@ class DiskRaytrace:
         total): the reference's dOmega_err accumulator
         (sim5diskraytrace.py:76,93).  A warning is logged when the
         fraction exceeds 1%.
+
+        With `mesh` (a 1-D DeviceMesh, `parallel.make_mesh`), each batch
+        is padded to a multiple of the mesh's size with zero-weight rays
+        (dOmega = 0), each rank traces its block of it, and one all-reduce
+        at the end sums the spectra and the solid angles over the ranks.
 
         (reference: DiskRaytrace.spectrum, sim5diskraytrace.py:43-134, a
         per-pixel Python loop)
@@ -544,9 +580,11 @@ class DiskRaytrace:
             for n in (len(energies), len(energies), (), ()))
         for i in range(0, len(alpha), batch):
             sl = slice(i, i + batch)
-            dom = self._tensor(dOmega[sl])
-            r, m, g, k, ok = self.geodesic(incl, alpha[sl], beta[sl],
-                                           flat=is_flat)
+            al, be, dom = alpha[sl], beta[sl], dOmega[sl]
+            if mesh is not None:
+                al, be, dom = _ray_block(al, be, dom, mesh)
+            dom = self._tensor(dom)
+            r, m, g, k, ok = self.geodesic(incl, al, be, flat=is_flat)
             R = r * torch.sqrt(1.0 - m * m)
             T = self.disk.t_eff(R)
             ok = ok & (T > 0.0)
@@ -566,6 +604,13 @@ class DiskRaytrace:
             spec_0 += (Iv_0 * w[:, None]).sum(0)
             dom_err += torch.where(ok, 0.0, dom).sum()
             dom_tot += dom.sum()
+        if mesh is not None:
+            from ..parallel.mesh import all_reduce
+            ne = len(energies)
+            sums = all_reduce(torch.cat([spec_f, spec_0, dom_err[None],
+                                         dom_tot[None]]), mesh)
+            spec_f, spec_0 = sums[:ne], sums[ne:2 * ne]
+            dom_err, dom_tot = sums[2 * ne], sums[2 * ne + 1]
         spec_f, spec_0 = spec_f.cpu(), spec_0.cpu()
         dom_err, dom_tot = float(dom_err), float(dom_tot)
         if dom_tot > 0.0 and dom_err / dom_tot > 0.01:

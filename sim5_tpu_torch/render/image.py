@@ -20,7 +20,7 @@ from ..core.metric import default_device
 from ..disk import NTDisk, nt_flux
 from ..geodesic import (geodesic_init_inf, geodesic_find_midplane_crossing,
                         geodesic_position_rad)
-from .kernel_image import batch_shape, render_disk_image_cuda
+from .kernel_image import batch_shape, render_disk_image_cuda, row_window
 
 
 def image_grid(npix_x, npix_y, rmax, dtype=torch.float64, device=None):
@@ -37,10 +37,14 @@ def image_grid(npix_x, npix_y, rmax, dtype=torch.float64, device=None):
 
 
 def render_disk_image_reference(disk: NTDisk, incl, npix_x=512, npix_y=512,
-                                rmax=None):
+                                rmax=None, row0=0, rows=None):
     """The plain torch version of `render_disk_image`, on the disk's device
     and in its dtype, for one frame or a batch (`kernel_image.batch_shape`);
-    differentiable (every masked branch keeps its NaN-safe dummy)."""
+    differentiable (every masked branch keeps its NaN-safe dummy).  Rows
+    [row0, row0 + rows) of the frame (rows None: the rest of it): the
+    whole frame's grid is built and its rows sliced before the chain
+    runs."""
+    row0, rows = row_window(npix_y, row0, rows)
     shape = batch_shape(disk, incl, rmax)
     incl = torch.as_tensor(incl, dtype=disk.a.dtype, device=disk.a.device)
     if shape:
@@ -59,6 +63,9 @@ def render_disk_image_reference(disk: NTDisk, incl, npix_x=512, npix_y=512,
         rmax = rms + 8.0
     alpha, beta = image_grid(npix_x, npix_y, rmax, dtype=a.dtype,
                              device=a.device)
+    if (row0, rows) != (0, npix_y):
+        alpha = alpha[..., row0:row0 + rows, :]
+        beta = beta[..., row0:row0 + rows, :]
 
     g = geodesic_init_inf(incl, a, alpha, beta)
 
@@ -84,7 +91,8 @@ def render_disk_image_reference(disk: NTDisk, incl, npix_x=512, npix_y=512,
     return image_f, image_g
 
 
-def render_disk_image(disk: NTDisk, incl, npix_x=512, npix_y=512, rmax=None):
+def render_disk_image(disk: NTDisk, incl, npix_x=512, npix_y=512, rmax=None,
+                      row0=0, rows=None):
     """Render flux and g-factor images of an equatorial NT disk.
 
     Args:
@@ -96,11 +104,14 @@ def render_disk_image(disk: NTDisk, incl, npix_x=512, npix_y=512, rmax=None):
       rmax: half-width of the field of view [rg], a scalar or one value a
         frame; default rms + 8 (reference example default,
         disk-image.c:42).
+      row0, rows: render only rows [row0, row0 + rows) of the frame (rows
+        None: the rest of it), each pixel as in the whole frame; a rank of
+        `parallel.render_disk_image_sharded` renders its rows so.
 
     Returns:
-      (image_f, image_g): (npix_y, npix_x) tensors for one frame, (n,
-      npix_y, npix_x) for n; image_f = F * g^4 [erg cm-2 s-1], image_g =
-      g-factor (0 where the ray misses the disk).
+      (image_f, image_g): (rows, npix_x) tensors for one frame, (n, rows,
+      npix_x) for n (rows = npix_y by default); image_f = F * g^4 [erg
+      cm-2 s-1], image_g = g-factor (0 where the ray misses the disk).
 
     A disk on the card renders in one launch of the CUDA kernel, all its
     frames at once, whether or not an input requires grad
@@ -111,7 +122,9 @@ def render_disk_image(disk: NTDisk, incl, npix_x=512, npix_y=512, rmax=None):
     """
     dev = disk.a.device
     if dev.type == "cuda":
-        return render_disk_image_cuda(disk, incl, npix_x, npix_y, rmax)
+        return render_disk_image_cuda(disk, incl, npix_x, npix_y, rmax,
+                                      row0, rows)
     if dev.type == "cpu":
-        return render_disk_image_reference(disk, incl, npix_x, npix_y, rmax)
+        return render_disk_image_reference(disk, incl, npix_x, npix_y, rmax,
+                                           row0, rows)
     raise ValueError(f"no disk image for device {dev}")

@@ -37,6 +37,15 @@ JAX package's autodiff of `render_disk_image` (XLA; no Pallas kernel);
 its plain version is autograd through
 `image.render_disk_image_reference`.
 
+Row windows: every launch renders rows [row0, row0 + rows) of its (ny, nx)
+frames (by default all of them), each pixel exactly as in the whole
+frame (the grid, its aspect and rmax are the whole frame's), into (n,
+rows, nx) images; a backward sums over the window's pixels.  A rank of
+`parallel.render_disk_image_sharded` renders its rows so.  Every launch
+helper below takes its window in one form: the arrays' rows (or, where
+it allocates them, a `rows` argument) and the keywords row0 and ny, the
+frame's rows (None: the window is the whole frame).
+
 `LAUNCHES` counts launches by kernel: the prologue `nt_frames<T>` and
 `nt_image<T>`, one each a forward launch, and `nt_frames_jvp<T, K>` with
 `nt_image_jvp<T, K>` (forward mode) or `nt_image_jvp<T, K, reduce>` and
@@ -115,7 +124,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "sim5_nt_image": (
         [_I, _P, _P, _I, _P, _P,          # f64, scalars, work, n, f, g
-         _I, _I, ctypes.c_double,         # nx, ny, aspect
+         _I, _I, _I, _I,                  # nx, ny, row0, rows
+         ctypes.c_double,                 # aspect
          _P, _P],                         # counters, stream
         _I),
     "sim5_nt_image_config": ([_P], None),
@@ -128,7 +138,8 @@ JVP_SIGNATURES = {
                                           # n
          _P, _P, _P, _P,                  # f, g, df, dg
          _P, _P, _P, _P,                  # grad_f, grad_g, partials, out
-         _I, _I, ctypes.c_double, _P],    # nx, ny, aspect, stream
+         _I, _I, _I, _I,                  # nx, ny, row0, rows
+         ctypes.c_double, _P],            # aspect, stream
         _I),
     "sim5_nt_image_jvp_config": ([_I, _I, _I, _I, _I, _P], _I),
     "sim5_nt_image_jvp_slots": ([_P], None),
@@ -283,12 +294,15 @@ def frame_scalars(disk, incl, rmax=None):
     return torch.stack(frame_columns(disk, incl, rmax), dim=-1)
 
 
-def render_disk_image_cuda(disk, incl, npix_x=512, npix_y=512, rmax=None):
+def render_disk_image_cuda(disk, incl, npix_x=512, npix_y=512, rmax=None,
+                           row0=0, rows=None):
     """`render_disk_image` of a disk on the card: one launch of
     `nt_image<T>` with T the disk's dtype, for one frame or a batch.
-    Returns (image_f, image_g) of that dtype, each (npix_y, npix_x) for
-    one frame and (n, npix_y, npix_x) for a batch of n."""
-    return _render(disk, incl, npix_x, npix_y, rmax, counted=False)
+    Returns (image_f, image_g) of that dtype, each (rows, npix_x) for one
+    frame and (n, rows, npix_x) for a batch of n: rows [row0, row0 + rows)
+    of the (npix_y, npix_x) frames, all of them by default."""
+    return _render(disk, incl, npix_x, npix_y, rmax, counted=False,
+                   row0=row0, rows=rows)
 
 
 def count_disk_image(disk, incl, npix_x=512, npix_y=512, rmax=None):
@@ -298,7 +312,18 @@ def count_disk_image(disk, incl, npix_x=512, npix_y=512, rmax=None):
     return _render(disk, incl, npix_x, npix_y, rmax, counted=True)
 
 
-def _render(disk, incl, npix_x, npix_y, rmax, counted):
+def row_window(npix_y, row0=0, rows=None):
+    """(row0, rows) of a window of an npix_y-row frame, checked; rows None
+    is the rest of the frame."""
+    row0 = int(row0)
+    rows = int(npix_y) - row0 if rows is None else int(rows)
+    if row0 < 0 or rows < 1 or row0 + rows > npix_y:
+        raise ValueError(f"rows [{row0}, {row0 + rows}) of a frame of "
+                         f"{npix_y} rows")
+    return row0, rows
+
+
+def _render(disk, incl, npix_x, npix_y, rmax, counted, row0=0, rows=None):
     shape = batch_shape(disk, incl, rmax)
     n = shape.numel()
     dev, dt = disk.a.device, disk.a.dtype
@@ -318,33 +343,39 @@ def _render(disk, incl, npix_x, npix_y, rmax, counted):
     npix_x, npix_y = int(npix_x), int(npix_y)
     if npix_x < 1 or npix_y < 1 or npix_x * npix_y >= 2 ** 31:
         raise ValueError(f"image of {npix_x} x {npix_y} pixels")
+    row0, rows = row_window(npix_y, row0, rows)
     cols = [c.reshape(n) for c in frame_columns(disk, incl, rmax)]
-    image_f, image_g = _NTImage.apply(*cols, npix_x, npix_y, counted)
-    out = tuple(shape) + (npix_y, npix_x)
+    image_f, image_g = _NTImage.apply(*cols, npix_x, npix_y, counted, row0,
+                                      rows)
+    out = tuple(shape) + (rows, npix_x)
     return image_f.reshape(out), image_g.reshape(out)
 
 
 class _NTImage(torch.autograd.Function):
     """The images of n frames from their six (n,) scalar columns (a, incl,
-    M, mdot, rms, rmax): forward one launch of nt_image<T>; forward mode
-    one launch of the tangent kernel's one-slot instance; backward one
+    M, mdot, rms, rmax), rows [row0, row0 + rows) of (ny, nx) frames (rows
+    None: all ny): forward one launch of nt_image<T>; forward mode one
+    launch of the tangent kernel's one-slot instance; backward one
     reduction launch for every column that needs grad (module docstring).
     The context is taken in forward, not in a setup_context, which costs
     the host several times more a call: the entry point renders one frame
     a call in about the kernel's own time (PERF.md)."""
 
     @staticmethod
-    def forward(ctx, a, incl, M, mdot, rms, rmax, nx, ny, counted):
+    def forward(ctx, a, incl, M, mdot, rms, rmax, nx, ny, counted, row0=0,
+                rows=None):
         cols = (a, incl, M, mdot, rms, rmax)
         frames = torch.stack(cols, -1).contiguous()
         n = frames.shape[0]
-        image_f = torch.empty((n, ny, nx), dtype=a.dtype, device=a.device)
+        rows = ny if rows is None else rows
+        image_f = torch.empty((n, rows, nx), dtype=a.dtype, device=a.device)
         image_g = torch.empty_like(image_f)
         _launch(frames, image_f, image_g,
-                new_counters(a.device) if counted else None)
+                new_counters(a.device) if counted else None, row0=row0,
+                ny=ny)
         ctx.save_for_backward(*cols)
         ctx.save_for_forward(*cols)
-        ctx.nx, ctx.ny = nx, ny
+        ctx.nx, ctx.ny, ctx.row0, ctx.rows = nx, ny, row0, rows
         return image_f, image_g
 
     @staticmethod
@@ -353,9 +384,9 @@ class _NTImage(torch.autograd.Function):
         frames = torch.stack(cols, -1).contiguous()
         need = [c for c in range(6) if ctx.needs_input_grad[c]]
         grads = _backward(frames, grad_f.contiguous(), grad_g.contiguous(),
-                          need)
+                          need, row0=ctx.row0, ny=ctx.ny)
         return (*(grads[:, c] if c in need else None for c in range(6)),
-                None, None, None)
+                *(None,) * (len(ctx.needs_input_grad) - 6))
 
     @staticmethod
     def jvp(ctx, *tangents):
@@ -363,7 +394,8 @@ class _NTImage(torch.autograd.Function):
         frames = torch.stack(cols, -1).contiguous()
         tangent = torch.stack(tangents[:6], -1).to(frames.dtype)
         _, _, df, dg = _launch_jvp(frames, tangent[..., None].contiguous(),
-                                   ctx.nx, ctx.ny)
+                                   ctx.nx, ctx.rows, row0=ctx.row0,
+                                   ny=ctx.ny)
         return df[:, 0], dg[:, 0]
 
 
@@ -391,30 +423,35 @@ def _slots(dt, tangent):
     return k
 
 
-def _launch_jvp(frames, tangent, nx, ny):
+def _launch_jvp(frames, tangent, nx, rows, row0=0, ny=None):
     """Forward mode in K directions: one launch of nt_frames_jvp<T, K> and
-    nt_image_jvp<T, K> on the current stream.  frames (n, 6) and tangent
-    (n, 6, K) of type T, K in JVP_SLOTS, or (n, 6) for K = 1; in
+    nt_image_jvp<T, K> on the current stream, over rows [row0, row0 +
+    rows) of (ny, nx) frames (ny None: rows, the whole frames).  frames
+    (n, 6) and
+    tangent (n, 6, K) of type T, K in JVP_SLOTS, or (n, 6) for K = 1; in
     the four-slot instance the geodesic does not carry the last slot, so
     it takes a tangent in rms alone (or M and mdot).  Returns (f, g, df,
-    dg), f and g (n, ny, nx), df and dg (n, K, ny, nx), or (n, ny, nx) for
-    an (n, 6) tangent."""
+    dg), f and g (n, rows, nx), df and dg (n, K, rows, nx), or (n, rows,
+    nx) for an (n, 6) tangent."""
     flat = tangent.dim() == 2
     if flat:
         tangent = tangent[..., None]
     _check_frames(frames, tangent)
     k = _slots(frames.dtype, tangent)
     n = frames.shape[0]
+    ny = rows if ny is None else int(ny)
+    row0, rows = row_window(ny, row0, rows)
     dt, dev = frames.dtype, frames.device
-    cfg = jvp_config(dt, k, False, nx, ny)
+    cfg = jvp_config(dt, k, False, nx, rows)
     work = torch.empty((n, cfg["frame_words"]), dtype=dt, device=dev)
-    f, g = (torch.empty((n, ny, nx), dtype=dt, device=dev) for _ in range(2))
-    df, dg = (torch.empty((n, k, ny, nx), dtype=dt, device=dev)
+    f, g = (torch.empty((n, rows, nx), dtype=dt, device=dev)
+            for _ in range(2))
+    df, dg = (torch.empty((n, k, rows, nx), dtype=dt, device=dev)
               for _ in range(2))
     rc = _jvp_lib().sim5_nt_image_jvp(
         int(dt == torch.float64), k, frames.data_ptr(), tangent.data_ptr(),
         work.data_ptr(), n, f.data_ptr(), g.data_ptr(), df.data_ptr(),
-        dg.data_ptr(), None, None, None, None, nx, ny, ny / nx,
+        dg.data_ptr(), None, None, None, None, nx, ny, row0, rows, ny / nx,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{JVP_PROLOGUES[dt, k]} + {JVP_VARIANTS[dt, k]} "
@@ -426,19 +463,22 @@ def _launch_jvp(frames, tangent, nx, ny):
     return f, g, df, dg
 
 
-def _launch_vjp(frames, tangent, grad_f, grad_g):
+def _launch_vjp(frames, tangent, grad_f, grad_g, row0=0, ny=None):
     """The backward in K directions: one launch of nt_frames_jvp<T, K>,
     nt_image_jvp<T, K, reduce> and nt_reduce<T> on the current stream.
     frames (n, 6), tangent (n, 6, K) (as `_launch_jvp` takes it), grad_f
-    and grad_g (n, ny, nx), all of type T; returns (n, K + 1) of type T:
-    column j < K frame k's sum over its pixels of grad_f df_j + grad_g
-    dg_j, column K that of grad_f f.  The sums are in a fixed order: the
-    same inputs give the same bits."""
+    and grad_g (n, rows, nx), the rows [row0, row0 + rows) of (ny, nx)
+    frames (ny None: rows), all of type T; returns (n, K + 1) of type T:
+    column j < K frame k's sum over the window's pixels of grad_f df_j +
+    grad_g dg_j, column K that of grad_f f.  The sums are in a fixed
+    order: the same inputs give the same bits."""
     _check_frames(frames, tangent, grad_f, grad_g)
     k = _slots(frames.dtype, tangent)
-    n, ny, nx = grad_f.shape
+    n, rows, nx = grad_f.shape
+    ny = rows if ny is None else int(ny)
+    row0, rows = row_window(ny, row0, rows)
     dt, dev = frames.dtype, frames.device
-    cfg = jvp_config(dt, k, True, nx, ny)
+    cfg = jvp_config(dt, k, True, nx, rows)
     work = torch.empty((n, cfg["frame_words"]), dtype=dt, device=dev)
     partials = torch.empty((n, cfg["blocks"], k + 1), dtype=dt, device=dev)
     out = torch.empty((n, k + 1), dtype=dt, device=dev)
@@ -446,7 +486,7 @@ def _launch_vjp(frames, tangent, grad_f, grad_g):
         int(dt == torch.float64), k, frames.data_ptr(), tangent.data_ptr(),
         work.data_ptr(), n, None, None, None, None, grad_f.data_ptr(),
         grad_g.data_ptr(), partials.data_ptr(), out.data_ptr(), nx, ny,
-        ny / nx, torch.cuda.current_stream(dev).cuda_stream)
+        row0, rows, ny / nx, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{VJP_VARIANTS[dt, k]} launch failed: "
                            f"cudaError {rc}")
@@ -471,11 +511,13 @@ def backward_launch(columns):
     return k, chain + [None] * (k - 1 - len(chain)) + (rms or [None])
 
 
-def _backward(frames, grad_f, grad_g, columns):
+def _backward(frames, grad_f, grad_g, columns, row0=0, ny=None):
     """d/d frames of sum(grad_f image_f + grad_g image_g): (n, 6) of type
     T, the given columns filled, the others 0, from one launch
     (`backward_launch`); M and mdot take theirs from the sum of grad_f f
-    (df/dmdot = f / mdot, df/dM = -f / M, g depends on neither)."""
+    (df/dmdot = f / mdot, df/dM = -f / M, g depends on neither).  grad_f
+    and grad_g are (n, rows, nx), rows [row0, row0 + rows) of (ny, nx)
+    frames (ny None: rows)."""
     n = frames.shape[0]
     dt, dev = frames.dtype, frames.device
     k, seeds = backward_launch(columns)
@@ -483,7 +525,7 @@ def _backward(frames, grad_f, grad_g, columns):
     for j, c in enumerate(seeds):
         if c is not None:
             tangent[:, c, j] = 1.0
-    sums = _launch_vjp(frames, tangent, grad_f, grad_g)
+    sums = _launch_vjp(frames, tangent, grad_f, grad_g, row0=row0, ny=ny)
     out = torch.zeros((n, 6), dtype=dt, device=dev)
     for j, c in enumerate(seeds):
         if c is not None:
@@ -501,20 +543,24 @@ def new_counters(device):
                        device=device)
 
 
-def _launch(frames, image_f, image_g, counters=None, work=None):
+def _launch(frames, image_f, image_g, counters=None, work=None, row0=0,
+            ny=None):
     """One launch of nt_frames<T> (each frame's constants into `work`,
     (n, FRAME_WORDS) of type T, allocated here if None) and then
     nt_image<T> on the current stream: frames (n, 6), image_f and image_g
-    (n, ny, nx), all of type T and contiguous on one card.  With
-    `counters` (`new_counters`, added to), the counted instance."""
-    n, ny, nx = image_f.shape
+    (n, rows, nx), rows [row0, row0 + rows) of (ny, nx) frames (ny None:
+    rows, the whole frames), all of type T and contiguous on one card.
+    With `counters` (`new_counters`, added to), the counted instance."""
+    n, rows, nx = image_f.shape
+    ny = rows if ny is None else int(ny)
+    row0, rows = row_window(ny, row0, rows)
     dt, dev = image_f.dtype, image_f.device
     if work is None:
         work = torch.empty((n, FRAME_WORDS), dtype=dt, device=dev)
     rc = _lib().sim5_nt_image(
         int(dt == torch.float64), frames.data_ptr(), work.data_ptr(), n,
-        image_f.data_ptr(), image_g.data_ptr(), nx, ny, ny / nx,
-        None if counters is None else counters.data_ptr(),
+        image_f.data_ptr(), image_g.data_ptr(), nx, ny, row0, rows,
+        ny / nx, None if counters is None else counters.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     name = (VARIANTS if counters is None else COUNTED)[dt]
     if rc != 0:

@@ -11,8 +11,10 @@ process id and persists them to its own shard file
 file; `merge_shards` combines the shards into the final table.  A
 restarted process reopens its shard and skips the rows already computed
 (the reference's resume semantics, python/sim5fitstable.py:105-140).
-The rays of one row are not sharded over devices: the JAX package's
-`mesh=` is not ported (multi-GPU is a later slice).
+With `mesh=`, the rays of each row are also sharded over the mesh's
+ranks (`DiskRaytrace.spectrum(mesh=)`): the mesh's rank 0 owns the
+table and writes its rows, and the other ranks trace their share of the
+same rows.
 """
 
 import glob
@@ -87,44 +89,73 @@ def generate_disk_table(path, spins, mdots, incls, energies,
     the caller asks for the CPU).  `fast=True` computes rows in f32 (an f32
     disk and `DiskRaytrace(dtype=torch.float32)`, the JAX package's
     `enable_x64(False)`); stored spectra are f64 either way, and the mode
-    is recorded in `meta["fast"]`.  `mesh` is the JAX package's ray
-    sharding over devices, not ported: anything but None raises.
+    is recorded in `meta["fast"]`.
+
+    `mesh` (optional 1-D DeviceMesh, `parallel.make_mesh`): shard each
+    row's rays over the mesh's ranks (`DiskRaytrace.spectrum(mesh=)`),
+    each on its own card.  Every rank of the mesh calls this function
+    with the same arguments; the mesh's rank 0 owns the table (creates,
+    resumes, writes and saves it) and sends the other ranks the rows to
+    compute; they return the saved table.  Combined with num_processes,
+    rows are spread across processes and rays across the mesh: there the
+    mesh is the sub-group of this process's local ranks (all of them
+    with one process_id), e.g. `init_device_mesh("cuda", (hosts, cards),
+    mesh_dim_names=("hosts", "rays"))["rays"]`.
     """
-    if mesh is not None:
-        raise ValueError("mesh= is not ported: rays of a row are not "
-                         "sharded over devices (multi-GPU is a later slice)")
     dev = default_device(device)
     dtype = torch.float32 if fast else torch.float64
     params = [("spin", spins), ("mdot", mdots), ("incl", incls)]
     meta = dict(bh_mass=bh_mass, bh_dist=bh_dist, radres=radres,
                 angres=angres, fast=bool(fast))
-    table = SpectralTable.create(
-        shard_path(path, process_id, num_processes), params, energies,
-        meta=meta)
+    if mesh is not None:
+        from ..parallel.mesh import check_mesh
+        check_mesh(mesh)
+    spath = shard_path(path, process_id, num_processes)
+    lead = mesh is None or mesh.get_local_rank() == 0
+    todo, table = None, None
+    if lead:
+        table = SpectralTable.create(spath, params, energies, meta=meta)
+        todo = [(indices[0], rowpars[0])
+                for indices, rowpars in table.generator()
+                if indices[0] % num_processes == process_id]
+    if mesh is not None and mesh.size() > 1:
+        todo = _from_lead(todo, mesh)
     n_written = 0
-    for (indices, rowpars) in table.generator():
-        idx = indices[0]
-        if idx % num_processes != process_id:
-            continue
-        p = rowpars[0]
+    for idx, p in todo:
         disk = ThinDisk.create(
             torch.tensor(float(bh_mass), dtype=dtype, device=dev),
             float(p["spin"]), float(p["mdot"]))
         rt = DiskRaytrace(float(bh_mass), float(p["spin"]), float(bh_dist),
                           disk, DiskSpectrum_BlackBody(), device=dev,
                           dtype=dtype)
-        spec, _ = rt.spectrum(float(p["incl"]), table.energies,
-                              radres=radres, angres=angres)
+        spec, _ = rt.spectrum(float(p["incl"]), host_f64(energies),
+                              radres=radres, angres=angres, mesh=mesh)
+        if not lead:
+            continue
         n_written += 1
         table.write(idx, spec, flush=(n_written % flush_every == 0))
         if verbose:
             done, total = table.progress
             print(f"[tables] row {idx} done ({done}/{total})")
-    table.save()
+    if lead:
+        table.save()
+    if mesh is not None and mesh.size() > 1:
+        torch.distributed.barrier(group=mesh.get_group())
+    if not lead:
+        return SpectralTable.open(spath)
     if num_processes > 1 and merge and process_id == 0:
         return merge_shards(path, params, energies, meta=meta,
                             num_processes=num_processes)
     return table
+
+
+def _from_lead(obj, mesh):
+    """`obj` of the mesh's rank 0, on every rank of the mesh."""
+    group = mesh.get_group()
+    box = [obj]
+    torch.distributed.broadcast_object_list(
+        box, src=torch.distributed.get_global_rank(group, 0), group=group)
+    return box[0]
 
 
 def generate_polarized_table(path, spins, incls, energies, bh_mass=10.0,

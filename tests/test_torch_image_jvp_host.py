@@ -311,11 +311,12 @@ class TestFunctionWiring:
     def recorded(self, monkeypatch):
         calls = {"vjp": []}
 
-        def launch(frames, f, g, counters=None, work=None):
+        def launch(frames, f, g, counters=None, work=None, row0=0,
+                   ny=None):
             f.fill_(1.0)
             g.fill_(2.0)
 
-        def launch_vjp(frames, tangent, grad_f, grad_g):
+        def launch_vjp(frames, tangent, grad_f, grad_g, row0=0, ny=None):
             calls["vjp"].append(tangent.clone())
             n, _, k = tangent.shape
             out = torch.zeros((n, k + 1), dtype=frames.dtype)
@@ -325,11 +326,11 @@ class TestFunctionWiring:
             out[:, k] = 100.0 + torch.arange(n, dtype=frames.dtype)
             return out
 
-        def launch_jvp(frames, tangent, nx, ny):
+        def launch_jvp(frames, tangent, nx, rows, row0=0, ny=None):
             calls["tangent"] = tangent.clone()
             n, _, k = tangent.shape
-            df = tangent[:, 0, :, None, None].expand(n, k, ny, nx).clone()
-            dg = tangent[:, 1, :, None, None].expand(n, k, ny, nx).clone()
+            df = tangent[:, 0, :, None, None].expand(n, k, rows, nx).clone()
+            dg = tangent[:, 1, :, None, None].expand(n, k, rows, nx).clone()
             return None, None, df, dg
 
         monkeypatch.setattr(kernel_image, "_launch", launch)
