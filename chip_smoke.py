@@ -9,18 +9,22 @@ differentiable spectrum), the derivative layer (the disk image's
 gradient through its tangent kernel, and the reverse-differentiable
 march), the spectral tables, frame checkpoints and host IO, the parallel
 layer (row windows of the image kernels, the sharded render, the
-data-parallel Adam fit, DiskRaytrace and the tables with mesh=) and
-every example of the port.
+data-parallel Adam fit, DiskRaytrace and the tables with mesh=), every
+example of the port, and emission and absorption models of any
+elementwise torch ops traced into the march kernel.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-The march kernel (`sim5_tpu_torch/csrc/march.cu`, all its variants, run
-in segments with the live rays compacted between them), the disk image
-kernel (`sim5_tpu_torch/csrc/disk_image.cu`, f64 and f32) and its tangent
+The march kernel (`sim5_tpu_torch/csrc/march.cuh`, run in segments with
+the live rays compacted between them: `csrc/march.cu` for its compiled-in
+GaussianSource family, all its variants), the disk image kernel
+(`sim5_tpu_torch/csrc/disk_image.cu`, f64 and f32) and its tangent
 kernel (`sim5_tpu_torch/csrc/disk_image_jvp.cu`) are built into `build/`
-on first use, all at once.  Phases, one line each:
+on first use, all at once; the march libraries generated for traced
+models (`sim5_tpu_torch/march/model_trace.py`) into
+`build/sim5_tpu_torch/gen/` at their first use.  Phases, one line each:
 
 1. device: the card's name and power limit, the builds (with a probe of
    single-function kernels for the SASS lengths of divisions, square roots
@@ -158,9 +162,9 @@ on first use, all at once.  Phases, one line each:
     of the f64 peak tangent on the resolved pixels, which must be all but
     0.5% of the footprint), timed by CUDA events, with its bound; the
     registers, spills and resident blocks of every instance;
-22. volume_image(engine="scan") on example 11's torus in f64 over 1024
-    steps (its 2000 cut to 16 whole segments of 64, to leave room for
-    phases 23-24): against the loop engine at
+22. volume_image(engine="scan") on example 11's torus in f64 over 512
+    steps (its 2000 cut to 8 whole segments of 64, to leave room for
+    phases 23-27): against the loop engine at
     96^2 (rtol 1e-12); at 256^2, the largest power-of-two size whose
     checkpointed segments fit, the forward and the backward of d I.sum()
     / d(a, the torus' radius) timed, and the gradient against central
@@ -209,7 +213,24 @@ on first use, all at once.  Phases, one line each:
 26. every examples/torch_*.py on the card in this process (runpy): 01,
     04, 05 and 11 at full size, the others at SIM5_FAST (their full-size
     paths are phases 15-17, 23 and 24); each one's printed numbers finite
-    and not all zero.
+    and not all zero;
+27. emission and absorption models outside the GaussianSource family,
+    traced into the march kernel: every generated library of the phase
+    built together (cold and cached seconds, each instance's ptxas);
+    example 11's torus as its own plain functions through
+    volume_image(engine="kernel") at 512^2, thin and thick, with the
+    launch counts, within 1e-5 of the peak of phase 7's GaussianSource
+    images (and whether bitwise), its march timed on the 512^2 seed with
+    equal steps on > 0.999 of the rays against phase 9's; a power-law
+    corona and a two-armed spiral (time and azimuth), thin and thick,
+    against the plain version on 4096 ZAMO rays and on a 64^2 seed
+    (equal steps > 0.9, |dI| <= 1e-3 of the peak), the corona's 64^2
+    march timed (the kernels line's traced rows) and its 512^2 thick
+    march, the spiral's image at 128^2; test_march.py's flare light
+    curve at two times and at a second t_flare, and example 11's alpha
+    sweep, each absorption and each flare on one cached library; an
+    unsupported op and data-dependent control flow refused on the card
+    before any build or launch.
 
 Then one JSON line on the kernels, the card's name and power limit, and
 the result as the last line.  Any failed check exits non-zero.  The script
@@ -217,9 +238,11 @@ needs a CUDA device and imports nothing of JAX.
 
     python3 chip_smoke.py --compare-forward DIR
 
-hashes the forward disk images (the headline frame and the 64-frame
-sweep, f64 and f32) of the checkout at DIR and of this one, each in its
-own process, and exits 0 if they are bitwise equal.
+hashes the forward results (the disk images of the headline frame and
+the 64-frame sweep, f64 and f32; the march's family on the main path's
+rays and example 11's torus at 128^2, thin and thick) of the checkout at
+DIR and of this one, each in its own process, and exits 0 if they are
+bitwise equal.
 
     python3 chip_smoke.py --compare-grad DIR
 
@@ -243,6 +266,7 @@ import contextlib
 import concurrent.futures
 import ctypes
 import hashlib
+import io
 import json
 import math
 import os
@@ -269,9 +293,10 @@ VOL = dict(a=0.9, incl=math.radians(70.0), rmax=16.0, r_start=40.0,
            max_steps=2000, precision=0.02, axisymmetric=True)
 N_VOL_PIX = 512
 N_VOL_CMP = 64
-N_VOL_LOOP = 128         # the orbiting source against the f64 loop engine
-N_VOL_LOOP_TORUS = 96    # the torus (cut from 128 to keep the script near
-                         # 600 s)
+N_VOL_LOOP = 64          # the orbiting source against the f64 loop engine
+                         # (cut from 128 to keep the script near 600 s)
+N_VOL_LOOP_TORUS = 64    # the torus (cut from 128, then 96, to keep the
+                         # script near 600 s)
 ALPHA0 = (0.0, 1.0)
 # example 07's hot spot (examples/07_hotspot_lightcurve.py: a = 0.5, 70 deg,
 # r_spot = 7, size 0.7, two periods in 96 samples at 192^2, orders 0 and 1)
@@ -630,11 +655,16 @@ def sass_summary(counts, key):
             f"{c['CALL']}")
 
 
-def march_bound(n, ray_steps, rt):
+def march_bound(n, ray_steps, rt, model_ops=None):
     """(bound_ms, bound_by) of a march of n rays that made `ray_steps`
     trial steps in all, with transfer variant `rt`: the larger of its
-    operations over the FP32 peak and its bytes over the memory rate."""
-    t_ops = ray_steps * (OPS_TRIAL + OPS_RT[rt]) / H100_FP32
+    operations over the FP32 peak and its bytes over the memory rate.
+    `model_ops`: the operations of one evaluation of each traced model,
+    summed (model_trace's flops), in place of the torus's 19 a model."""
+    per_trial = OPS_TRIAL + OPS_RT[rt]
+    if model_ops is not None:
+        per_trial += model_ops - 19 * rt
+    t_ops = ray_steps * per_trial / H100_FP32
     t_bytes = n * (BYTES_RAY + (4 if rt else 0)) / H100_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -770,27 +800,27 @@ def jvp_instances_text():
     return "; ".join(out)
 
 
+# builds and host-CPU references that run beside the phases: name -> future
+BACKGROUND = {}
+
+
 def phase_device():
     from sim5_tpu_torch._build import BUILDS
     from sim5_tpu_torch.march import kernel_march
     from sim5_tpu_torch.render import kernel_image
     name = card()
     # one nvcc for each source (and the op-length probe), all started
-    # together
+    # together; the tangent library (the longest build, first used by
+    # phase 21) goes on building beside the phases (`tangent_build`)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        futs = [pool.submit(kernel_march._lib), pool.submit(kernel_image._lib),
-                pool.submit(kernel_image._jvp_lib), pool.submit(op_lengths)]
-        lengths = [f.result() for f in futs][3]
+    pool = concurrent.futures.ThreadPoolExecutor(4)
+    BACKGROUND["tangent"] = pool.submit(kernel_image._jvp_lib)
+    futs = [pool.submit(kernel_march._lib), pool.submit(kernel_image._lib),
+            pool.submit(op_lengths)]
+    lengths = [f.result() for f in futs][2]
+    pool.shutdown(wait=False)
     build_s = time.perf_counter() - t0
     b, bi = BUILDS["march"], BUILDS["disk_image"]
-    bj = BUILDS["disk_image_jvp"]
-    compiled = kernel_image.jvp_backward_slots()
-    check(compiled == (kernel_image.JVP_SLOTS[-1],
-                       len(kernel_image.CHAIN_COLUMNS)),
-          f"the tangent library's backward slots {compiled} are not "
-          f"kernel_image.JVP_SLOTS {kernel_image.JVP_SLOTS} with "
-          f"CHAIN_COLUMNS {kernel_image.CHAIN_COLUMNS}")
     cfg = kernel_march.kernel_config()
     image_att = "; ".join(
         f"{names[dt]}: {att['registers']} registers, {att['local_bytes']} "
@@ -803,22 +833,42 @@ def phase_device():
     print(f"phase 1 device: {name} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | builds {build_s:.2f} s together: march "
           f"{b['seconds']:.2f} s cached={b['cached']}, disk_image "
-          f"{bi['seconds']:.2f} s cached={bi['cached']}, disk_image_jvp "
-          f"{bj['seconds']:.2f} s cached={bj['cached']} | {cfg} | "
+          f"{bi['seconds']:.2f} s cached={bi['cached']} (disk_image_jvp "
+          f"building beside the phases) | {cfg} | "
           + "; ".join(instance_text(rt) for rt in range(3))
           + f" | ptxas: {ptxas_summary(b['log'])} | SASS (static): "
           + "; ".join(sass_summary(sass_counts(b["path"]), (1, 0, rt))
                       for rt in range(3))
           + f" | image: {kernel_image.kernel_config()}; {image_att} | image "
           f"ptxas: " + ptxas_summary(bi["log"], IMAGE_INSTANCE, image_label)
-          + f" | image SASS (static): {image_sass_summary(image_sass)} | "
-          f"tangent kernel: {jvp_instances_text()} | tangent ptxas: "
-          + ptxas_summary(bj["log"], JVP_INSTANCE, jvp_label) + " | SASS "
+          + f" | image SASS (static): {image_sass_summary(image_sass)} | SASS "
           f"lengths (f64 d, f32 f): "
           + (", ".join(f"{op}_{t} {n}" for (op, t), n in sorted(
               lengths.items())) or "not measured (no cuobjdump)"),
           flush=True)
     return name, lengths
+
+
+def tangent_build():
+    """Waits for the tangent library phase 1 started, checks the slots it
+    was compiled with and prints its build and registers."""
+    from sim5_tpu_torch._build import BUILDS
+    from sim5_tpu_torch.render import kernel_image
+    t0 = time.perf_counter()
+    BACKGROUND.pop("tangent").result()
+    wait_s = time.perf_counter() - t0
+    bj = BUILDS["disk_image_jvp"]
+    compiled = kernel_image.jvp_backward_slots()
+    check(compiled == (kernel_image.JVP_SLOTS[-1],
+                       len(kernel_image.CHAIN_COLUMNS)),
+          f"the tangent library's backward slots {compiled} are not "
+          f"kernel_image.JVP_SLOTS {kernel_image.JVP_SLOTS} with "
+          f"CHAIN_COLUMNS {kernel_image.CHAIN_COLUMNS}")
+    print(f"phase 1 (tangent library, built beside phases 2-20): "
+          f"disk_image_jvp {bj['seconds']:.2f} s cached={bj['cached']}, "
+          f"waited {wait_s:.2f} s | tangent kernel: {jvp_instances_text()} | "
+          f"tangent ptxas: " + ptxas_summary(bj["log"], JVP_INSTANCE,
+                                             jvp_label), flush=True)
 
 
 def phase_compare(dev):
@@ -921,14 +971,14 @@ def phase_f64(dev):
 
 
 def timing_report(tag, n, rt, timing, same, plain_outs, plain_ms,
-                  compare_fn):
+                  compare_fn, model_ops=None):
     """Gate and describe one march timing: returns (text, row)."""
     check(same, f"{tag}: two runs of the segmented march are not bitwise "
           f"equal")
     ms, outs, counters = timing
     check_counters(tag, counters, outs[5])
     ray_steps = int(outs[5].long().sum())
-    bound_ms, bound_by = march_bound(n, ray_steps, rt)
+    bound_ms, bound_by = march_bound(n, ray_steps, rt, model_ops)
     row = dict(ms=ms, plain_ms=plain_ms, max_abs_err=compare_fn(outs,
                                                                 plain_outs),
                bound_ms=bound_ms, bound_by=bound_by)
@@ -1022,6 +1072,79 @@ def compare_transfer(out_k, out_p, st0):
     return eq, rel, float(dI.max()), float(I_p.double().max())
 
 
+def plain_together(parts, scalars):
+    """The plain march of several batches of rays that share the march's
+    scalars, each (tensors, emissivity, absorption), in one call: each
+    batch's outputs.  The plain march costs its steps, one launch an op,
+    not its rays, so one call costs about what one batch does alone.  A
+    ray's arithmetic is elementwise: each model runs on every ray and
+    torch.where keeps it on its own batch's rays, and a thin batch runs
+    as a thick one with no absorption (tau stays 0, e^-0 is 1 and s_eff
+    is dl, so I gains j dl as in the thin branch).  So each ray gives the
+    bits it gives alone; phase 27 checks that on the card."""
+    from sim5_tpu_torch.march import kernel_march
+    sizes = [t[3].shape[0] for t, _, _ in parts]
+    tensors = tuple(torch.cat([t[i] for t, _, _ in parts], -1).contiguous()
+                    for i in range(5))
+    bounds = np.cumsum([0] + sizes).tolist()
+
+    def chosen(models):
+        masks = {}
+        for fn, lo, hi in zip(models, bounds, bounds[1:]):
+            if fn is not None:
+                mask = masks.get(fn)
+                if mask is None:
+                    mask = masks[fn] = torch.zeros_like(tensors[4])
+                mask[lo:hi] = True
+
+        def model(t, r, m, phi):
+            out = torch.zeros_like(r)
+            for fn, mask in masks.items():
+                out = torch.where(mask, fn(t, r, m, phi), out)
+            return out
+        return model if masks else None
+
+    thick = any(ab is not None for _, _, ab in parts)
+    outs = kernel_march.march_reference(
+        *tensors, **scalars, emissivity=chosen([em for _, em, _ in parts]),
+        absorption=chosen([ab for _, _, ab in parts]) if thick else None)
+    return [tuple(None if v is None else v[..., lo:hi] for v in outs)
+            for lo, hi in zip(bounds, bounds[1:])]
+
+
+def photon_orbits(a):
+    """Radii of the prograde and retrograde circular photon orbits of spin
+    a (Bardeen, Press & Teukolsky 1972): every spherical photon orbit lies
+    between them."""
+    return tuple(2.0 * (1.0 + math.cos(2.0 / 3.0 * math.acos(s * a)))
+                 for s in (-1.0, 1.0))
+
+
+def compare_off_orbit(out_k, out_p, st0, a):
+    """Kernel vs plain transfer march without the rays circling the photon
+    orbits: (max |dI| over the other rays with equal step counts, the
+    rays circling, max |dI| over those).  A ray circles when either march
+    leaves it still marching at the step cap inside the photon orbits'
+    band.  There the geodesic flow is unstable, so two f32 marches of one
+    ray part within its steps whatever the model; their step counts are
+    equal only because both hit the cap."""
+    from sim5_tpu_torch.march import kernel_march
+    st_k, act_k, I_k = kernel_march._unpack(st0, out_k)
+    st_p, act_p, I_p = kernel_march._unpack(st0, out_p)
+    r_lo, r_hi = photon_orbits(a)
+
+    def inside(st):
+        r = st.x[..., 1]
+        return (r >= r_lo) & (r <= r_hi)
+
+    circling = (act_k & inside(st_k)) | (act_p & inside(st_p))
+    same = (st_k.steps == st_p.steps) & ~circling
+    dI = (I_k.double() - I_p.double()).abs()
+    return (float(dI[same].max()) if bool(same.any()) else math.nan,
+            int(circling.sum()),
+            float(dI[circling].max()) if bool(circling.any()) else 0.0)
+
+
 @contextlib.contextmanager
 def launch_events():
     """CUDA events around every march kernel launch made in the block."""
@@ -1044,18 +1167,46 @@ def launch_events():
         kernel_march._march_cuda = launch
 
 
+TRACED_CMP = ("corona", "corona thick", "spiral", "spiral thick")
+
+
 def phase_transfer_compare(dev):
     """The transfer variants vs their plain version on the seeded rays of
-    a 64^2 image, thin and thick."""
+    a 64^2 image, thin and thick.  The same plain call marches phase 27's
+    corona and spiral pairs on the 64^2 seeds of their configurations and
+    on the torus's 512^2 seed (`plain_together`: it costs its steps, not
+    its rays): returns those seeds and outputs for phase 27."""
     from sim5_tpu_torch.march import kernel_march
     st0, ok = volume_seed_f32(N_VOL_CMP, dev)
     tensors, scalars = kernel_march._pack(
         st0, 1.2 * VOL["r_start"], VOL["max_steps"], 1e-2, ok)
+    small = {True: (st0, tensors)}
+    cfg = dict(VOL, axisymmetric=False)
+    st0n, okn = volume_seed_f32(N_VOL_CMP, dev, cfg)
+    small[False] = (st0n, kernel_march._pack(
+        st0n, 1.2 * cfg["r_start"], cfg["max_steps"], 1e-2, okn)[0])
+    st0b, okb = volume_seed_f32(N_VOL_PIX, dev)
+    big, sb = kernel_march._pack(st0b, 1.2 * VOL["r_start"],
+                                 VOL["max_steps"], 1e-2, okb)
+    check(sb == scalars, f"the {N_VOL_PIX}^2 seed marches with other "
+          f"scalars: {sb} vs {scalars}")
+    pairs = traced_pairs()
+    batches = [(tensors, torus(), torus(alpha0)) for alpha0 in ALPHA0]
+    for p in TRACED_CMP:
+        batches += [(small[p.startswith("corona")][1], *pairs[p]),
+                    (big, *pairs[p])]
+    n_rays = sum(t[3].shape[0] for t, _, _ in batches)
+    t0 = time.perf_counter()
+    plains = plain_together(batches, scalars)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    shared = dict(small=small, big=(st0b, big), scalars=scalars,
+                  plain_s=plain_s, plains={
+        p: plains[2 + 2 * n: 4 + 2 * n] for n, p in enumerate(TRACED_CMP)})
     parts = []
-    for alpha0 in ALPHA0:
+    for alpha0, out_p in zip(ALPHA0, plains):
         kw = dict(scalars, emissivity=torus(), absorption=torus(alpha0))
         out_k = kernel_march._march_cuda(*tensors, **kw)
-        out_p = kernel_march.march_reference(*tensors, **kw)
         torch.cuda.synchronize()
         eq, rel, dI, peak = compare_transfer(out_k, out_p, st0)
         tag = f"alpha0={alpha0}"
@@ -1068,7 +1219,12 @@ def phase_transfer_compare(dev):
                      f"{dI:.3e} ({dI / peak:.3e} of peak {peak:.4e})")
     print(f"phase 6 transfer kernel vs plain ({N_VOL_CMP}^2 seeded rays, "
           f"GR; gates: equal steps > 0.9, rel dr < 1e-3, |dI| <= 1e-3 of "
-          f"peak): " + " | ".join(parts), flush=True)
+          f"peak): " + " | ".join(parts) + f" | the plain march of these "
+          f"and of phase 27's four pairs on their {N_VOL_CMP}^2 seeds and "
+          f"the {N_VOL_PIX}^2 seed ({len(batches)} batches, {n_rays} rays) "
+          f"in one call: {plain_s:.1f} s host clock",
+          flush=True)
+    return shared
 
 
 def volume_kw(cfg, npix):
@@ -1086,6 +1242,7 @@ def volume_main(dev, cfg=VOL, source=None):
     variant, march ms a variant, text of each, text of the thick-thin
     gate)."""
     from sim5_tpu_torch.march import kernel_march
+    from sim5_tpu_torch.march.emission import is_family
     from sim5_tpu_torch.render import lightcurve, volume_image
     source = source or torus
     images, launches, march, parts = {}, {}, {}, []
@@ -1100,7 +1257,9 @@ def volume_main(dev, cfg=VOL, source=None):
         wall = time.perf_counter() - t0
         counts = dict(kernel_march.LAUNCHES)
         march_ms = sum(e0.elapsed_time(e1) for e0, e1 in events)
-        variant = kernel_march.VARIANTS[1 if alpha0 == 0.0 else 2]
+        traced = not is_family(source(), source(alpha0))
+        variant = kernel_march.VARIANTS[(1 if alpha0 == 0.0 else 2)
+                                        + (2 if traced else 0)]
         check(counts[variant] >= 1,
               f"alpha0={alpha0}: the image launched {variant} 0 times")
         launches[variant] = counts[variant]
@@ -1148,64 +1307,57 @@ def volume_main(dev, cfg=VOL, source=None):
 
 
 def phase_volume_main(dev):
-    """The volume path's main path for example 11's torus."""
-    _, launches, march, parts, gate = volume_main(dev)
+    """The volume path's main path for example 11's torus: returns the
+    launches and the images."""
+    images, launches, march, parts, gate = volume_main(dev)
     print(f"phase 7 volume main path ({N_VOL_PIX}^2, a={VOL['a']}, incl "
           f"{math.degrees(VOL['incl']):.0f}, r_start {VOL['r_start']}, "
           f"{VOL['max_steps']} steps, f64 seed -> f32 kernel): "
           + " | ".join(parts) + f" | {gate}", flush=True)
-    return launches
+    return launches, images
 
 
-def volume_loop(dev, npix, cfg=VOL, source=None):
+def volume_loop(dev, npix, alpha0, cfg=VOL, source=None):
     """The kernel route against the f64 loop engine at npix^2 for `source`
-    (the torus by default), and the loop engine's thick image against its
-    thin one pixel by pixel, at the JAX package's gate for that engine
-    (test_pallas_march.py): returns the text."""
+    (the torus by default) at alpha0, at the JAX package's gate for that
+    engine (test_pallas_march.py): returns the text."""
     from sim5_tpu_torch.render import volume_image
     source = source or torus
     kw = volume_kw(cfg, npix)
-    parts, loop = [], {}
-    for alpha0 in ALPHA0:
-        t0 = time.perf_counter()
-        I_l = volume_image(cfg["a"], cfg["incl"], source(), engine="loop",
-                           absorption_fn=source(alpha0), **kw).double()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        I_k = volume_image(cfg["a"], cfg["incl"], source(), engine="kernel",
-                           absorption_fn=source(alpha0), **kw).double()
-        peak = float(I_l.max())
-        err = float((I_k - I_l).abs().max())
-        check(peak > 0.0, f"alpha0={alpha0}: loop peak I {peak}")
-        check(err <= 2e-2 * peak, f"alpha0={alpha0}: kernel vs f64 loop "
-              f"{err / peak:.3e} of peak > 2e-2")
-        loop[alpha0] = I_l
-        parts.append(f"alpha0={alpha0}: max |dI| {err:.3e} = "
-                     f"{err / peak:.3e} of peak {peak:.4e} (f64 loop "
-                     f"{secs:.2f} s)")
-    peak = float(loop[0.0].max())
-    excess = float((loop[1.0] - loop[0.0]).max())
-    check(excess <= 1e-6 * peak, f"f64 loop: thick exceeds thin by "
-          f"{excess:.3e} > 1e-6 of peak {peak:.4e}")
-    return " | ".join(parts) + (f" | f64 loop thick - thin <= {excess:.3e} "
-                                f"(gate 1e-6 of peak)")
+    t0 = time.perf_counter()
+    I_l = volume_image(cfg["a"], cfg["incl"], source(), engine="loop",
+                       absorption_fn=source(alpha0), **kw).double()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    I_k = volume_image(cfg["a"], cfg["incl"], source(), engine="kernel",
+                       absorption_fn=source(alpha0), **kw).double()
+    peak = float(I_l.max())
+    err = float((I_k - I_l).abs().max())
+    check(peak > 0.0, f"alpha0={alpha0}: loop peak I {peak}")
+    check(err <= 2e-2 * peak, f"alpha0={alpha0}: kernel vs f64 loop "
+          f"{err / peak:.3e} of peak > 2e-2")
+    return (f"alpha0={alpha0}: max |dI| {err:.3e} = {err / peak:.3e} of peak "
+            f"{peak:.4e} (f64 loop {secs:.2f} s)")
 
 
 def phase_volume_loop(dev):
+    """The torus's thin kernel route against the f64 loop engine (phase 14
+    holds the orbiting spot's thick one)."""
     print(f"phase 8 kernel route vs f64 loop engine ({N_VOL_LOOP_TORUS}^2; "
-          f"gate 2e-2 of peak): " + volume_loop(dev, N_VOL_LOOP_TORUS),
+          f"gate 2e-2 of peak): " + volume_loop(dev, N_VOL_LOOP_TORUS, 0.0),
           flush=True)
 
 
 def phase_volume_timing(dev, name):
     """Phase 5's timing for the transfer variants at 512^2, on the packed
-    inputs of the volume main path, and their plain version once."""
+    inputs of the volume main path, and their plain version once.  Returns
+    the rows, the kernel's outputs and the plain version's, by rt."""
     from sim5_tpu_torch.march import kernel_march
     st0, ok = volume_seed_f32(N_VOL_PIX, dev)
     tensors, scalars = kernel_march._pack(
         st0, 1.2 * VOL["r_start"], VOL["max_steps"], 1e-2, ok)
     n = N_VOL_PIX * N_VOL_PIX
-    out, parts = {}, []
+    out, outs, plains, parts = {}, {}, {}, []
     for alpha0 in ALPHA0:
         rt = 1 if alpha0 == 0.0 else 2
         tag = f"512^2 alpha0={alpha0}"
@@ -1222,7 +1374,7 @@ def phase_volume_timing(dev, name):
 
         text, row = timing_report(tag, n, rt, timing, same, out_p, ms_p,
                                   max_dI)
-        out[rt] = row
+        out[rt], outs[rt], plains[rt] = row, timing[1], out_p
         steps = timing[1][5]
         parts.append(
             f"alpha0={alpha0}: {text} | ray-steps {int(steps.long().sum())} "
@@ -1232,7 +1384,7 @@ def phase_volume_timing(dev, name):
             + segment_profile(tensors, kw, resident_lanes(rt)))
     print(f"phase 9 transfer timing ({N_VOL_PIX}^2 rays f32; {name}): "
           + " | ".join(parts), flush=True)
-    return out
+    return out, outs, plains
 
 
 def nt_disk(dtype, dev, a=NT["a"]):
@@ -1694,6 +1846,40 @@ def analytic_f64(device):
     return g, ok, phi, m, gm
 
 
+def _dumps(obj):
+    buf = io.BytesIO()
+    torch.save(obj, buf)
+    return buf.getvalue()
+
+
+def start_cpu_references():
+    """Starts the host-CPU references of phases 13 and 19 in two worker
+    processes (spawned: no CUDA), beside the phases; returns the pool.
+    They need no card and take tens of seconds of eager f64 on the CPU."""
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    BACKGROUND["cpu analytic"] = pool.submit(cpu_analytic)
+    BACKGROUND["cpu thickdisk"] = pool.submit(cpu_thickdisk)
+    return pool
+
+
+def cpu_result(key, fn):
+    """fn()'s result, a host-CPU reference: from the worker that
+    `start_cpu_references` started, else computed here."""
+    fut = BACKGROUND.pop(key, None)
+    return torch.load(io.BytesIO(fut.result() if fut is not None else fn()),
+                      weights_only=False)
+
+
+def cpu_analytic():
+    """analytic_f64 on the CPU and its seconds (serialized)."""
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = analytic_f64("cpu")
+    return _dumps((out, time.perf_counter() - t0))
+
+
 def phase_analytic(dev):
     """The analytic azimuth and travel time on the card: against the C
     goldens, and against the same torch code on the CPU in f64."""
@@ -1729,9 +1915,8 @@ def phase_analytic(dev):
     t0 = time.perf_counter()
     gk, okk, phik, mk, gmk = analytic_f64(dev)
     card_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    gc, okc, phic, mc, gmc = analytic_f64("cpu")
-    cpu_s = time.perf_counter() - t0
+    (gc, okc, phic, mc, gmc), cpu_s = cpu_result("cpu analytic",
+                                                 cpu_analytic)
     okc = okc & torch.isfinite(phic)
     check(torch.equal(okk.cpu() & torch.isfinite(phik.cpu()), okc),
           "seed: valid pixels differ between the card and the CPU")
@@ -1756,7 +1941,8 @@ def phase_analytic(dev):
           f"phi {frac:.4f} of {int(ok.sum())} samples within rtol 1e-4 "
           f"atol 1e-6 (gate > 0.97), time delay {td_frac:.4f} within rtol "
           f"1e-5 atol 1e-7 (gate > 0.95) | card vs CPU, f64, "
-          f"{N_ANALYTIC}^2 (card {card_s:.2f} s, CPU {cpu_s:.2f} s): "
+          f"{N_ANALYTIC}^2 (card {card_s:.2f} s, CPU {cpu_s:.2f} s in a "
+          f"worker process beside the phases): "
           f"crossing map r {rel['r']:.3e}, g {rel['g']:.3e} relative (gate "
           f"1e-12); phi and delay against their per-pixel bounds "
           f"(8 sqrt(eps) times the turning-point factor; + 1e-10 R_FAR for "
@@ -1810,10 +1996,12 @@ def seed_stages(dev, cfg, npix):
 def phase_orbit_volume(dev, name):
     """The volume path with its default azimuth stage and an orbiting
     source, through the march kernel: the 512^2 main path thin and thick,
-    the seed's stages, the kernel against the f64 loop engine (128^2),
-    the light curve's periodicity, and the march timed on the 512^2 seed
-    and held against its plain version there (phase 9's gates).  Returns
-    the launches and the kernels line's row of each variant."""
+    the seed's stages, the thick kernel against the f64 loop engine
+    (N_VOL_LOOP^2; phase 8 holds the torus's thin one), the light curve's
+    periodicity, and the march timed on the 512^2 seed and held against
+    its plain version there (phase 9's gates; the plain march of both
+    variants in one call, `plain_together`).  Returns the launches and
+    the kernels line's row of each variant."""
     from sim5_tpu_torch.core import OmegaK
     from sim5_tpu_torch.march import kernel_march
     from sim5_tpu_torch.render import volume_lightcurve
@@ -1822,7 +2010,7 @@ def phase_orbit_volume(dev, name):
     for v, n in launches.items():
         check(n >= 1, f"orbiting source: {v} launched {n} times")
     stages = seed_stages(dev, cfg, N_VOL_PIX)   # warm: the images ran it
-    loop_text = volume_loop(dev, N_VOL_LOOP, cfg, spot)
+    loop_text = volume_loop(dev, N_VOL_LOOP, 1.0, cfg, spot)
     # the source is periodic in t and the spacetime stationary: one period
     # later the light curve repeats
     period = 2.0 * math.pi / float(OmegaK(torch.tensor(
@@ -1839,13 +2027,14 @@ def phase_orbit_volume(dev, name):
     tensors, scalars = kernel_march._pack(
         st0, 1.2 * cfg["r_start"], cfg["max_steps"], 1e-2, ok)
     n = N_VOL_PIX * N_VOL_PIX
+    ms_p, plains = timed(plain_together, ([
+        (tensors, spot(), spot(alpha0)) for alpha0 in ALPHA0], scalars), {})
     rows, timed_parts = {}, []
-    for alpha0 in ALPHA0:
+    for alpha0, out_p in zip(ALPHA0, plains):
         rt = 1 if alpha0 == 0.0 else 2
         tag = f"orbiting {N_VOL_PIX}^2 alpha0={alpha0}"
         kw = dict(scalars, emissivity=spot(), absorption=spot(alpha0))
         timing, same = march_timing(tensors, kw)
-        ms_p, out_p = timed(kernel_march.march_reference, tensors, kw)
         eq, rel, dI, peak_p = compare_transfer(timing[1], out_p, st0)
         check(peak_p > 0.0, f"{tag}: plain peak I is {peak_p}")
         check(eq > 0.9, f"{tag}: equal steps {eq:.4f}")
@@ -1878,8 +2067,8 @@ def phase_orbit_volume(dev, name):
           f"2e-2 of peak): {loop_text} | light curve t0 = 0 / one period: "
           f"{flux[0]:.9e} / {flux[1]:.9e}, relative {lc_rel:.3e} (gate "
           f"1e-3) | march timed on the {N_VOL_PIX}^2 seed (gates: equal "
-          f"steps > 0.9, "
-          f"|dI| <= 1e-3 of peak): " + " | ".join(timed_parts)
+          f"steps > 0.9, |dI| <= 1e-3 of peak; plain: both variants in one "
+          f"call, {ms_p:.3f} ms): " + " | ".join(timed_parts)
           + f" | peak {peak:.4e}", flush=True)
     return launches, rows
 
@@ -2626,10 +2815,8 @@ def phase_thickdisk(dev):
     ga, gb = square_grid(N_THICK_CMP, CONE["rmax"])
     al2, be2 = np.concatenate([al, ga]), np.concatenate([be, gb])
     k_surf = find_surface(cone_geodesic(al2, be2, dev), disk)
-    c_surf, surf_ops = count_ops(
-        lambda: find_surface(cone_geodesic(al2, be2, "cpu"), disk))
-    c_march, march_ops = count_ops(
-        lambda: find_surface_march(cone_geodesic(al, be, "cpu"), disk))
+    c_surf, surf_ops, c_march, march_ops, frame_ops = cpu_result(
+        "cpu thickdisk", cpu_thickdisk)
     errs = surface_diff("find_surface", k_surf, c_surf) + surface_diff(
         "find_surface_march", march, c_march)
     check(max(errs) <= 1e-9, "card vs CPU: find_surface r, m %.3e / %.3e, "
@@ -2668,11 +2855,6 @@ def phase_thickdisk(dev):
     ts = [synced(lambda: thick_sweep(i0 + 1e-6 * (i + 1), al32, be32))[1]
           for i in range(THICK_RUNS)]
     dt = min(ts)
-    ga, gb = square_grid(N_THICK_CMP, CONE["rmax"])
-    cpu32 = dict(dtype=torch.float32, device="cpu")
-    _, frame_ops = count_ops(lambda: thick_frame(
-        torch.tensor(CONE["incl"], **cpu32), torch.tensor(ga, **cpu32),
-        torch.tensor(gb, **cpu32)))
     rays_per_sec = THICK_SWEEP * N_THICK * N_THICK / dt
     print(f"phase 19 thick-disk surface solve (the cone H = 0.05 R, a = "
           f"{CONE['a']}, 55 deg): the march on the {len(al)} golden rays "
@@ -2697,6 +2879,30 @@ def phase_thickdisk(dev):
     return dict(t_march=t_march, t_surf=t_surf, t_img=t_img,
                 t_img32=t_img32, sweep_s=dt, frame_ops=frame_ops,
                 rays_per_sec=rays_per_sec)
+
+
+def cpu_thickdisk():
+    """Phase 19's CPU side (serialized): find_surface on the golden rays
+    and N_THICK_CMP^2, the march on the golden rays, each (None, r, m, ok)
+    with its op count, and the op count of a thick f32 frame at
+    N_THICK_CMP^2."""
+    from sim5_tpu_torch.render import find_surface, find_surface_march
+    torch.set_num_threads(1)
+    path = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
+    al, be = np.load(path / "thickdisk_cone_a05.npy").T[:2]
+    ga, gb = square_grid(N_THICK_CMP, CONE["rmax"])
+    al2, be2 = np.concatenate([al, ga]), np.concatenate([be, gb])
+    disk = Cone()
+    surf, surf_ops = count_ops(
+        lambda: find_surface(cone_geodesic(al2, be2, "cpu"), disk))
+    march, march_ops = count_ops(
+        lambda: find_surface_march(cone_geodesic(al, be, "cpu"), disk))
+    cpu32 = dict(dtype=torch.float32, device="cpu")
+    _, frame_ops = count_ops(lambda: thick_frame(
+        torch.tensor(CONE["incl"], **cpu32), torch.tensor(ga, **cpu32),
+        torch.tensor(gb, **cpu32)))
+    return _dumps(((None, *surf[1:4]), surf_ops, (None, *march[1:4]),
+                   march_ops, frame_ops))
 
 
 def thin_driver(device, dist=10.0, dtype=torch.float64):
@@ -2841,10 +3047,12 @@ SCAN_SIZE = 256          # its gradient vs FD and timing (512^2 does not fit
                          # at 2048 steps in f64)
 # the scan engine runs max_steps // 64 segments, the loop engine up to
 # max_steps: example 11's 2000 steps were 2048 (whole segments of 64)
-# until phases 23-24 came; cut to 1024, the march's first half (the
-# torus image holds about half its 2048-step intensity), so the script
-# stays within its time
-SCAN_STEPS = 1024
+# until phases 23-24 came, then 1024 (the march's first half: the torus
+# image holds about half its 2048-step intensity) until phase 27 came;
+# at 1024 the whole script took 1316.5 s of its 1200 s on an H100 80GB
+# HBM3 (700 W) with a slow host (PERF.md §5), so 512, the first quarter
+# (at 32^2 the torus image holds 0.51 of its 1024-step flux)
+SCAN_STEPS = 512
 # the f32 instance against the f32 plain version (f32_tangent_check,
 # f32_backward_check); limits set from the readings in PERF.md
 F32_RESOLVED = 1e-4      # a pixel whose plain f32 tangent is this close to
@@ -3599,26 +3807,43 @@ def phase_scan(dev):
 
 
 def forward_hashes(dev):
-    """sha256 of the forward images of render_disk_image on the card, the
-    headline frame and the 64-frame spin sweep in f64 and f32 (image_f and
-    image_g of each), through entry points every checkout of the port has
-    (nt_setup, render_disk_image)."""
-    from sim5_tpu_torch.render import render_disk_image
+    """sha256 of forward results on the card through entry points every
+    checkout of the port has: render_disk_image's images (image_f and
+    image_g) of the headline frame and the 64-frame spin sweep in f64 and
+    f32 (nt_setup, render_disk_image); the march kernel's three family
+    variants, raytrace_kernel on the main path's ZAMO rays (every output)
+    and volume_image(engine="kernel") on example 11's torus at 128^2, thin
+    and thick."""
+    from sim5_tpu_torch.march import raytrace_kernel
+    from sim5_tpu_torch.render import render_disk_image, volume_image
     out = {}
+
+    def digest(tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()
+
     for dt in (torch.float64, torch.float32):
         for what, disk in (("frame", nt_disk(dt, dev)),
                            ("sweep", nt_disks(dt, dev, sweep_spins()))):
-            h = hashlib.sha256()
-            for im in render_disk_image(disk, NT["incl"], N_IMAGE, N_IMAGE):
-                h.update(im.cpu().numpy().tobytes())
-            out[f"{what} {dt}"] = h.hexdigest()
+            out[f"{what} {dt}"] = digest(render_disk_image(
+                disk, NT["incl"], N_IMAGE, N_IMAGE))
+    st, act = main_path(N_MAIN, torch.float32, dev, raytrace_kernel)
+    out["march main path"] = digest(
+        [st.x, st.k, st.f, st.kt, st.error, st.steps, act])
+    for alpha0 in ALPHA0:
+        out[f"torus 128^2 alpha0={alpha0}"] = digest([volume_image(
+            VOL["a"], VOL["incl"], torus(), engine="kernel",
+            absorption_fn=torus(alpha0), device=dev,
+            **volume_kw(VOL, 128))])
     return out
 
 
 def compare_forward(other):
-    """Hash the forward images (forward_hashes) of the checkout at `other`
-    and of this one, each in its own process with its tree first on
-    sys.path (each builds its own kernels), and compare: 0 if equal."""
+    """Hash the forward results (forward_hashes) of the checkout at
+    `other` and of this one, each in its own process with its tree first
+    on sys.path (each builds its own kernels), and compare: 0 if equal."""
     here = pathlib.Path(__file__).resolve().parent
     got = []
     for tree in (pathlib.Path(other).resolve(), here):
@@ -3631,8 +3856,10 @@ def compare_forward(other):
         got.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(f"{tree}: {json.dumps(got[-1])}", flush=True)
     same = got[0] == got[1]
-    print(f"forward images of the two checkouts: "
-          f"{'bitwise equal' if same else 'DIFFERENT'}", flush=True)
+    print(f"forward results of the two checkouts: "
+          f"{'bitwise equal' if same else 'DIFFERENT'}"
+          + ("" if same else ": " + ", ".join(
+              k for k in got[1] if got[0].get(k) != got[1][k])), flush=True)
     return 0 if same else 1
 
 
@@ -3910,8 +4137,9 @@ N_STACK = 32                   # frames of the checkpointed spin sweep
 STACK_STOP = 12                # frames computed before the interruption
 STACK_FLUSH = 4                # frames between two flushes
 N_VOL_STACK = 128              # the orbiting spot's checkpointed stack
-VOL_STACK = 4
-HOTSPOT_CK = dict(n_t=16, chunk=8, npix=128, n_orders=2)
+VOL_STACK = 2                  # frames (cut from 4 for the script's time)
+# two chunks one period apart (one image order, cut from 2 for the time)
+HOTSPOT_CK = dict(n_t=16, chunk=8, npix=128, n_orders=1)
 N_BRIDGE = 48                  # the external disk's image
 
 
@@ -4342,7 +4570,7 @@ FIT_LR = 5e-4
 N_FIT_GRAD = 128               # step 1's gradient against the plain version
 # the examples on the card (phase 26): (file, arguments before the device,
 # full size); the others run at SIM5_FAST, their full-size paths being
-# phases 15-17, 23 and 24
+# phases 15-17, 23, 24 and 27 (example 11's sweep at its 64^2)
 EXAMPLES = (
     ("torch_01_kerr_spacetime.py", (), True),
     ("torch_04_disk_image.py", ("0.0", "60", "512"), True),
@@ -4352,7 +4580,7 @@ EXAMPLES = (
     ("torch_08_spectral_table.py", ("tab.npz",), False),
     ("torch_09_black_hole_shadow.py", ("0.9", "70", "32"), False),
     ("torch_10_polarized_spectrum.py", ("0.9", "70"), False),
-    ("torch_11_thick_volume_transfer.py", ("0.9", "70"), True),
+    ("torch_11_thick_volume_transfer.py", ("0.9", "70"), False),
     ("torch_12_checkpointed_survey.py", ("0.7", "60"), False),
 )
 NUMBER = re.compile(r"[-+]?\d+\.\d+e?[-+]?\d*")
@@ -4709,6 +4937,447 @@ def phase_examples(dev):
           flush=True)
 
 
+# Phase 27: emission and absorption models outside the GaussianSource
+# family, traced into the march kernel (march/model_trace.py)
+N_SPIRAL = 128           # the spiral's image (its f64 azimuth seed costs
+                         # ~2.4 s at any size: one launch an op)
+# test_march.py:177's configuration of its flare light curve, at 64^2
+FLARE = dict(a=0.7, incl=math.radians(55.0), rmax=16.0, r_start=25.0,
+             max_steps=384, precision=0.03, axisymmetric=True)
+N_FLARE = 64
+FLARE_T = (-20.0, -8.0)
+ALPHA_SWEEP = (0.0, 0.05, 0.2, 1.0, 5.0)   # example 11's
+N_SWEEP_IMAGE = 64                          # example 11's
+
+
+def plain_torus(alpha0=None):
+    """Example 11's torus as its own plain functions
+    (examples/11_thick_volume_transfer.py:39-49), in torch: torus_j
+    (alpha0 None), or make_alpha(alpha0) (None for alpha0 = 0)."""
+    if alpha0 is None:
+        return _torus_j
+    if alpha0 == 0.0:
+        return None
+
+    def torus_alpha(t, r, m, phi):
+        return alpha0 * _torus_j(t, r, m, phi)
+    return torus_alpha
+
+
+def _torus_j(t, r, m, phi):
+    R = r * torch.sqrt(torch.clamp(1.0 - m * m, min=0.0))
+    z = r * m
+    return torch.exp(-0.5 * (((R - 8.0) / 1.5) ** 2 + (z / 1.5) ** 2))
+
+
+def _corona_j(t, r, m, phi):
+    return torch.where(r > 2.0, r ** -2.5, 0.0) * torch.exp(
+        -0.5 * (m / 0.3) ** 2)
+
+
+def _corona_alpha(t, r, m, phi):
+    return 0.05 * r ** -1.5 * torch.exp(-0.5 * (m / 0.3) ** 2)
+
+
+def _spiral_j(t, r, m, phi):
+    R = r * torch.sqrt(torch.clamp(1.0 - m * m, min=0.0))
+    return (torch.exp(-0.5 * ((R - 8.0) / 2.0) ** 2 - 0.5 * (r * m) ** 2)
+            * (1.0 + 0.5 * torch.cos(2.0 * (phi - 0.05 * t)
+                                     - 4.0 * torch.log(R))))
+
+
+def _spiral_alpha(t, r, m, phi):
+    return 0.2 * _spiral_j(t, r, m, phi)
+
+
+def corona(alpha0=None):
+    """A power-law corona: its emissivity (alpha0 None), or its absorption
+    (None for alpha0 = 0)."""
+    return _corona_j if alpha0 is None else (
+        _corona_alpha if alpha0 else None)
+
+
+def spiral(alpha0=None):
+    """A two-armed spiral that depends on time and azimuth: its emissivity
+    (alpha0 None), or its absorption, 0.2 j (None for alpha0 = 0)."""
+    return _spiral_j if alpha0 is None else (
+        _spiral_alpha if alpha0 else None)
+
+
+class Scaled:
+    """A model whose number is an attribute: scale * fn."""
+
+    def __init__(self, fn, scale):
+        self.fn, self.scale = fn, scale
+
+    def __call__(self, t, r, m, phi):
+        return self.scale * self.fn(t, r, m, phi)
+
+
+def flare(r_spot=8.0, t_flare=-30.0):
+    """test_march.py:235's flare, in torch."""
+    def j(t, r, m, phi):
+        rho2 = (r - r_spot) ** 2 + (r * m) ** 2
+        return (torch.exp(-0.5 * rho2 / 1.5 ** 2)
+                * torch.exp(-0.5 * ((t - t_flare) / 10.0) ** 2))
+    return j
+
+
+def traced_pairs():
+    """Phase 27's (emissivity, absorption) pairs, by name."""
+    return {"torus": (plain_torus(), None),
+            "torus thick": (plain_torus(), plain_torus(1.0)),
+            "corona": (corona(), None), "corona thick": (corona(), corona(1)),
+            "spiral": (spiral(), None), "spiral thick": (spiral(), spiral(1)),
+            "flare": (flare(), None),
+            "scaled corona": (Scaled(_corona_j, 1.0), None)}
+
+
+def start_generated_builds():
+    """Traces phase 27's pairs here and starts one nvcc for each of their
+    generated libraries, beside the phases: BACKGROUND["generated"] gives
+    ({pair: library name}, {name: its BUILDS entry}, seconds until all
+    were built).  The later loads (example 11 in phase 26, phase 27) find
+    them cached."""
+    from sim5_tpu_torch import _build
+    from sim5_tpu_torch.march import kernel_march
+    from sim5_tpu_torch.march.emission import prepare
+    pairs = traced_pairs()
+    traced = {k: prepare(em, ab)[1:] for k, (em, ab) in pairs.items()}
+    t0 = time.perf_counter()
+
+    def build(p):
+        name = kernel_march.model_library(*p)[0]
+        return name, dict(_build.BUILDS[name])
+
+    def all_built():
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            built = dict(zip(traced, pool.map(build, traced.values())))
+        return ({k: n for k, (n, _) in built.items()},
+                {n: b for n, b in built.values()}, time.perf_counter() - t0)
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    BACKGROUND["generated"] = pool.submit(all_built)
+    pool.shutdown(wait=False)
+
+
+@contextlib.contextmanager
+def generated_builds():
+    """The (name, BUILDS entry) of every load of a generated march library
+    in the block, in order."""
+    from sim5_tpu_torch import _build
+    real, log = _build.load_generated, []
+
+    def logged(name, source):
+        lib = real(name, source)
+        log.append((name, dict(_build.BUILDS[name])))
+        return lib
+
+    _build.load_generated = logged
+    try:
+        yield log
+    finally:
+        _build.load_generated = real
+
+
+def model_ops(em, ab):
+    """The operations of one evaluation of each traced model, summed."""
+    from sim5_tpu_torch.march.model_trace import trace_model
+    return sum(trace_model(m).flops for m in (em, ab) if m is not None)
+
+
+def phase_traced(dev, name, family_images, family_outs, family_rows,
+                 family_plain, shared):
+    """Emission and absorption models outside the family through the
+    march kernel: (a) example 11's torus as its own plain functions at
+    512^2 against the GaussianSource route of phases 7 and 9 and against
+    phase 9's plain march of that torus, timed (the kernels line's rows);
+    (b) a power-law corona and a spiral, thin and thick, against the plain
+    version on 4096 ZAMO rays and on a 64^2 and a 512^2 seed (`shared`:
+    phase 6's one plain march of the four pairs on both seeds,
+    `plain_together`), timed at 512^2, the spiral's image at 128^2; (c)
+    one build for models
+    that differ only in their numbers, and numbers that change between
+    two calls reaching the card; (d) refusals before any build or launch.
+    Returns the launches of (a) and the rows."""
+    from sim5_tpu_torch import _build
+    from sim5_tpu_torch.march import (kernel_march, raytrace_prepare,
+                                      raytrace_kernel, raytrace_reference)
+    from sim5_tpu_torch.march.emission import prepare
+    from sim5_tpu_torch.render import volume_image, volume_lightcurve
+    t_phase = time.perf_counter()
+    # every generated library of the phase, one nvcc each, all started
+    # together after phase 1 (`start_generated_builds`); loaded here again
+    if "generated" not in BACKGROUND:
+        start_generated_builds()
+    pairs = traced_pairs()
+    libs, builds, build_s = BACKGROUND["generated"].result()
+    with generated_builds() as log:
+        for k, (em, ab) in pairs.items():
+            got = kernel_march.model_library(*prepare(em, ab)[1:])[0]
+            check(got == libs[k], f"{k}: library {got}, built as {libs[k]}")
+    check(all(b["cached"] for _, b in log), f"a load of phase 27 built: {log}")
+    cold = {k: b["seconds"] for k, b in builds.items() if not b["cached"]}
+    build_text = (f"{len(builds)} libraries for {len(pairs)} pairs in "
+                  f"{build_s:.2f} s together (beside phases 2-25), cold "
+                  + (", ".join(f"{v:.2f}" for v in cold.values()) or "none")
+                  + " s, loaded again here cached "
+                  + f"{max(b['seconds'] for _, b in log):.4f} s at most: "
+                  + "; ".join(
+                      f"{k} {libs[k]} cached={builds[libs[k]]['cached']} "
+                      f"{builds[libs[k]]['seconds']:.2f} s [ptxas "
+                      f"{ptxas_summary(builds[libs[k]]['log'])}]"
+                      for k in pairs))
+
+    # (a) example 11's torus as plain functions: the main path, which
+    # traces its models on every call (timed here alone, host clock)
+    t0 = time.perf_counter()
+    prepare(plain_torus(), plain_torus(1.0))
+    trace_ms = (time.perf_counter() - t0) * 1e3
+    images, launches, march, parts, gate = volume_main(dev, VOL, plain_torus)
+    a_parts = [f"tracing the thick pair {trace_ms:.1f} ms"]
+    for alpha0 in ALPHA0:
+        fam, got = family_images[alpha0], images[alpha0]
+        peak = float(fam.max())
+        err = float((got - fam).abs().max())
+        check(err <= 1e-5 * peak, f"torus alpha0={alpha0}: traced vs "
+              f"family {err / peak:.3e} of the peak > 1e-5")
+        a_parts.append(f"alpha0={alpha0}: image vs GaussianSource route "
+                       f"{err:.3e} = {err / peak:.3e} of peak (gate 1e-5), "
+                       f"bitwise {torch.equal(got, fam)}")
+    (st0, tensors), scalars = shared["big"], shared["scalars"]
+    rows, torus_ms = {}, {}
+    for alpha0 in ALPHA0:
+        rt = 1 if alpha0 == 0.0 else 2
+        em, ab = plain_torus(), plain_torus(alpha0)
+        tag = f"traced torus {N_VOL_PIX}^2 alpha0={alpha0}"
+        _, tj, ta = prepare(em, ab)     # traced before the timed runs
+        timing, same = march_timing(
+            tensors, dict(scalars, emissivity=tj, absorption=ta))
+        outs, fam, plain = timing[1], family_outs[rt], family_plain[rt]
+        eq = float((outs[5] == fam[5]).double().mean())
+        dI = float((outs[7].double() - fam[7].double()).abs().max())
+        peak = float(fam[7].double().max())
+        check(eq > 0.999, f"{tag}: equal steps with the family {eq:.5f} of "
+              f"the rays <= 0.999")
+        eq_p, _, dI_p, peak_p = compare_transfer(outs, plain, st0)
+        check(eq_p > 0.9 and dI_p <= 1e-3 * peak_p,
+              f"{tag} vs plain: equal steps {eq_p:.4f} (> 0.9), |dI| "
+              f"{dI_p:.3e} of peak {peak_p:.4e} (<= 1e-3)")
+
+        def max_dI(outs, plain):
+            return compare_transfer(outs, plain, st0)[2]
+
+        text, rows[rt] = timing_report(
+            tag, N_VOL_PIX ** 2, rt, timing, same, plain,
+            family_rows[rt]["plain_ms"], max_dI, model_ops(em, ab))
+        torus_ms[rt] = timing[0]
+        a_parts.append(
+            f"alpha0={alpha0} march {text} (phase 9's plain march of this "
+            f"torus, the GaussianSource form) | family {family_rows[rt]['ms']:.3f} "
+            f"ms, ratio {timing[0] / family_rows[rt]['ms']:.4f} | vs family: "
+            f"equal steps {eq:.6f} (gate > 0.999) |dI| {dI / peak:.3e} of "
+            f"peak, bitwise {same_bits(outs, fam)} | vs plain: equal steps "
+            f"{eq_p:.4f} |dI| {dI_p / peak_p:.3e} of peak")
+
+    # (b) the corona and the spiral against their plain version: on ZAMO
+    # rays through raytrace_kernel, and on the 64^2 seed of each one's
+    # configuration and the torus's 512^2 seed (phase 6's plain march),
+    # timed there
+    names = TRACED_CMP
+    x, k, _ = zamo_rays(N_CMP, 0.9, seed=0, dtype=torch.float32, device=dev)
+    st_z = raytrace_prepare(0.9, x, k, precision=0.01)
+    zamo_kw = dict(r_max=50.0, max_steps=300)
+    # the plain march of the four pairs on the ZAMO rays in one call, held
+    # bitwise against the plain version of the last pair alone
+    t0 = time.perf_counter()
+    zt, zs = kernel_march._pack(st_z, zamo_kw["r_max"], zamo_kw["max_steps"],
+                                1e-2, None)
+    together = dict(zip(names, plain_together(
+        [(zt, *pairs[p]) for p in names], zs)))
+    torch.cuda.synchronize()
+    zamo_s = time.perf_counter() - t0
+    alone = names[-1]
+    sp, ap, Ip = raytrace_reference(st_z, **dict(
+        zamo_kw, emissivity=pairs[alone][0], absorption=pairs[alone][1]))
+    st_t, act_t, I_t = kernel_march._unpack(st_z, together[alone])
+    check(same_bits((st_t.x, st_t.steps, act_t, I_t), (sp.x, sp.steps, ap, Ip)),
+          f"{alone}: the plain march of the four pairs together is not "
+          f"bitwise the plain march of {alone} alone on {N_CMP} rays")
+    small, plains, kernel, texts = shared["small"], shared["plains"], {}, {}
+    for pair in names:
+        em, ab = pairs[pair]
+        sk, _, Ik = raytrace_kernel(st_z, **dict(zamo_kw, emissivity=em,
+                                                 absorption=ab))
+        sp, _, Ip = kernel_march._unpack(st_z, together[pair])
+        torch.cuda.synchronize()
+        eq_r = (sk.steps == sp.steps)
+        peak_r = float(Ip.double().max())
+        dI_r = float((Ik.double() - Ip.double()).abs()[eq_r].max())
+        eq_r = float(eq_r.double().mean())
+        check(peak_r > 0.0 and eq_r > 0.9 and dI_r <= 1e-3 * peak_r,
+              f"{pair}, {N_CMP} rays: equal steps {eq_r:.4f} (> 0.9), |dI| "
+              f"{dI_r:.3e} of peak {peak_r:.4e} (<= 1e-3)")
+        texts[pair] = (f"{N_CMP} rays equal steps {eq_r:.4f} |dI| "
+                       f"{dI_r / peak_r:.3e} of peak")
+        _, tj, ta = prepare(em, ab)
+        models = dict(emissivity=tj, absorption=ta)
+        out_c = kernel_march._march_cuda(*small[pair.startswith("corona")][1],
+                                         **scalars, **models)
+        timing, same = march_timing(tensors, dict(scalars, **models))
+        check(same, f"{pair} {N_VOL_PIX}^2: two runs differ")
+        kernel[pair] = (out_c, timing)
+    b_parts, big_ms = [], {}
+    for pair in names:
+        em, ab = pairs[pair]
+        rt = 1 if ab is None else 2
+        st0c = small[pair.startswith("corona")][0]
+        out_c, (ms, out_k, _) = kernel[pair]
+        eq, _, dI, peak = compare_transfer(out_c, plains[pair][0], st0c)
+        check(peak > 0.0 and eq > 0.9 and dI <= 1e-3 * peak,
+              f"{pair}, {N_VOL_CMP}^2 seed: equal steps {eq:.4f} (> 0.9), "
+              f"|dI| {dI:.3e} of peak {peak:.4e} (<= 1e-3)")
+        # at 512^2 the gate holds off the photon orbits: the corona shines
+        # where the rays circling them run
+        big_p = plains[pair][1]
+        eq_b, _, dI_all, peak_b = compare_transfer(out_k, big_p, st0)
+        dI_b, n_cap, dI_cap = compare_off_orbit(out_k, big_p, st0, VOL["a"])
+        check(peak_b > 0.0 and eq_b > 0.9 and dI_b <= 1e-3 * peak_b,
+              f"{pair}, {N_VOL_PIX}^2 torus seed: equal steps {eq_b:.4f} "
+              f"(> 0.9), |dI| {dI_b:.3e} of peak {peak_b:.4e} off the "
+              f"photon orbits (<= 1e-3)")
+        steps = int(out_k[5].long().sum())
+        bound, _ = march_bound(N_VOL_PIX ** 2, steps, rt, model_ops(em, ab))
+        big_ms[pair] = ms
+        b_parts.append(
+            f"{pair} ({model_ops(em, ab)} model ops a step): {texts[pair]}; "
+            f"{N_VOL_CMP}^2 seed equal steps {eq:.4f} |dI| {dI / peak:.3e} "
+            f"of peak {peak:.4e}; {N_VOL_PIX}^2 torus seed equal steps "
+            f"{eq_b:.4f} |dI| {dI_b / peak_b:.3e} of peak {peak_b:.4e} off "
+            f"the photon orbits; {n_cap} rays circling them at the "
+            f"{scalars['max_steps']}-step cap, |dI| up to "
+            f"{dI_cap / peak_b:.3e} of peak (all equal-step rays "
+            f"{dI_all / peak_b:.3e}); x and steps bitwise the family "
+            f"march's on these rays (phase 9): "
+            f"{same_bits(out_k[:6], family_outs[rt][:6])}; march {ms:.3f} "
+            f"ms (min of {TIMED_RUNS}; traced torus {torus_ms[rt]:.3f} ms, "
+            f"ratio {ms / torus_ms[rt]:.4f}) {steps / (ms * 1e-3):.4e} "
+            f"ray-steps/s, bound {bound:.3f} ms")
+    b_parts.append(
+        f"the plain march of the four pairs in one call on the {N_CMP} ZAMO "
+        f"rays ({zamo_s:.1f} s host clock), {alone}'s part bitwise its own "
+        f"plain march; on the {N_VOL_CMP}^2 and {N_VOL_PIX}^2 seeds in "
+        f"phase 6's one call ({shared['plain_s']:.1f} s host clock)")
+    for alpha0 in ALPHA0:
+        kernel_march.LAUNCHES.update(dict.fromkeys(kernel_march.LAUNCHES, 0))
+        t0 = time.perf_counter()
+        with launch_events() as events:
+            I = volume_image(VOL["a"], VOL["incl"], spiral(), engine="kernel",
+                             absorption_fn=spiral(alpha0),
+                             **dict(volume_kw(VOL, N_SPIRAL),
+                                    axisymmetric=False))
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        v = kernel_march.VARIANTS[3 if alpha0 == 0.0 else 4]
+        check(kernel_march.LAUNCHES[v] >= 1, f"spiral image: {v} 0 times")
+        check(bool(torch.isfinite(I).all()) and float(I.max()) > 0.0,
+              f"spiral image alpha0={alpha0}: not finite and positive")
+        b_parts.append(
+            f"spiral {N_SPIRAL}^2 alpha0={alpha0} image {wall:.3f} s (host "
+            f"clock, with its f64 azimuth seed), march "
+            f"{sum(a.elapsed_time(b) for a, b in events):.3f} ms, "
+            f"{v} LAUNCHES={kernel_march.LAUNCHES[v]}, flux "
+            f"{float(I.double().sum()):.6e}")
+
+    # (c) one build for models that differ only in their numbers
+    with generated_builds() as log:
+        kw = dict(engine="kernel", device=dev, **volume_kw(FLARE, N_FLARE))
+        f1 = volume_lightcurve(FLARE["a"], FLARE["incl"], flare(), FLARE_T,
+                               **kw)
+        f2 = volume_lightcurve(FLARE["a"], FLARE["incl"],
+                               flare(t_flare=-12.0), FLARE_T, **kw)
+        sweep = [float(volume_image(
+            VOL["a"], VOL["incl"], plain_torus(), engine="kernel",
+            absorption_fn=plain_torus(a0), device=dev,
+            **volume_kw(VOL, N_SWEEP_IMAGE)).double().sum())
+            for a0 in ALPHA_SWEEP]
+    flare_libs = {n for n, _ in log[:4]}
+    sweep_libs = [n for n, _ in log[4:]]
+    check(len(flare_libs) == 1 and flare_libs == {libs["flare"]},
+          f"the flares at two times and two t_flare: libraries {flare_libs}")
+    check(len(set(sweep_libs[1:])) == 1 and sweep_libs[1:][0] ==
+          libs["torus thick"] and sweep_libs[0] == libs["torus"],
+          f"example 11's alpha sweep: libraries {sweep_libs}")
+    check(all(b["cached"] for _, b in log), "a load of phase 27 (c) built")
+    check(all(math.isfinite(v) and v > 0 for v in list(f1) + list(f2)),
+          f"flare light curves {f1} {f2}")
+    check(all(a > b for a, b in zip(sweep, sweep[1:])),
+          f"example 11's sweep: flux does not fall as alpha grows: {sweep}")
+    cached_s = [b["seconds"] for _, b in log]
+    # a number the model reads changed between two calls reaches the card
+    scaled = pairs["scaled corona"][0]
+    with generated_builds() as scaled_log:
+        I1 = raytrace_kernel(st_z, emissivity=scaled, **zamo_kw)[2].double()
+        scaled.scale = 2.0
+        I2 = raytrace_kernel(st_z, emissivity=scaled, **zamo_kw)[2].double()
+    d2 = float((I2 - 2.0 * I1).abs().max())
+    peak = float(I2.max())
+    check(peak > 0.0 and d2 <= 1e-6 * peak, f"a scale changed from 1 to 2 "
+          f"between two calls: I2 - 2 I1 {d2:.3e} of peak {peak:.4e}")
+    check({n for n, _ in scaled_log} == {libs["scaled corona"]}
+          and all(b["cached"] for _, b in scaled_log),
+          f"the scaled corona's loads: {scaled_log}")
+    c_text = (f"a scale changed from 1 to 2 between two raytrace_kernel "
+              f"calls: |I2 - 2 I1| {d2 / peak:.3e} of peak (gate 1e-6), "
+              f"bitwise {torch.equal(I2, 2.0 * I1)}, one cached library; "
+              f"flare light curve at t0 {FLARE_T}: "
+              + ", ".join(f"{v:.6e}" for v in f1) + "; at t_flare -12: "
+              + ", ".join(f"{v:.6e}" for v in f2)
+              + f": {len(log[:4])} loads of 1 library ({libs['flare']}); "
+              f"example 11's sweep alpha0 {ALPHA_SWEEP} at {N_SWEEP_IMAGE}^2, "
+              f"flux " + ", ".join(f"{v:.6e}" for v in sweep)
+              + f": thin {sweep_libs[0]}, "
+              f"{len(sweep_libs) - 1} absorptions 1 library "
+              f"({sweep_libs[1]}); every load cached, "
+              f"{min(cached_s):.4f}-{max(cached_s):.4f} s")
+
+    # (d) refusals on the card, before any build or launch
+    def unsupported(t, r, m, phi):
+        return r / r.amax()
+
+    def branchy(t, r, m, phi):
+        return r if bool((r > 3.0).all()) else m
+
+    launches0, builds0 = dict(kernel_march.LAUNCHES), dict(_build.BUILDS)
+    d_parts = []
+    for fn in (unsupported, branchy):
+        for call in (lambda: volume_image(VOL["a"], VOL["incl"], fn,
+                                          engine="kernel", device=dev,
+                                          **volume_kw(VOL, 16)),
+                     lambda: raytrace_kernel(st0, emissivity=fn,
+                                             max_steps=10)):
+            try:
+                call()
+                raised = None
+            except TypeError as e:
+                raised = str(e)
+            check(raised is not None, f"{fn.__name__} was not refused")
+        d_parts.append(f"{fn.__name__}: {raised[:90]}")
+    check(kernel_march.LAUNCHES == launches0 and _build.BUILDS == builds0,
+          "a refused model launched or built")
+
+    secs = time.perf_counter() - t_phase
+    print(f"phase 27 traced models in the march kernel ({secs:.1f} s; {name}) "
+          f"| builds: {build_text} | (a) example 11's torus as plain "
+          f"functions, {N_VOL_PIX}^2: " + " | ".join(parts) + f" | {gate} | "
+          + " | ".join(a_parts) + " | (b) " + " | ".join(b_parts)
+          + f" | (c) {c_text} | (d) refused before any launch or build: "
+          + "; ".join(d_parts), flush=True)
+    rows[1]["corona_512_ms"], rows[2]["corona_512_ms"] = (
+        big_ms["corona"], big_ms["corona thick"])
+    return launches, rows
+
+
 def launched(counts):
     """The kernels of a LAUNCHES dict launched at least once."""
     return {k: v for k, v in counts.items() if v}
@@ -4749,63 +5418,60 @@ def main():
             return 1
     t_start = time.perf_counter()
     native_hash = _native_hash()
+    seconds = []
+
+    def run(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        seconds.append(f"{label} {time.perf_counter() - t0:.1f}")
+        return out
+
+    cpu_pool = start_cpu_references()
     try:
-        name, lengths = phase_device()
-        torch.cuda.synchronize()
-        phase_compare(dev)
-        torch.cuda.synchronize()
-        launches, _ = phase_main(dev)
-        torch.cuda.synchronize()
-        phase_f64(dev)
-        torch.cuda.synchronize()
-        t = phase_timing(dev, name)
-        torch.cuda.synchronize()
-        phase_transfer_compare(dev)
-        torch.cuda.synchronize()
-        vol_launches = phase_volume_main(dev)
-        torch.cuda.synchronize()
-        phase_volume_loop(dev)
-        torch.cuda.synchronize()
-        vol_t = phase_volume_timing(dev, name)
-        torch.cuda.synchronize()
-        phase_image_golden(dev)
-        torch.cuda.synchronize()
-        image_launches, image_errs, _, image_counts = phase_image_main(dev)
-        torch.cuda.synchronize()
-        image_t = phase_image_timing(dev, name, image_errs, image_counts,
-                                     lengths)
-        torch.cuda.synchronize()
-        phase_analytic(dev)
-        torch.cuda.synchronize()
-        orbit_launches, orbit_rows = phase_orbit_volume(dev, name)
-        torch.cuda.synchronize()
-        phase_hotspot(dev)
-        torch.cuda.synchronize()
-        phase_shadow(dev)
-        torch.cuda.synchronize()
-        phase_polarized(dev)
-        torch.cuda.synchronize()
-        phase_lineprofile(dev)
-        torch.cuda.synchronize()
-        phase_thickdisk(dev)
-        torch.cuda.synchronize()
-        phase_driver_spectra(dev)
-        torch.cuda.synchronize()
-        grad_rows = phase_image_grad(dev, image_counts, lengths)
-        torch.cuda.synchronize()
-        phase_scan(dev)
-        torch.cuda.synchronize()
+        name, lengths = run("1", phase_device)
+        start_generated_builds()
+        run("2", phase_compare, dev)
+        launches, _ = run("3", phase_main, dev)
+        run("4", phase_f64, dev)
+        t = run("5", phase_timing, dev, name)
+        shared = run("6", phase_transfer_compare, dev)
+        vol_launches, vol_images = run("7", phase_volume_main, dev)
+        run("8", phase_volume_loop, dev)
+        vol_t, vol_outs, vol_plain = run("9", phase_volume_timing, dev, name)
+        run("10", phase_image_golden, dev)
+        image_launches, image_errs, _, image_counts = run(
+            "11", phase_image_main, dev)
+        image_t = run("12", phase_image_timing, dev, name, image_errs,
+                      image_counts, lengths)
+        run("13", phase_analytic, dev)
+        orbit_launches, orbit_rows = run("14", phase_orbit_volume, dev, name)
+        run("15", phase_hotspot, dev)
+        run("16", phase_shadow, dev)
+        run("17", phase_polarized, dev)
+        run("18", phase_lineprofile, dev)
+        run("19", phase_thickdisk, dev)
+        run("20", phase_driver_spectra, dev)
+        run("1 (tangent library)", tangent_build)
+        grad_rows = run("21", phase_image_grad, dev, image_counts, lengths)
+        run("22", phase_scan, dev)
         with tempfile.TemporaryDirectory(prefix="sim5_smoke_") as tmp:
-            phase_tables(dev, tmp)
-            phase_checkpoints(dev, tmp, native_hash)
-        torch.cuda.synchronize()
-        phase_parallel(dev)
-        torch.cuda.synchronize()
-        phase_examples(dev)
-        torch.cuda.synchronize()
+            run("23", phase_tables, dev, tmp)
+            run("24", phase_checkpoints, dev, tmp, native_hash)
+        run("25", phase_parallel, dev)
+        run("27 (generated libraries)", BACKGROUND["generated"].result)
+        run("26", phase_examples, dev)
+        traced_launches, traced_rows = run(
+            "27", phase_traced, dev, name, vol_images, vol_outs, vol_t,
+            vol_plain, shared)
     except PhaseFailed as e:
-        print(f"FAILED: {e}", file=sys.stderr)
+        print(f"FAILED: {e} (phase seconds: {', '.join(seconds)})",
+              file=sys.stderr)
         return 1
+    finally:
+        cpu_pool.shutdown(cancel_futures=True)
+    print(f"phase seconds (host clock, waits included): {', '.join(seconds)}",
+          flush=True)
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     from sim5_tpu_torch.march import kernel_march
@@ -4825,6 +5491,14 @@ def main():
             extra["orbiting_launches"] = orbit_launches[v]
         rows.append((v, dict(march_src, **extra),
                      (launches if rt == 0 else vol_launches)[v], timing))
+    traced_src = dict(march_src, source="sim5_tpu_torch/csrc/march.cuh "
+                      "with the functors of sim5_tpu_torch/march/"
+                      "model_trace.py (build/sim5_tpu_torch/gen/)")
+    for rt, row in traced_rows.items():
+        v = kernel_march.VARIANTS[rt + 2]
+        rows.append((v, dict(traced_src, **{
+            k: row[k] for k in row if k.endswith("_512_ms")}),
+            traced_launches[v], row))
     from sim5_tpu_torch.render import kernel_image
     for dt, v in kernel_image.VARIANTS.items():
         pro = kernel_image.PROLOGUES[dt]

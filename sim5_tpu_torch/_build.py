@@ -6,8 +6,11 @@ sources and flags, so an unchanged source is built once and reused.  The
 library exposes a plain C interface and is loaded with `ctypes`; the
 caller declares each function's signature.  The compiler's register and
 spill report (`-Xptxas -v`) is kept beside the library as
-`lib<name>_<hash>.log`.  `load_host` builds a host C++ source (the native
-IO runtime) the same way with g++.
+`lib<name>_<hash>.log`.  `load_generated` builds a source that the port
+writes at run time (a march library for traced emission models,
+`march/model_trace.py`) under `build/sim5_tpu_torch/gen/`, against the
+headers of `csrc/`.  `load_host` builds a host C++ source (the native IO
+runtime) the same way with g++.
 
 No fast math: the kernels use the IEEE-accurate cosf, sqrtf and division.
 """
@@ -22,6 +25,7 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "sim5_tpu_torch"
+GEN_DIR = BUILD_DIR / "gen"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the host libraries (the native IO runtime, native/sim5io.cpp)
@@ -50,25 +54,40 @@ def load(name, extra_flags=()):
                  CSRC / f"{name}.cu", sorted(CSRC.glob("*.cuh")))
 
 
+def load_generated(name, source):
+    """Build (if needed) and load the CUDA text `source`, which includes
+    headers of csrc/, as the ctypes library `name`: written to
+    build/sim5_tpu_torch/gen/<name>.cu and compiled with -I csrc and
+    NVCC_FLAGS into the same directory."""
+    GEN_DIR.mkdir(parents=True, exist_ok=True)
+    src = GEN_DIR / f"{name}.cu"
+    if not src.exists() or src.read_text() != source:
+        tmp = src.with_name(f"{src.name}.{os.getpid()}.tmp")
+        tmp.write_text(source)
+        os.replace(tmp, src)
+    return _load(name, [_nvcc(), "-I", str(CSRC)], NVCC_FLAGS, src,
+                 sorted(CSRC.glob("*.cuh")), GEN_DIR)
+
+
 def load_host(name, src, compiler):
     """Build (if needed) and load the C++ file `src` with the host compiler
     `compiler` (a path to g++) and HOST_FLAGS, as library `name`."""
     return _load(name, [compiler], HOST_FLAGS, pathlib.Path(src), [])
 
 
-def _load(name, cmd, flags, src, headers):
-    """Compile `src` by `cmd` + `flags` into BUILD_DIR, named by a hash of
+def _load(name, cmd, flags, src, headers, out_dir=BUILD_DIR):
+    """Compile `src` by `cmd` + `flags` into `out_dir`, named by a hash of
     the flags, the source and `headers`, unless that library exists, and
     load it."""
     digest = hashlib.sha256(" ".join(flags).encode())
     for p in [src] + list(headers):
         digest.update(p.read_bytes())
-    lib_path = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    lib_path = out_dir / f"lib{name}_{digest.hexdigest()[:16]}.so"
     log = lib_path.with_suffix(".log")
     t0 = time.perf_counter()
     cached = lib_path.exists()
     if not cached:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out_dir.mkdir(parents=True, exist_ok=True)
         # build under a private name, then rename: concurrent builders
         # never load a half-written library
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")

@@ -1,25 +1,30 @@
 """Emission and absorption models that the march kernel evaluates inside
 its step loop.
 
-A CUDA kernel cannot call a Python callable, so the fused radiative
-transfer of the march kernel (`kernel_march.raytrace_kernel`) takes its
-emissivity j and absorption alpha from one compiled-in, parametrised
-family, `GaussianSource`.  Its parameters go to the kernel by value.  The
-family covers every model the repository uses: the Gaussian blobs and
-constants of the Pallas march tests, the spot and flare of the march
-tests, example 11's torus, and example 07's orbiting spot as a 3-D
-source.
+The fused radiative transfer of the march kernel
+(`kernel_march.raytrace_kernel`) takes any emissivity j and absorption
+alpha that `raytrace_pallas` would take: a torch callable
+`(t, r, m, phi) -> tensor` of the elementwise ops of `model_trace.OPS`,
+traced into a generated build of the kernel (`model_trace.py`).  Besides,
+one parametrised family is compiled into the kernel's own library,
+`GaussianSource`, whose parameters go to the kernel by value: the
+Gaussian blobs and constants of the Pallas march tests, the spot and
+flare of the march tests, example 11's torus, and example 07's orbiting
+spot as a 3-D source, with no build at first use.
 
 A `GaussianSource` is also callable on tensors, `model(t, r, m, phi)`, which
 is its plain torch form: the plain version of the kernel and the loop
 engine of `render.lightcurve.volume_image` call it like any other
-callable.
+callable, and it is what is traced when it meets a traced model in one
+march.
 """
 
 import dataclasses
 import math
 
 import torch
+
+from .model_trace import trace_model
 
 # the values of the kernel's `rt` argument
 RT_NONE = 0                  # geometry only
@@ -80,17 +85,32 @@ class GaussianSource:
                 int(bool(self.cylindrical)))
 
 
+def is_family(emissivity, absorption):
+    """Whether the kernel's compiled-in family takes the pair: each model a
+    `GaussianSource` or None."""
+    return all(m is None or isinstance(m, GaussianSource)
+               for m in (emissivity, absorption))
+
+
 def rt_mode(emissivity, absorption):
-    """The kernel's `rt` value for a pair of models; raises on a model the
-    kernel cannot evaluate."""
-    for name, model in (("emissivity", emissivity), ("absorption", absorption)):
-        if model is not None and not isinstance(model, GaussianSource):
-            raise TypeError(
-                f"the march kernel evaluates {name} models of the "
-                f"GaussianSource family only, not {type(model).__name__}; "
-                "use volume_image(engine='loop') for any callable")
+    """The kernel's `rt` value for a pair of models (any callables or
+    None); ValueError for an absorption without an emissivity."""
     if emissivity is None:
         if absorption is not None:
             raise ValueError("absorption needs an emissivity")
         return RT_NONE
     return RT_EMISSION if absorption is None else RT_EMISSION_ABSORPTION
+
+
+def prepare(emissivity, absorption):
+    """(rt, emissivity, absorption) of one march: the kernel's `rt` value
+    and the pair as the kernel takes it, a family pair as it is, any other
+    with each model traced (`model_trace.trace_model`: a `TracedModel`,
+    with the numbers the callable reads now).  Raises what `trace_model`
+    raises for a callable the kernel cannot evaluate, and what `rt_mode`
+    raises."""
+    rt = rt_mode(emissivity, absorption)
+    if rt == RT_NONE or is_family(emissivity, absorption):
+        return rt, emissivity, absorption
+    return rt, trace_model(emissivity), (
+        None if absorption is None else trace_model(absorption))

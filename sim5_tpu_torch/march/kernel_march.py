@@ -6,9 +6,10 @@ structure-of-arrays (4, N) f32 components, with theta in place of
 m = cos(theta) (the kernel carries theta through the whole march), and runs
 either
 
-* the CUDA kernel `march_f32<GR, POL, RT>` (`csrc/march.cu`) for CUDA
-  tensors, in segments: ceil(max_steps / seg_trips) launches, with the
-  rays still live after each compacted into a dense list for the next, or
+* the CUDA kernel `march_f32<GR, POL, RT, Em, Ab>` (`csrc/march.cuh`) for
+  CUDA tensors, in segments: ceil(max_steps / seg_trips) launches, with
+  the rays still live after each compacted into a dense list for the
+  next, or
 * `march_reference`, its plain torch version, for CPU tensors.
 
 A CUDA tensor always launches the kernel or raises; the plain version runs
@@ -20,24 +21,36 @@ last march on the card.
 (`_make_kernel` in the JAX package) operation for operation: theta carried
 throughout, `_TINY = 1e-30`, err = 1e30 on a freeze, and the stage-1
 acceleration reused for the curvature.  The fused radiative transfer
-(RT > 0) takes its emissivity and absorption from the `GaussianSource`
-family (`emission.py`), whose parameters the kernel takes by value.
+(RT > 0) takes any emissivity and absorption `raytrace_pallas` would take,
+as torch callables (t, r, m, phi) -> tensor.  A pair of
+`emission.GaussianSource` models (or None) runs in the kernel's own
+library (`csrc/march.cu`), their parameters by value; any other pair is
+traced (`model_trace.trace_model`, on every device, so what the kernel
+cannot evaluate is refused on the CPU too) and runs in a library
+generated for its structure and built at first use
+(`model_trace.march_source`, `_build.load_generated`), its constants by
+value: models that differ only in their numbers share one build.
 """
 
 import ctypes
+import hashlib
 
 import numpy as np
 import torch
 
 from ..core import r_bh
 from ..core.metric import _kerr_conn_entries, _flat_conn_entries
-from .emission import GaussianSource, rt_mode
+from . import model_trace
+from .emission import GaussianSource, is_family, prepare, rt_mode
 
 _TINY = 1e-30
 
-# the kernel's variants by its RT template argument
+# the kernel's variants: by its RT template argument, the family's
+# instances (csrc/march.cu), then the generated ones for traced models
 VARIANTS = ("march_f32", "march_f32 RT=emission",
-            "march_f32 RT=emission+absorption")
+            "march_f32 RT=emission+absorption",
+            "march_f32 RT=emission (traced)",
+            "march_f32 RT=emission+absorption (traced)")
 
 # kernel launches made on CUDA tensors, by variant
 LAUNCHES = dict.fromkeys(VARIANTS, 0)
@@ -49,21 +62,33 @@ LAST_STATS = None
 _LIB = None
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GAUSS = [_F] * 9 + [_I]                  # GaussianSource.params()
+_BUFFERS = ([_P] * 5                      # x, k, f, kt, active0
+            + [_P] * 8                    # xo, ko, fo, kto, erro, stepso, acto, Io
+            + [_P] * 5                    # lv_in, li_in, lv_out, li_out, stats
+            + [ctypes.c_longlong]         # n
+            + [_F] * 6                    # a, eps0, r_min, r_max, error_stop, error_gate
+            + [_I, _F])                   # max_steps, max_step_dl
 # (argtypes, restype) of the library's extern "C" functions (csrc/march.cu)
 SIGNATURES = {
     "sim5_march_f32": (
         [_I] * 4                          # gr, pol, rt, seg
-        + [_P] * 5                        # x, k, f, kt, active0
-        + [_P] * 8                        # xo, ko, fo, kto, erro, stepso, acto, Io
-        + [_P] * 5                        # lv_in, li_in, lv_out, li_out, stats
-        + [ctypes.c_longlong]             # n
-        + [_F] * 6                        # a, eps0, r_min, r_max, error_stop, error_gate
-        + [_I, _F]                        # max_steps, max_step_dl
+        + _BUFFERS
         + _GAUSS + _GAUSS                 # emissivity, absorption
         + [_P],                           # stream
         _I),
     "sim5_march_config": ([_P], None),
     "sim5_march_attributes": ([_I] * 3 + [_P], _I),
+}
+# ... and of a library generated for traced models (csrc/march_model.cuh)
+MODEL_SIGNATURES = {
+    "sim5_march_model_f32": (
+        [_I] * 3                          # gr, pol, seg
+        + _BUFFERS
+        + [_P, _P]                        # the models' constants
+        + [_P],                           # stream
+        _I),
+    "sim5_march_model_attributes": ([_I] * 2 + [_P], _I),
+    "sim5_march_model_config": ([_P], None),
 }
 
 
@@ -113,8 +138,10 @@ def march_reference(x, k, f, kt, active0, a, eps0, r_min, r_max, error_stop,
 
     x, k, f: (4, N) f32 with x = (t, r, theta, phi); kt: (N,) f32;
     active0: (N,) bool.  The scalars are Python floats, used in f32.
-    `emissivity` and `absorption` are `GaussianSource` models (or None).
-    Returns (x, k, f, kt, err, steps, active, I) as the kernel does: x, k, f
+    `emissivity` and `absorption` are any callables, called here as they
+    are: the plain version traces nothing (`raytrace_kernel` refuses what
+    the kernel cannot evaluate).  Returns (x, k, f, kt, err, steps,
+    active, I) as the kernel does: x, k, f
     (4, N) f32, kt and err (N,) f32, steps (N,) int32, active (N,) bool,
     and the transferred intensity I (N,) f32 (None without emissivity).
     """
@@ -235,9 +262,9 @@ def march_reference(x, k, f, kt, active0, a, eps0, r_min, r_max, error_stop,
             active, I if rt else None)
 
 
-def _declare(lib):
-    """`lib` with the signatures of SIGNATURES declared."""
-    for name, (argtypes, restype) in SIGNATURES.items():
+def _declare(lib, signatures=SIGNATURES):
+    """`lib` with the signatures of `signatures` declared."""
+    for name, (argtypes, restype) in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, restype
     return lib
@@ -252,19 +279,51 @@ def _lib():
     return _LIB
 
 
+def model_library(emissivity, absorption=None):
+    """(name, library) of the march library generated for a pair of models
+    outside the family (any callables; a `GaussianSource` among them is
+    traced through its own __call__), built at first use: `name` is its
+    key in `_build.BUILDS`, shared by every pair of the same structure."""
+    from .._build import load_generated
+    jt = model_trace.trace_model(emissivity)
+    at = None if absorption is None else model_trace.trace_model(absorption)
+    source = model_trace.march_source(jt, at)
+    name = "march_model_" + hashlib.sha256(source.encode()).hexdigest()[:16]
+    return name, _declare(load_generated(name, source), MODEL_SIGNATURES)
+
+
 def kernel_config():
     """The kernel's compile-time choices: threads a block, trips a segment
     (`seg_trips`) and floats a list entry."""
-    out = (ctypes.c_int * 3)()
-    _lib().sim5_march_config(out)
-    return dict(threads=out[0], seg_trips=out[1], list_floats=out[2])
+    return _config(_lib())
 
 
-def kernel_attributes(opt_gr, opt_pol, rt):
+def _config(lib):
+    """`kernel_config()` of a march library; a generated one adds its rt
+    and the constants a model takes."""
+    if hasattr(lib, "sim5_march_model_config"):
+        out = (ctypes.c_int * 5)()
+        lib.sim5_march_model_config(out)
+    else:
+        out = (ctypes.c_int * 3)()
+        lib.sim5_march_config(out)
+    cfg = dict(threads=out[0], seg_trips=out[1], list_floats=out[2])
+    if len(out) == 5:
+        cfg.update(rt=out[3], consts=out[4])
+    return cfg
+
+
+def kernel_attributes(opt_gr, opt_pol, rt, emissivity=None, absorption=None):
     """Registers a thread, local memory a thread (bytes) and resident
-    blocks an SM of `march_f32<opt_gr, opt_pol, rt>` on the current card."""
+    blocks an SM of `march_f32<opt_gr, opt_pol, rt, J, A>` on the current
+    card: the family's instance, or with models outside the family (and
+    the rt they give) the instance generated for them."""
     out = (ctypes.c_int * 3)()
-    rc = _lib().sim5_march_attributes(int(opt_gr), int(opt_pol), rt, out)
+    if is_family(emissivity, absorption):
+        rc = _lib().sim5_march_attributes(int(opt_gr), int(opt_pol), rt, out)
+    else:
+        lib = model_library(emissivity, absorption)[1]
+        rc = lib.sim5_march_model_attributes(int(opt_gr), int(opt_pol), out)
     if rc != 0:
         raise RuntimeError(f"march_f32 attributes: cudaError {rc}")
     return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2])
@@ -288,12 +347,16 @@ def _march_cuda(x, k, f, kt, active0, a, eps0, r_min, r_max, error_stop,
     `march_f32<opt_gr, opt_pol, rt>` in ceil(max_steps / seg_trips)
     launches, the live rays compacted between them.
 
-    Same arguments and results as `march_reference`.  `events`, if a list,
-    receives a CUDA event recorded before the first launch and one after
-    each launch.
+    Same arguments and results as `march_reference`.  A pair of
+    `GaussianSource` models (or None) launches the family's instance; any
+    other pair, the instance generated for its traced structure (built at
+    first use, `model_library`), with the constants of its trace: a model
+    that comes as a `model_trace.TracedModel` is taken as it is, any other
+    callable is traced here, once a call.  `events`, if a list, receives a CUDA
+    event recorded before the first launch and one after each launch.
     """
     global LAST_STATS
-    rt = rt_mode(emissivity, absorption)
+    rt, emissivity, absorption = prepare(emissivity, absorption)
     n = kt.shape[0]
     dev = x.device
     for name, t, shape, dtype in (("x", x, (4, n), torch.float32),
@@ -314,8 +377,14 @@ def _march_cuda(x, k, f, kt, active0, a, eps0, r_min, r_max, error_stop,
         raise ValueError("the kernel indexes rays with an int32")
     if max_steps >= 2 ** 31:
         raise ValueError("max_steps does not fit an int32")
-    lib = _lib()
-    cfg = kernel_config()
+    family = is_family(emissivity, absorption)
+    lib = _lib() if family else model_library(emissivity, absorption)[1]
+    cfg = _config(lib)
+    if not family and (cfg["rt"], cfg["consts"]) != (
+            rt, model_trace.MAX_CONSTS):
+        raise RuntimeError(f"the generated march library has rt "
+                           f"{cfg['rt']} and {cfg['consts']} constants, not "
+                           f"{rt} and {model_trace.MAX_CONSTS}")
     launches = max(1, -(-max_steps // cfg["seg_trips"]))
     xo, ko, fo = (torch.empty_like(x) for _ in range(3))
     kto, erro = torch.empty_like(kt), torch.empty_like(kt)
@@ -327,16 +396,28 @@ def _march_cuda(x, k, f, kt, active0, a, eps0, r_min, r_max, error_stop,
     lv = torch.empty((2, cfg["list_floats"], n), dtype=torch.float32,
                      device=dev)
     li = torch.empty((2, 2, n), dtype=torch.int32, device=dev)
-    unused = GaussianSource(amp=0.0)
     scalars = (n, a, eps0, r_min, r_max, error_stop, error_gate,
-               int(max_steps), max_step_dl,
-               *(emissivity or unused).params(),
-               *(absorption or unused).params(),
-               torch.cuda.current_stream(dev).cuda_stream)
+               int(max_steps), max_step_dl)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if family:
+        unused = GaussianSource(amp=0.0)
+        launch = lib.sim5_march_f32
+        head = (int(opt_gr), int(opt_pol), rt)
+        models = (*(emissivity or unused).params(),
+                  *(absorption or unused).params())
+        name = VARIANTS[rt]
+    else:
+        launch = lib.sim5_march_model_f32
+        head = (int(opt_gr), int(opt_pol))
+        models = tuple(
+            (ctypes.c_float * model_trace.MAX_CONSTS)(*m.consts)
+            if m is not None
+            else (ctypes.c_float * model_trace.MAX_CONSTS)()
+            for m in (emissivity, absorption))
+        name = VARIANTS[rt + 2]
     ptrs = [t.data_ptr() for t in (x, k, f, kt, active0, xo, ko, fo, kto,
                                    erro, stepso, acto)]
     ptrs.append(Io.data_ptr() if rt else None)
-    name = VARIANTS[rt]
 
     def record():
         if events is not None:
@@ -348,8 +429,8 @@ def _march_cuda(x, k, f, kt, active0, a, eps0, r_min, r_max, error_stop,
         src, dst = (seg - 1) % 2, seg % 2
         lists = (lv[src].data_ptr(), li[src].data_ptr(),
                  lv[dst].data_ptr(), li[dst].data_ptr())
-        rc = lib.sim5_march_f32(int(opt_gr), int(opt_pol), rt, seg, *ptrs,
-                                *lists, stats.data_ptr(), *scalars)
+        rc = launch(*head, seg, *ptrs, *lists, stats.data_ptr(), *scalars,
+                    *models, stream)
         if rc != 0:
             raise RuntimeError(f"{name} launch failed: cudaError {rc}")
         LAUNCHES[name] += 1
@@ -420,20 +501,29 @@ def raytrace_kernel(state, r_max=1e4, max_steps=10000, error_stop=1e-2,
     go to the CUDA kernel (or raise); CPU tensors go to `march_reference`.
     `active0` (optional, bool per ray) starts masked rays inactive.
 
-    `emissivity` (a `GaussianSource`) fuses radiative transfer into the
-    march: each ray accumulates I = int j e^{-tau} dl along its backward
-    march, and the return becomes (state, still_active, I).  `absorption`
-    (a `GaussianSource`, needs `emissivity`) adds the optical depth
-    tau = int alpha dl; without it the transfer is optically thin.  Any
-    other callable raises TypeError, on every device.
+    `emissivity(t, r, m, phi)` fuses radiative transfer into the march:
+    each ray accumulates I = int j e^{-tau} dl along its backward march,
+    and the return becomes (state, still_active, I).
+    `absorption(t, r, m, phi)` (needs `emissivity`) adds the optical depth
+    tau = int alpha dl; without it the transfer is optically thin.  Each
+    is any torch callable of the elementwise ops of `model_trace.OPS`, as
+    `raytrace_pallas` takes any pure jnp callable; a `GaussianSource`
+    runs in the kernel's compiled-in family.  The models are traced first,
+    on every device and anew on every call (the numbers a callable reads
+    are those of this call): one the kernel cannot evaluate raises
+    TypeError (or ValueError for a captured tensor that requires grad)
+    before anything is built or launched.  The kernel takes that trace;
+    the plain version on the CPU calls the callables themselves.
     """
+    _, traced_j, traced_a = prepare(emissivity, absorption)
     tensors, scalars = _pack(state, r_max, max_steps, error_stop, active0)
-    scalars.update(emissivity=emissivity, absorption=absorption)
     dev = tensors[0].device
     if dev.type == "cuda":
-        outs = _march_cuda(*tensors, **scalars)
+        outs = _march_cuda(*tensors, emissivity=traced_j,
+                           absorption=traced_a, **scalars)
     elif dev.type == "cpu":
-        outs = march_reference(*tensors, **scalars)
+        outs = march_reference(*tensors, emissivity=emissivity,
+                               absorption=absorption, **scalars)
     else:
         raise ValueError(f"no march kernel for device {dev}")
     return _unpack(state, outs)

@@ -22,9 +22,12 @@ Three march engines:
   fixed trip count of checkpointed segments of the same masked step, in
   eager torch (the JAX package's scan engine is XLA, not Pallas);
 * "kernel" (the JAX package's "pallas"): the f32 march kernel with fused
-  transfer (`march.kernel_march.raytrace_kernel`), whose emissivity and
-  absorption are `march.emission.GaussianSource` models.  Forward only,
-  as the JAX package's "pallas" engine: inputs that require grad raise.
+  transfer (`march.kernel_march.raytrace_kernel`), which takes any
+  emissivity and absorption of the elementwise ops of
+  `march.model_trace.OPS` (traced into a build of the kernel for their
+  structure; a `march.emission.GaussianSource` runs in the kernel's
+  compiled-in family).  Forward only, as the JAX package's "pallas"
+  engine: inputs that require grad raise.
 """
 
 import dataclasses
@@ -41,6 +44,7 @@ from ..geodesic import (geodesic_init_inf, geodesic_find_midplane_crossing,
                         geodesic_position_pol, geodesic_position_azm,
                         geodesic_timedelay_full, geodesic_momentum)
 from ..march import raytrace_prepare, raytrace_step, raytrace_kernel
+from ..march.emission import prepare
 from .image import image_grid
 
 R_FAR = 1e4   # the far-field sphere the crossing map's delays are anchored at
@@ -302,11 +306,15 @@ def volume_image(a, incl, emissivity_fn, npix=128, rmax=25.0,
     callables; engine="scan" is the reverse-differentiable engine
     (`_volume_march_scan`: checkpointed segments, every one of max_steps
     steps paid) for gradients in the spin and the sources' tensor
-    parameters; engine="kernel" marches with the f32 march kernel and takes
-    `GaussianSource` models only: the seed runs in `dtype`, then the state
-    is cast to f32 for the kernel, as the JAX package's "pallas" engine
-    does.  The kernel engine is forward only: with an input that requires
-    grad it raises.  `axisymmetric=True` declares the source independent of phi:
+    parameters; engine="kernel" marches with the f32 march kernel, which
+    takes any callables of the elementwise ops of `march.model_trace.OPS`
+    (traced on every call, before the seed; one build of the kernel a
+    structure, at first use; data-dependent control flow or another op
+    raises TypeError): the seed runs in
+    `dtype`, then the state is cast to f32 for the kernel, as the JAX
+    package's "pallas" engine does.  The kernel engine is forward only:
+    with an input that requires grad, or a callable that captures one, it
+    raises.  `axisymmetric=True` declares the source independent of phi:
     the seed skips its azimuth stage (the largest part of the seed: all
     four trajectory types' radial integrals, in f64) and starts every ray
     at phi = 0.  `device=None` means the card.  Returns I, (npix, npix), 0 on pixels
@@ -318,6 +326,11 @@ def volume_image(a, incl, emissivity_fn, npix=128, rmax=25.0,
                                              absorption_fn):
         raise ValueError("the kernel engine is forward only: an input "
                          "requires grad; use engine='scan' for gradients")
+    if engine == "kernel":
+        # traced once a call, before the seed: a refusal comes first, and
+        # the march takes this trace
+        _, emissivity_fn, absorption_fn = prepare(emissivity_fn,
+                                                  absorption_fn)
     st, ok = _volume_seed(a, incl, t0, npix, rmax, r_start, precision,
                           axisymmetric=axisymmetric, dtype=dtype,
                           device=device)

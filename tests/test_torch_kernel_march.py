@@ -120,10 +120,18 @@ class TestWrapper:
         st64 = st._replace(x=st.x.double(), k=st.k.double())
         with pytest.raises(TypeError):
             kernel_march.raytrace_kernel(st64)
-        # the CUDA launcher refuses CPU tensors before building anything
+        # a model of an op the kernel does not take (a reduction)
+        with pytest.raises(TypeError, match="amax"):
+            kernel_march.raytrace_kernel(
+                st, emissivity=lambda t, r, m, phi: r / r.amax())
+        # the CUDA launcher refuses CPU tensors before building anything,
+        # with a plain callable too
         tensors, scalars = kernel_march._pack(st, 50.0, 10, 1e-2, None)
         with pytest.raises(ValueError):
             kernel_march._march_cuda(*tensors, **scalars)
+        with pytest.raises(ValueError, match="the kernel needs"):
+            kernel_march._march_cuda(
+                *tensors, emissivity=lambda t, r, m, phi: r * m, **scalars)
 
     def test_package_imports_no_jax(self):
         code = ("import sys, sim5_tpu_torch, sim5_tpu_torch.march.kernel_march,"
@@ -131,7 +139,8 @@ class TestWrapper:
                 " sim5_tpu_torch.special.carlson, sim5_tpu_torch.special.legendre,"
                 " sim5_tpu_torch.special.jacobi, sim5_tpu_torch.geodesic.types,"
                 " sim5_tpu_torch.geodesic.analytic, sim5_tpu_torch.render.image,"
-                " sim5_tpu_torch.render.lightcurve;"
+                " sim5_tpu_torch.render.lightcurve, sim5_tpu_torch._build,"
+                " sim5_tpu_torch.march.model_trace;"
                 "bad = [m for m in sys.modules if m == 'jax' or "
                 "m.startswith(('jax.', 'sim5_tpu.')) or m == 'sim5_tpu'];"
                 "assert not bad, bad")

@@ -92,17 +92,31 @@ class TestPhysics:
         assert GaussianSource(amp=50.0)(t, r, m, phi).eq(50.0).all()
 
     def test_wrapper_refuses_callables_and_launches_nothing_on_cpu(self):
+        """Plain callables run through the kernel route (traced, then the
+        plain version on the CPU) and match raytrace_reference; what the
+        kernel cannot evaluate (an op outside model_trace.OPS) and an
+        absorption without an emissivity are refused; nothing launches."""
         st, ok = tlc._volume_seed(0.9, 1.2, 0.0, npix=4, rmax=12.0,
                                   r_start=20.0, precision=0.03,
                                   axisymmetric=True, dtype=torch.float32,
                                   device="cpu")
         before = dict(kernel_march.LAUNCHES)
         kw = dict(r_max=24.0, max_steps=20, active0=ok)
-        with pytest.raises(TypeError, match="GaussianSource"):
-            kernel_march.raytrace_kernel(st, emissivity=lambda *a: a[1], **kw)
-        with pytest.raises(TypeError):
-            kernel_march.raytrace_kernel(st, emissivity=BLOB,
-                                         absorption=lambda *a: a[1], **kw)
+
+        def plain_r(t, r, m, phi):
+            return 0.1 * r
+
+        for em, ab in ((plain_r, None), (BLOB, plain_r)):
+            s1, a1, I1 = kernel_march.raytrace_kernel(
+                st, emissivity=em, absorption=ab, **kw)
+            s2, a2, I2 = kernel_march.raytrace_reference(
+                st, emissivity=em, absorption=ab, **kw)
+            torch.testing.assert_close(I1, I2, rtol=0, atol=0)
+            torch.testing.assert_close(s1.x, s2.x, rtol=0, atol=0)
+            assert torch.equal(a1, a2) and bool((I1 > 0).any())
+        with pytest.raises(TypeError, match="cumsum"):
+            kernel_march.raytrace_kernel(
+                st, emissivity=lambda t, r, m, phi: torch.cumsum(r, 0), **kw)
         with pytest.raises(ValueError):
             kernel_march.raytrace_kernel(st, absorption=ALPHA_BLOB, **kw)
         s1, a1, I1 = kernel_march.raytrace_kernel(st, emissivity=BLOB, **kw)
@@ -112,8 +126,12 @@ class TestPhysics:
         torch.testing.assert_close(I1, I2, rtol=0, atol=0)
         torch.testing.assert_close(s1.x, s2.x, rtol=0, atol=0)
         assert torch.equal(a1, a2)
-        # the loop engine takes a plain callable; the kernel route refuses it
+        # the kernel route takes a plain callable as the loop engine does,
+        # and refuses one it cannot trace
+        vkw = dict(engine="kernel", axisymmetric=True, device="cpu", npix=4,
+                   max_steps=5)
+        I = tlc.volume_image(0.9, 1.2, lambda t, r, m, phi: r, **vkw)
+        assert I.shape == (4, 4) and bool(torch.isfinite(I).all())
         with pytest.raises(TypeError):
-            tlc.volume_image(0.9, 1.2, lambda t, r, m, phi: r,
-                             engine="kernel", axisymmetric=True,
-                             device="cpu", npix=4, max_steps=5)
+            tlc.volume_image(0.9, 1.2, lambda t, r, m, phi: r.sum() * r,
+                             **vkw)
