@@ -20,18 +20,21 @@ Run from the repository root on a machine with an NVIDIA H100:
 The march kernel (`sim5_tpu_torch/csrc/march.cuh`, run in segments with
 the live rays compacted between them: `csrc/march.cu` for its compiled-in
 GaussianSource family, all its variants), the disk image kernel
-(`sim5_tpu_torch/csrc/disk_image.cu`, f64 and f32) and its tangent
-kernel (`sim5_tpu_torch/csrc/disk_image_jvp.cu`) are built into `build/`
-on first use, all at once; the march libraries generated for traced
+(`sim5_tpu_torch/csrc/disk_image.cu`, f64 and f32), its tangent
+kernel (`sim5_tpu_torch/csrc/disk_image_jvp.cu`), the analytic engine's
+crossing-map and volume-seed kernels (`csrc/crossing_map.cu`,
+`csrc/volume_seed.cu`, on `csrc/azimuth.cuh`) and their host operation
+counter (`csrc/analytic_ops.cpp`, g++) are built into `build/` on first
+use, all at once; the march libraries generated for traced
 models (`sim5_tpu_torch/march/model_trace.py`) into
 `build/sim5_tpu_torch/gen/` at their first use.  Phases, one line each:
 
 1. device: the card's name and power limit, the builds (with a probe of
    single-function kernels for the SASS lengths of divisions, square roots
    and transcendentals), each kernel's compile-time choices, registers,
-   spills and resident blocks of every main-path instance and of every
-   instance of the tangent kernel, and the SASS instruction counts where
-   `cuobjdump` is there;
+   spills and resident blocks of every main-path instance, of every
+   instance of the tangent kernel and of the analytic kernels, and the
+   SASS instruction counts where `cuobjdump` is there;
 2. kernel vs its plain torch version on 4096 rays (GR, GR+POL, flat at
    a = 0.3 and 0.9);
 3. the march's main path, 131072 rays at a = 0.9 to r = 500, through
@@ -73,23 +76,27 @@ models (`sim5_tpu_torch/march/model_trace.py`) into
 13. the analytic azimuth and travel time on the card: phi against the C
     golden's position samples (geod.txt, at least 97% within rtol 1e-4,
     atol 1e-6), the time delay against timedelay.txt (95% within rtol
-    1e-5, atol 1e-7); then the card against the same torch code on the
-    CPU in f64 at 64^2, for the volume seed's azimuth and the crossing
-    map's (r, phi, g, delay): r and g within 1e-12 relative, phi and the
-    delay within their per-pixel bounds (`phi_bound`, `time_bound`);
+    1e-5, atol 1e-7); then the kernels on the card (one launch each of
+    volume_seed<double, true> and crossing_map<double>, counted) against
+    the plain chains on the CPU in f64 at 64^2, for the volume seed's
+    azimuth and the crossing map's (r, phi, g, delay): r and g within
+    1e-12 relative, phi and the delay within their per-pixel bounds
+    (`phi_bound`, `time_bound`);
 14. the volume path with its default azimuth stage and an orbiting
     source (example 07's spot as a 3-D `GaussianSource`: a = 0.5, 70 deg,
     r = 7, width, height and arc 0.7, omega = OmegaK(7, 0.5)):
     volume_image(engine="kernel") at 512^2 thin and thick with the
-    launch counts and phase 7's gates, the seed's three stages timed
-    apart, phase 8's gates at 128^2, the flux one orbital period later
+    launch counts (the seed kernel once an image) and phase 7's gates,
+    the seed timed (the kernel's rays, raytrace_prepare), phase 8's gates
+    at 128^2, the flux one orbital period later
     equal to 1e-3 (volume_lightcurve), and the march timed on the 512^2
     seed and held against its plain version on the same inputs, as in
     phase 9;
 15. example 07's hot-spot light curve at its full size
     (hotspot_lightcurve at 192^2, orders 0 and 1, 96 samples over two
-    periods): each crossing map, the curve given the maps and the entry
-    point timed, and the crossing map at 512^2; finite and positive,
+    periods): each crossing map (one crossing_map<double> launch each),
+    the curve given the maps and the entry point (both orders in one
+    launch, counted) timed, and the crossing map at 512^2; finite and positive,
     sample k equal to sample k + 48 to 1e-9, delays of the hit pixels
     from exactly 0;
 16. example 09 at its full size: render_bh_image at 512^2 (a = 0.998,
@@ -230,7 +237,24 @@ models (`sim5_tpu_torch/march/model_trace.py`) into
     curve at two times and at a second t_flare, and example 11's alpha
     sweep, each absorption and each flare on one cached library; an
     unsupported op and data-dependent control flow refused on the card
-    before any build or launch.
+    before any build or launch;
+28. (run before 13) the analytic engine's kernels against their plain
+    torch chains on the card: crossing_map<double> at example 07's 192^2,
+    orders 0 and 1 in one launch (hit sets equal; g 1e-12 relative; r
+    1e-12 relative + `far_bound`, the far field's r^2 dP with dP 32 ulps
+    of Tpp + |Tip|, which order 1's crossings at r ~ 1e4-1e5 need; phi and the delay within `phi_bound` /
+    `time_bound` (+ `far_bound`); the pixels that are no hit exactly the
+    plain chain's); volume_seed<T, azm> on example
+    07's spot at 512^2 in f64 and f32, with and without the azimuth, and
+    on example 11's torus (f64, axisymmetric): f64 valid sets equal, r0,
+    m0 and k within `seed_bounds` (1e-12 of max(|v|, 1e-3 of the field's
+    peak), and the square root's spread where k^r or k^theta passes
+    through 0), phi0 within `phi_bound`, the dummy rays exact; f32 against the f64 chain no
+    further than 2x the plain f32 chain's own distance + 1e-6 of each
+    field's scale, valid sets within 1% of the pixels; each kernel's
+    CUDA-event time, its plain chain's and its bound from the operations
+    its pixels execute (counted on the host's cores beside the phase by
+    `kernel_analytic.operation_counts`).
 
 Then one JSON line on the kernels, the card's name and power limit, and
 the result as the last line.  Any failed check exits non-zero.  The script
@@ -812,11 +836,15 @@ def phase_device():
     # one nvcc for each source (and the op-length probe), all started
     # together; the tangent library (the longest build, first used by
     # phase 21) goes on building beside the phases (`tangent_build`)
+    from sim5_tpu_torch.render import kernel_analytic
     t0 = time.perf_counter()
-    pool = concurrent.futures.ThreadPoolExecutor(4)
+    pool = concurrent.futures.ThreadPoolExecutor(7)
     BACKGROUND["tangent"] = pool.submit(kernel_image._jvp_lib)
     futs = [pool.submit(kernel_march._lib), pool.submit(kernel_image._lib),
-            pool.submit(op_lengths)]
+            pool.submit(op_lengths),
+            pool.submit(kernel_analytic._lib, "crossing_map"),
+            pool.submit(kernel_analytic._lib, "volume_seed"),
+            pool.submit(kernel_analytic._ops_lib)]
     lengths = [f.result() for f in futs][2]
     pool.shutdown(wait=False)
     build_s = time.perf_counter() - t0
@@ -844,9 +872,40 @@ def phase_device():
           + f" | image SASS (static): {image_sass_summary(image_sass)} | SASS "
           f"lengths (f64 d, f32 f): "
           + (", ".join(f"{op}_{t} {n}" for (op, t), n in sorted(
-              lengths.items())) or "not measured (no cuobjdump)"),
-          flush=True)
+              lengths.items())) or "not measured (no cuobjdump)")
+          + f" | analytic kernels: {analytic_build_text()}", flush=True)
     return name, lengths
+
+
+# the analytic kernels' entry functions in the ptxas report
+ANALYTIC_INSTANCE = re.compile(
+    r"(crossing_map)|volume_seedI([df])Lb([01])E")
+
+
+def analytic_label(m):
+    return ("crossing_map<double>" if m[1] else
+            f"volume_seed<{'double' if m[2] == 'd' else 'float'}, "
+            f"{'true' if m[3] == '1' else 'false'}>")
+
+
+def analytic_build_text():
+    """The analytic libraries' builds, configs, each instance's registers,
+    local memory and resident blocks, and ptxas' registers, stack and
+    spills."""
+    from sim5_tpu_torch._build import BUILDS
+    from sim5_tpu_torch.render import kernel_analytic as ka
+    parts = [f"{n} {BUILDS[n]['seconds']:.2f} s cached={BUILDS[n]['cached']}"
+             for n in ("crossing_map", "volume_seed", "analytic_ops")]
+    atts = "; ".join(
+        f"{v}: {att['registers']} registers, {att['local_bytes']} bytes "
+        f"local, {att['blocks_per_sm']} blocks an SM"
+        for v, att in ((v, ka.kernel_attributes(v))
+                       for v in (ka.CROSSING, *ka.SEEDS.values())))
+    reports = "; ".join(
+        ptxas_summary(BUILDS[n]["log"], ANALYTIC_INSTANCE, analytic_label)
+        for n in ("crossing_map", "volume_seed"))
+    return (", ".join(parts) + f" | {ka.MAX_ORDERS} orders a launch at "
+            f"most | {atts} | ptxas: {reports}")
 
 
 def tangent_build():
@@ -1246,8 +1305,10 @@ def volume_main(dev, cfg=VOL, source=None):
     from sim5_tpu_torch.render import lightcurve, volume_image
     source = source or torus
     images, launches, march, parts = {}, {}, {}, []
+    seed_v = seed_name(cfg)
     for alpha0 in ALPHA0:
         kernel_march.LAUNCHES.update(dict.fromkeys(kernel_march.LAUNCHES, 0))
+        reset_analytic()
         t0 = time.perf_counter()
         with launch_events() as events:
             I = volume_image(cfg["a"], cfg["incl"], source(),
@@ -1256,6 +1317,10 @@ def volume_main(dev, cfg=VOL, source=None):
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(kernel_march.LAUNCHES)
+        seeds = analytic_launches()
+        check(seeds[seed_v] == 1, f"alpha0={alpha0}: the image's seed "
+              f"launched {launched(seeds)}, not {seed_v} once")
+        launches[seed_v] = seeds[seed_v]
         march_ms = sum(e0.elapsed_time(e1) for e0, e1 in events)
         traced = not is_family(source(), source(alpha0))
         variant = kernel_march.VARIANTS[(1 if alpha0 == 0.0 else 2)
@@ -1281,7 +1346,7 @@ def volume_main(dev, cfg=VOL, source=None):
         check(peak > 0.0, f"alpha0={alpha0}: peak I {peak}")
         images[alpha0] = Id
         parts.append(f"alpha0={alpha0}: {variant} LAUNCHES={counts[variant]} "
-                     f"(all {counts}) flux {float(Id.sum()):.6e} peak "
+                     f"(all {counts}), {seed_v} {seeds[seed_v]}, flux {float(Id.sum()):.6e} peak "
                      f"{peak:.6e} | image {wall:.3f} s (host clock), march "
                      f"{march_ms:.3f} ms (CUDA events), seed alone "
                      f"{seed_s:.3f} s (host clock)")
@@ -1792,6 +1857,18 @@ def time_bound(g, t, t_far=0.0):
             + 1e-10 * t_far)
 
 
+def far_bound(g, r):
+    """The spread of a crossing's radius (and of a delay from it) far
+    out: there P_inf - P ~ 1/r, so dr ~ r^2 dP, and P = (2 order + 1)
+    Tpp / 2 +- Tip carries the roundings of Tpp (K's AGM) and Tip (an RF
+    duplication chain), a few dozen ulps of Tpp + |Tip|: 32 here.  An
+    order-1 crossing of example 07's map lies at r ~ 1e5, where one ulp of
+    the inclination moves the plain chain's r by 2.3e-11 relative; the
+    kernel and the plain chain on the card differ by up to 8.5e-11
+    relative among those crossings."""
+    return 32.0 * EPS64 * r * r * (g.Tpp + g.Tip.abs())
+
+
 def golden_rows(fname, tag):
     """The rows of one tag of a golden file in tests/golden."""
     path = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
@@ -1826,15 +1903,19 @@ def worst(err, bound, sel):
 
 
 def analytic_f64(device):
-    """The seed's azimuth (VOL_SPOT at N_ANALYTIC^2) and the crossing map
-    (order 0, N_ANALYTIC^2) on `device`, and the image grid's geodesic."""
+    """The seed's azimuth (VOL_SPOT at N_ANALYTIC^2, f64) and the crossing
+    map (order 0, N_ANALYTIC^2) on `device`: on the card their kernels
+    (kernel_analytic.volume_seed_rays, equatorial_crossing_map), on the
+    CPU their plain chains; and the two image grids' geodesics."""
     from sim5_tpu_torch import geodesic as gd
-    from sim5_tpu_torch.render import lightcurve, image_grid
+    from sim5_tpu_torch.render import kernel_analytic, lightcurve, image_grid
     c = VOL_SPOT
-    g, ok, P0s, r0, m0 = lightcurve._volume_seed_geom(
-        c["a"], c["incl"], N_ANALYTIC, c["rmax"], c["r_start"],
+    x0, _, ok = kernel_analytic.volume_seed_rays(
+        c["a"], c["incl"], 0.0, N_ANALYTIC, c["rmax"], c["r_start"], False,
         torch.float64, device)
-    phi = lightcurve._volume_seed_azm(g, ok, P0s, r0, m0)
+    phi = x0[..., 3]
+    g = gd.geodesic_init_inf(c["incl"], c["a"], *image_grid(
+        N_ANALYTIC, N_ANALYTIC, c["rmax"], device=device))
     m = lightcurve.equatorial_crossing_map(c["a"], c["incl"], N_ANALYTIC,
                                            2.5 * SPOT["r_spot"], 0,
                                            device=device)
@@ -1911,10 +1992,16 @@ def phase_analytic(dev):
           f"time delay vs C golden: finiteness agrees on "
           f"{float(fin.double().mean()):.4f}, {td_frac:.4f} within rtol "
           f"1e-5 atol 1e-7 (gates > 0.95)")
-    # the card against the CPU, f64, the same torch code
+    # the kernels on the card against the plain chains on the CPU, f64
+    from sim5_tpu_torch.render import kernel_analytic
+    reset_analytic()
     t0 = time.perf_counter()
     gk, okk, phik, mk, gmk = analytic_f64(dev)
     card_s = time.perf_counter() - t0
+    launches = analytic_launches()
+    seed_v = kernel_analytic.SEEDS[torch.float64, True]
+    check(launches[kernel_analytic.CROSSING] == 1 and launches[seed_v] == 1,
+          f"the card's seed and crossing map launched {launched(launches)}")
     (gc, okc, phic, mc, gmc), cpu_s = cpu_result("cpu analytic",
                                                  cpu_analytic)
     okc = okc & torch.isfinite(phic)
@@ -1940,7 +2027,9 @@ def phase_analytic(dev):
     print(f"phase 13 analytic azimuth and delay: vs C goldens on the card: "
           f"phi {frac:.4f} of {int(ok.sum())} samples within rtol 1e-4 "
           f"atol 1e-6 (gate > 0.97), time delay {td_frac:.4f} within rtol "
-          f"1e-5 atol 1e-7 (gate > 0.95) | card vs CPU, f64, "
+          f"1e-5 atol 1e-7 (gate > 0.95) | the kernels on the card "
+          f"(LAUNCHES={launched(launches)}) vs the plain chains on the CPU, "
+          f"f64, "
           f"{N_ANALYTIC}^2 (card {card_s:.2f} s, CPU {cpu_s:.2f} s in a "
           f"worker process beside the phases): "
           f"crossing map r {rel['r']:.3e}, g {rel['g']:.3e} relative (gate "
@@ -1969,28 +2058,18 @@ def spot(alpha0=1.0):
 
 
 def seed_stages(dev, cfg, npix):
-    """Seconds of each stage of the f64 seed (geometry / azimuth /
-    packing) at npix^2, warm, on the synchronised host clock."""
-    from sim5_tpu_torch.render import lightcurve
-    secs = []
-
-    def lap(t0):
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        return time.perf_counter()
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    g, ok, P0s, r0, m0 = lightcurve._volume_seed_geom(
-        cfg["a"], cfg["incl"], npix, cfg["rmax"], cfg["r_start"],
-        torch.float64, dev)
-    t0 = lap(t0)
-    phi0 = lightcurve._volume_seed_azm(g, ok, P0s, r0, m0)
-    t0 = lap(t0)
-    lightcurve._volume_seed_pack(g, ok, P0s, r0, m0, phi0, cfg["a"], 0.0,
-                                 cfg["r_start"], cfg["precision"])
-    lap(t0)
-    return secs
+    """Seconds of the f64 seed at npix^2 as the entry point runs it on the
+    card, warm, on the synchronised host clock: the seed kernel's rays
+    (one launch, with its allocations) and raytrace_prepare."""
+    from sim5_tpu_torch.march import raytrace_prepare
+    from sim5_tpu_torch.render import kernel_analytic
+    (x0, k, _), rays_s = synced_seconds(
+        lambda: kernel_analytic.volume_seed_rays(
+            cfg["a"], cfg["incl"], 0.0, npix, cfg["rmax"], cfg["r_start"],
+            cfg["axisymmetric"], torch.float64, dev))
+    _, prep_s = synced_seconds(lambda: raytrace_prepare(
+        cfg["a"], x0, k, precision=cfg["precision"]))
+    return [rays_s, prep_s]
 
 
 def phase_orbit_volume(dev, name):
@@ -2015,9 +2094,13 @@ def phase_orbit_volume(dev, name):
     # later the light curve repeats
     period = 2.0 * math.pi / float(OmegaK(torch.tensor(
         SPOT["r_spot"], dtype=torch.float64), SPOT["a"]))
-    flux = volume_lightcurve(cfg["a"], cfg["incl"], spot(), [0.0, period],
-                             engine="kernel", device=dev,
-                             **volume_kw(cfg, N_VOL_PIX))
+    reset_analytic()
+    flux, lc_s = synced_seconds(lambda: volume_lightcurve(
+        cfg["a"], cfg["incl"], spot(), [0.0, period], engine="kernel",
+        device=dev, **volume_kw(cfg, N_VOL_PIX)))
+    lc_seeds = analytic_launches()[seed_name(cfg)]
+    check(lc_seeds == 2, f"the light curve's two samples launched "
+          f"{seed_name(cfg)} {lc_seeds} times")
     lc_rel = abs(flux[1] - flux[0]) / abs(flux[0])
     check(flux[0] > 0.0 and lc_rel <= 1e-3, f"orbiting source: flux at t0 "
           f"= 0 and one period later differ by {lc_rel:.3e} > 1e-3")
@@ -2050,8 +2133,8 @@ def phase_orbit_volume(dev, name):
             f"alpha0={alpha0}: {text} | kernel vs plain: equal steps "
             f"{eq:.4f} rel dr {rel:.3e} |dI| {dI:.3e} ({dI / peak_p:.3e} of "
             f"peak {peak_p:.4e})")
-    # the azimuth's share of one image, from this phase's own stage and
-    # march times
+    # the seed's share of one image, from this phase's own seed and march
+    # times
     image_s = sum(stages) + rows[1]["ms"] * 1e-3
     peak = float(images[0.0].max())
     print(f"phase 14 orbiting source through the volume path ({N_VOL_PIX}^2, "
@@ -2059,14 +2142,15 @@ def phase_orbit_volume(dev, name):
           f"{SPOT['r_spot']} of width, height and arc {SPOT['size']}, omega "
           f"{2 * math.pi / period:.6f}, r_start {cfg['r_start']}, "
           f"{cfg['max_steps']} steps, default axisymmetric=False; {name}): "
-          + " | ".join(parts) + f" | {gate} | seed stages (f64, host clock, "
-          f"warm): geometry {stages[0]:.3f} s, azimuth {stages[1]:.3f} s, "
-          f"packing {stages[2]:.3f} s; the azimuth is {stages[1] / image_s:.4f}"
-          f" of seed + thin march ({image_s:.3f} s) | vs f64 loop "
+          + " | ".join(parts) + f" | {gate} | the seed (f64, host clock, "
+          f"warm): the kernel's rays {stages[0]:.4f} s, raytrace_prepare "
+          f"{stages[1]:.4f} s; the seed is {sum(stages) / image_s:.4f} of "
+          f"seed + thin march ({image_s:.3f} s) | vs f64 loop "
           f"({N_VOL_LOOP}^2; gate "
           f"2e-2 of peak): {loop_text} | light curve t0 = 0 / one period: "
           f"{flux[0]:.9e} / {flux[1]:.9e}, relative {lc_rel:.3e} (gate "
-          f"1e-3) | march timed on the {N_VOL_PIX}^2 seed (gates: equal "
+          f"1e-3), {lc_s / 2:.4f} s a sample (host clock, one seed launch "
+          f"each) | march timed on the {N_VOL_PIX}^2 seed (gates: equal "
           f"steps > 0.9, |dI| <= 1e-3 of peak; plain: both variants in one "
           f"call, {ms_p:.3f} ms): " + " | ".join(timed_parts)
           + f" | peak {peak:.4e}", flush=True)
@@ -2085,6 +2169,7 @@ def phase_hotspot(dev):
     period = 2.0 * math.pi / float(Om)
     t_obs = np.arange(HOTSPOT_T) / HOTSPOT_T * 2 * period
     maps, map_s = [], []
+    reset_analytic()
     for order in (0, 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2092,16 +2177,26 @@ def phase_hotspot(dev):
                                             order, device=dev))
         torch.cuda.synchronize()
         map_s.append(time.perf_counter() - t0)
+    from sim5_tpu_torch.render import kernel_analytic
+    v = kernel_analytic.CROSSING
+    map_launches = analytic_launches()[v]
+    check(map_launches == 2, f"the two maps launched {v} {map_launches} "
+          f"times")
     t = torch.as_tensor(t_obs, device=dev)
     t0 = time.perf_counter()
     lc = sum(lightcurve.spot_flux(m, Om, rs, size, t) for m in maps)
     torch.cuda.synchronize()
     lc_s = time.perf_counter() - t0
+    # the main path: the entry point, both orders in one launch
+    reset_analytic()
     t0 = time.perf_counter()
     lc_entry = hotspot_lightcurve(a, incl, rs, size, t_obs, npix=N_HOTSPOT,
                                   n_orders=2, device=dev)
     torch.cuda.synchronize()
     entry_s = time.perf_counter() - t0
+    entry_launches = analytic_launches()
+    check(entry_launches[v] == 1, f"the entry point launched "
+          f"{launched(entry_launches)}, not {v} once")
     check(torch.equal(lc, lc_entry), "the light curve composed from the "
           "maps is not bitwise the entry point's")
     check(bool(torch.isfinite(lc).all()) and bool((lc > 0).all()),
@@ -2129,14 +2224,299 @@ def phase_hotspot(dev):
     print(f"phase 15 hot-spot light curve (example 07: a={a}, incl "
           f"{math.degrees(incl):.0f}, r_spot {rs}, size {size}, "
           f"{N_HOTSPOT}^2, orders 0 and 1, {HOTSPOT_T} samples over two "
-          f"periods of {period:.4f}): crossing maps {map_s[0]:.3f} / "
-          f"{map_s[1]:.3f} s, the light curve given the maps {lc_s * 1e3:.3f}"
-          f" ms, the entry point {entry_s:.3f} s (host clock, synchronised) "
-          f"| crossing map at {N_MAP}^2 {big_s:.3f} s | hit fractions: "
+          f"periods of {period:.4f}): crossing maps {map_s[0]:.4f} / "
+          f"{map_s[1]:.4f} s (one {v} launch each), the light curve given "
+          f"the maps {lc_s * 1e3:.3f} ms, the entry point {entry_s:.4f} s "
+          f"(host clock, synchronised; LAUNCHES={launched(entry_launches)}) "
+          f"| crossing map at {N_MAP}^2 {big_s:.4f} s | hit fractions: "
           + ", ".join(hits) + f" | flux min {lcn.min():.6e} max "
           f"{lcn.max():.6e} (modulation {lcn.max() / lcn.min():.3f}x), one "
           f"period apart within {per_rel:.3e} (gate 1e-9)", flush=True)
-    return dict(map_s=map_s, lc_s=lc_s, entry_s=entry_s, big_s=big_s)
+    return dict(map_s=map_s, lc_s=lc_s, entry_s=entry_s, big_s=big_s,
+                launches=entry_launches[v])
+
+
+# --- phase 28: the analytic engine's kernels (csrc/crossing_map.cu,
+# csrc/volume_seed.cu) against their plain torch chains on the card
+
+ANALYTIC_REPS = 2        # launches between two CUDA events (phase 28)
+OPS_THREADS = 6          # host threads of the operation counter
+# the seeds phase 28 holds against their plain chain: example 07's spot
+# with and without the azimuth in f64 and f32, and example 11's torus
+# (axisymmetric, f64), each at N_VOL_PIX^2
+SEED_CASES = (("spot", VOL_SPOT, torch.float64, False),
+              ("spot", VOL_SPOT, torch.float64, True),
+              ("spot", VOL_SPOT, torch.float32, False),
+              ("spot", VOL_SPOT, torch.float32, True),
+              ("torus", VOL, torch.float64, True))
+
+
+def reset_analytic():
+    """Every analytic kernel's launch count set to 0."""
+    from sim5_tpu_torch.render import kernel_analytic
+    kernel_analytic.LAUNCHES.update(dict.fromkeys(kernel_analytic.LAUNCHES,
+                                                  0))
+
+
+def analytic_launches():
+    """The analytic kernels' launch counts since the last reset."""
+    from sim5_tpu_torch.render import kernel_analytic
+    return dict(kernel_analytic.LAUNCHES)
+
+
+def seed_name(cfg, dtype=torch.float64):
+    """The seed kernel's instance a volume configuration launches."""
+    from sim5_tpu_torch.render import kernel_analytic
+    return kernel_analytic.SEEDS[dtype, not cfg["axisymmetric"]]
+
+
+def seed_bounds(g, x0, k):
+    """Per-pixel bounds on the f64 seed's r0, m0 and k between two
+    evaluations of its algebra: 1e-12 of each field's scale (max(|v|,
+    1e-3 of the field's peak): m0 and k's components pass through 0), and
+    where a field passes through 0 its own spread: m0 = -sign sqrt(m2p)
+    cn(dT / mK) moves by sqrt(m2p) dT / mK, dT rounding by 8 ulps of Tpp
+    + |Tip| + Rpc; k^r = sqrt(R) / S and k^theta = sqrt(M) / S, with R and
+    M rounding by 8 ulps of their terms, move by min(dR / (2 |k| S^2),
+    sqrt(dR) / S) near a turning point (on the spot's 512^2 seed one ulp
+    of the inclination moves the plain chain's k^theta by 1.6e-9 of its
+    scale there, on a CPU).  Returns (r0, m0, k) bounds."""
+    r, m = x0[..., 1].double(), x0[..., 2].double()
+    k = k.double()
+
+    def scale(v):
+        return 1e-12 * v.abs().clamp(min=1e-3 * float(v.abs().max()))
+
+    e8 = 8.0 * EPS64
+    a, l, q = g.a, g.l, g.q
+    a2, r2, m2 = a * a, r * r, m * m
+    S = r2 + a2 * m2
+    D = r2 - 2.0 * r + a2
+    A = r2 + a2 - a * l
+    dR = e8 * (A * A + D.abs() * ((l - a) ** 2 + q.abs()))
+    dM = e8 * (q.abs() + l * l * m2 / (1.0 - m2) + a2 * m2)
+
+    def root(dX, kc):
+        return torch.minimum(dX / (2.0 * kc.abs() * S * S), dX.sqrt() / S)
+
+    b_m = scale(m) + e8 * g.m2p.sqrt() * (g.Tpp + g.Tip.abs() + g.Rpc) / g.mK
+    b_k = torch.stack([scale(k[..., 0]), scale(k[..., 1]) + root(dR, k[..., 1]),
+                       scale(k[..., 2]) + root(dM, k[..., 2]),
+                       scale(k[..., 3])], -1)
+    return scale(r), b_m, b_k
+
+
+def synced_seconds(fn):
+    """(fn(), its seconds on the synchronised host clock)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def start_op_counts():
+    """Phase 28's launches' operation counts (kernel_analytic.
+    operation_counts: the kernels' pixels on a counting scalar on the
+    host's cores), in a thread beside the card's work: a future of
+    {key: {precision: {kind: count}}}."""
+    def run():
+        from sim5_tpu_torch.render import kernel_analytic as ka
+        out = {"crossing": ka.operation_counts(
+            "crossing", SPOT["a"], SPOT["incl"], N_HOTSPOT,
+            2.5 * SPOT["r_spot"], (0, 1), threads=OPS_THREADS)[0]}
+        for case, cfg, dt, axi in SEED_CASES:
+            out[case, dt, axi] = ka.operation_counts(
+                "seed", cfg["a"], cfg["incl"], N_VOL_PIX, cfg["rmax"],
+                r_start=cfg["r_start"], dtype=dt, axisymmetric=axi,
+                threads=OPS_THREADS)[0]
+        return out
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    fut = pool.submit(run)
+    pool.shutdown(wait=False)
+    return fut
+
+
+def analytic_bound(ops, out_bytes):
+    """(ms, "operations" or "bytes"): the counted operations of each
+    precision over its peak rate (each addition, multiplication, division,
+    square root and transcendental one operation), or the outputs' bytes
+    written once over HBM's rate, the larger."""
+    t_ops = (sum(ops["f64"].values()) / H100_FP64
+             + sum(ops["f32"].values()) / H100_FP32) * 1e3
+    t_bytes = out_bytes / H100_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ops_text(ops):
+    return ", ".join(f"{p} " + "/".join(str(v) for v in ops[p].values())
+                     for p in ("f64", "f32") if sum(ops[p].values()))
+
+
+def phase_analytic_kernels(dev, name):
+    """crossing_map<double> at example 07's 192^2, orders 0 and 1 in one
+    launch, and volume_seed<T, azm> on example 07's spot (f64 and f32,
+    with and without the azimuth) and example 11's torus (f64), each at
+    512^2, against their plain torch chains on the card; each kernel's
+    CUDA-event time (min of IMAGE_RUNS runs of ANALYTIC_REPS launches),
+    its plain chain's (host clock, synchronised), the launches and the
+    bound from the operations the run's pixels execute.  Returns the
+    kernels line's row of each main-path instance."""
+    from sim5_tpu_torch import geodesic as gd
+    from sim5_tpu_torch.render import image_grid, lightcurve
+    from sim5_tpu_torch.render import kernel_analytic as ka
+    ops_f = start_op_counts()
+    rows, main, parts = {}, {}, []
+    # the crossing map, both orders in one launch
+    a, incl, rmax, n = SPOT["a"], SPOT["incl"], 2.5 * SPOT["r_spot"], \
+        N_HOTSPOT
+    reset_analytic()
+    m, _ = synced_seconds(lambda: ka.crossing_maps(a, incl, n, rmax, (0, 1),
+                                                   dev))
+    check(analytic_launches()[ka.CROSSING] == 1, "the two orders' crossing "
+          f"map launched {ka.CROSSING} {analytic_launches()} times")
+    plain, plain_s = synced_seconds(lambda: [
+        lightcurve._crossing_map_unanchored(a, incl, n, rmax, o, dev)
+        for o in (0, 1)])
+    g = gd.geodesic_init_inf(incl, a, *image_grid(n, n, rmax, device=dev))
+    err, texts = 0.0, []
+    for j, p in enumerate(plain):
+        hit, tag = p["hit"], f"crossing map order {j}"
+        check(torch.equal(m["hit"][j], hit), f"{tag}: hit sets differ "
+              f"({int((m['hit'][j] != hit).sum())} pixels)")
+        far = far_bound(g, p["r"])
+        w_r = worst((m["r"][j] - p["r"]).abs(),
+                    1e-12 * p["r"].abs() + far, torch.ones_like(hit))
+        rel_r = float(((m["r"][j] - p["r"]).abs() / p["r"].abs()).max())
+        rel_g = float(((m["g"][j] - p["g"]).abs() / p["g"].abs())[hit].max())
+        check(w_r[0] <= 1.0 and rel_g <= 1e-12, f"{tag}: r {rel_r:.3e} "
+              f"relative ({w_r[0]:.3f} of 1e-12 + far_bound), g {rel_g:.3e} "
+              f"(gate 1e-12)")
+        for key in ("phi", "g", "dt"):
+            check(torch.equal(m[key][j][~hit], p[key][~hit]),
+                  f"{tag}: {key} of the pixels that are no hit")
+        w_phi = worst((m["phi"][j] - p["phi"]).abs(), phi_bound(g, p["phi"]),
+                      hit)
+        w_dt = worst((m["dt"][j] - p["dt"]).abs(),
+                     time_bound(g, p["dt"], lightcurve.R_FAR) + far, hit)
+        check(w_phi[0] <= 1.0 and w_dt[0] <= 1.0, f"{tag}: phi "
+              f"{w_phi[1]:.3e} ({w_phi[0]:.3f} of its bound), delay "
+              f"{w_dt[1]:.3e} ({w_dt[0]:.3f})")
+        err = max([err] + [float((m[k][j] - p[k]).abs()[hit].max())
+                           for k in ("r", "phi", "g")])
+        texts.append(f"order {j}: hit {float(hit.double().mean()):.4f}, r "
+                     f"{rel_r:.3e} ({w_r[0]:.3f} of its bound, max r "
+                     f"{float(p['r'][hit].max()):.4e}) g {rel_g:.3e} "
+                     f"relative, phi "
+                     f"{w_phi[1]:.3e} ({w_phi[0]:.3f} of bound), delay "
+                     f"{w_dt[1]:.3e} ({w_dt[0]:.3f})")
+    ms = event_runs(lambda: ka.crossing_maps(a, incl, n, rmax, (0, 1), dev),
+                    ANALYTIC_REPS)
+    rows[ka.CROSSING] = main[ka.CROSSING] = dict(
+        ms=ms[0], plain_ms=plain_s * 1e3, max_abs_err=err,
+        out_bytes=2 * n * n * 33, ops_key="crossing")
+    parts.append(f"{ka.CROSSING} {n}^2 orders 0 and 1, LAUNCHES=1: "
+                 f"{spread(ms)} ms (CUDA events, min / median / max of "
+                 f"{IMAGE_RUNS} runs of {ANALYTIC_REPS}), plain "
+                 f"{plain_s:.3f} s | "
+                 + "; ".join(texts))
+    # the seeds
+    f64_plain = {}
+    for case, cfg, dt, axi in SEED_CASES:
+        args = (cfg["a"], cfg["incl"], 0.0, N_VOL_PIX, cfg["rmax"],
+                cfg["r_start"], axi, dt)
+        v = ka.SEEDS[dt, not axi]
+        tag = f"{case} {v}"
+        reset_analytic()
+        (x0, k, ok), _ = synced_seconds(lambda: ka.volume_seed_rays(*args,
+                                                                    dev))
+        check(analytic_launches()[v] == 1, f"{tag}: launched "
+              f"{analytic_launches()}")
+        (px0, pk, pok), p_s = synced_seconds(
+            lambda: lightcurve._volume_seed_plain(*args, dev))
+        if dt == torch.float64:
+            f64_plain[case, axi] = (px0, pk, pok)
+            check(torch.equal(ok, pok), f"{tag}: valid sets differ "
+                  f"({int((ok != pok).sum())} pixels)")
+            check(torch.equal(x0[..., 0], px0[..., 0]), f"{tag}: t0")
+            gs = gd.geodesic_init_inf(cfg["incl"], cfg["a"], *image_grid(
+                N_VOL_PIX, N_VOL_PIX, cfg["rmax"], device=dev))
+            b_r, b_m, b_k = seed_bounds(gs, px0, pk)
+            ws = [worst((x0[..., c] - px0[..., c]).abs(), b, ok)
+                  for c, b in ((1, b_r), (2, b_m))]
+            ws += [worst((k[..., c] - pk[..., c]).abs(), b_k[..., c], ok)
+                   for c in range(4)]
+            check(max(w[0] for w in ws) <= 1.0, f"{tag}: r0, m0, k0-k3 "
+                  "against their bounds: " + ", ".join(
+                      f"{w[1]:.3e} ({w[0]:.3f})" for w in ws))
+            check(torch.equal(x0[~ok], px0[~ok]) and torch.equal(k[~ok],
+                                                                 pk[~ok]),
+                  f"{tag}: the invalid pixels' dummy ray")
+            text = ("r0, m0, k0-k3 " + ", ".join(
+                f"{w[1]:.3e} ({w[0]:.3f} of bound)" for w in ws))
+            if not axi:
+                w = worst((x0[..., 3] - px0[..., 3]).abs(),
+                          phi_bound(gs, px0[..., 3]), ok)
+                check(w[0] <= 1.0, f"{tag}: phi0 {w[1]:.3e} ({w[0]:.3f} of "
+                      f"its bound)")
+                text += f", phi0 {w[1]:.3e} ({w[0]:.3f} of bound)"
+            err = max(float((x0 - px0).abs()[ok].max()),
+                      float((k - pk).abs()[ok].max()))
+        else:
+            # against the f64 plain chain, no further than 2x the plain f32
+            # chain's own distance (+ 1e-6 of each field's scale): both
+            # share the f32 geometry's rounding (the quartic's roots, the
+            # inversions at r_start), the kernel differs by libm's ulps
+            wx0, wk, wok = f64_plain[case, axi]
+            mism = int((ok != wok).sum())
+            check(mism <= ok.numel() // 100 and int((ok != pok).sum())
+                  <= ok.numel() // 100, f"{tag}: valid sets differ on "
+                  f"{mism} pixels from the f64 chain's")
+            both = ok & wok & pok
+            ratio = 0.0
+            for got, pl, want in ((x0, px0, wx0), (k, pk, wk)):
+                for c in range(4):
+                    scale = float(want[..., c][both].abs().max()) or 1.0
+                    e_k = float((got[..., c].double() - want[..., c]).abs()
+                                [both].max())
+                    e_p = float((pl[..., c].double() - want[..., c]).abs()
+                                [both].max())
+                    check(e_k <= 2.0 * e_p + 1e-6 * scale, f"{tag}: field "
+                          f"{c} {e_k:.3e} from f64, the plain f32 {e_p:.3e}")
+                    ratio = max(ratio, e_k / (2.0 * e_p + 1e-6 * scale))
+            text = (f"vs the f64 chain {ratio:.3f} of its gate (2x the plain "
+                    f"f32's distance + 1e-6 of scale), valid sets differ on "
+                    f"{mism}")
+            err = max(float((x0.double() - px0.double()).abs()[ok & pok]
+                            .max()), float((k.double() - pk.double()).abs()
+                                           [ok & pok].max()))
+        ms = event_runs(lambda: ka.volume_seed_rays(*args, dev),
+                        ANALYTIC_REPS)
+        rows[tag] = dict(ms=ms[0], plain_ms=p_s * 1e3, max_abs_err=err,
+                         out_bytes=ok.numel() * (8 * x0.element_size() + 1),
+                         ops_key=(case, dt, axi))
+        if dt == torch.float64 and (case == "torus" or not axi):
+            main[v] = rows[tag]
+        parts.append(f"{tag} {N_VOL_PIX}^2, LAUNCHES=1: {spread(ms)} ms, plain "
+                     f"{p_s:.3f} s, valid {float(ok.double().mean()):.4f}, "
+                     f"{text}")
+    t0 = time.perf_counter()
+    ops = ops_f.result()
+    ops_wait = time.perf_counter() - t0
+    bounds = []
+    for key, row in rows.items():
+        row["bound_ms"], row["bound_by"] = analytic_bound(
+            ops[row["ops_key"]], row["out_bytes"])
+        bounds.append(f"{key}: {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                      f"{row['bound_ms'] / row['ms']:.3f} of the time; ops "
+                      f"add/mul/div/sqrt/transcendental "
+                      f"{ops_text(ops[row['ops_key']])})")
+    print(f"phase 28 analytic kernels vs their plain chains on the card "
+          f"({name}): " + " | ".join(parts) + " | bounds (counted "
+          f"operations over 34 / 67 TFLOP/s f64 / f32, or bytes over 3.35 "
+          f"TB/s; the counter waited {ops_wait:.2f} s): " + "; ".join(bounds),
+          flush=True)
+    return main
 
 
 # --- phases 16-18: the equatorial thin-disk products (the shadow of
@@ -4478,12 +4858,16 @@ def phase_checkpoints(dev, tmp, native_hash):
                             **volume_kw(VOL_SPOT, N_VOL_STACK))
 
     kernel_march.LAUNCHES.update(dict.fromkeys(kernel_march.LAUNCHES, 0))
+    reset_analytic()
     vshape = (N_VOL_STACK, N_VOL_STACK)
     t0 = time.perf_counter()
     vclean, _ = stack(os.path.join(tmp, "vol_clean.npz"), vol_frame,
                       VOL_STACK, vshape)
     vol_s = time.perf_counter() - t0
-    vol_launches = dict(kernel_march.LAUNCHES)
+    vol_launches = {**kernel_march.LAUNCHES, **analytic_launches()}
+    seed_v = seed_name(VOL_SPOT)
+    check(vol_launches[seed_v] == VOL_STACK, f"the volume stack launched "
+          f"{seed_v} {vol_launches[seed_v]} times, not {VOL_STACK}")
     vpath = os.path.join(tmp, "vol_stop.npz")
     vdone, _ = stack(vpath, vol_frame, VOL_STACK, vshape,
                      stop=VOL_STACK // 2)
@@ -4501,12 +4885,16 @@ def phase_checkpoints(dev, tmp, native_hash):
     # the checkpointed hot spot light curve: two chunks, one period apart
     hc = HOTSPOT_CK
     t_obs = np.arange(hc["n_t"]) / hc["n_t"] * 2 * period
+    reset_analytic()
     t0 = time.perf_counter()
     _, lc = hotspot_lightcurve_checkpointed(
         os.path.join(tmp, "lc.npz"), SPOT["a"], SPOT["incl"], SPOT["r_spot"],
         SPOT["size"], t_obs, npix=hc["npix"], n_orders=hc["n_orders"],
         chunk=hc["chunk"], device=dev)
     lc_s = time.perf_counter() - t0
+    lc_launches = analytic_launches()
+    check(lc_launches["crossing_map<double>"] == hc["n_t"] // hc["chunk"],
+          f"the checkpointed light curve launched {launched(lc_launches)}")
     half = hc["n_t"] // 2
     per_rel = float(np.abs(lc[half:] - lc[:half]).max() / lc[:half].min())
     check(bool(np.isfinite(lc).all() and (lc > 0).all()) and per_rel <= 1e-9,
@@ -4552,7 +4940,9 @@ def phase_checkpoints(dev, tmp, native_hash):
           f"LAUNCHES={launched(vol_launches)}; interrupted with {vdone} done, "
           f"resumed ({v_resumed} frames) bitwise | "
           f"hotspot_lightcurve_checkpointed ({hc['n_t']} times in chunks "
-          f"of {hc['chunk']}, {hc['npix']}^2, {hc['n_orders']} orders) {lc_s:.3f} s, chunks one period apart "
+          f"of {hc['chunk']}, {hc['npix']}^2, {hc['n_orders']} orders) "
+          f"{lc_s:.3f} s, LAUNCHES={launched(lc_launches)}, chunks one "
+          f"period apart "
           f"within {per_rel:.3e} (gate 1e-9) | external disk bridge: "
           f"tables {bridge_s:.3f} s, {N_BRIDGE}^2 image vs its twin "
           f"{b_rel:.3e} (gate 1e-5), footprints equal | native writer "
@@ -4916,11 +5306,21 @@ def phase_examples(dev):
     listed = sorted(n for n, _, _ in EXAMPLES)
     check(listed == sorted(p.name for p in root.glob("torch_*.py")),
           f"phase 26 lists {listed}")
+    from sim5_tpu_torch.render import kernel_analytic
+    # the analytic kernel each of these examples' paths launches
+    analytic = {"torch_07": kernel_analytic.CROSSING,
+                "torch_11": kernel_analytic.SEEDS[torch.float64, True],
+                "torch_12": kernel_analytic.CROSSING}
     parts = []
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="sim5_examples_") as tmp:
         for name, args, full in EXAMPLES:
+            reset_analytic()
             out, secs = run_example(name, args, full, dev, tmp)
+            v = analytic.get(name[:8])
+            n_v = analytic_launches()[v] if v else 0
+            check(v is None or n_v >= 1, f"{name}: {v} launched "
+                  f"{launched(analytic_launches())}")
             if name.startswith("torch_08"):
                 spectra = SpectralTable.open(os.path.join(tmp, args[0])).spectra
                 vals = spectra.ravel().tolist()
@@ -4931,7 +5331,8 @@ def phase_examples(dev):
                   f"{name}: {len(vals)} numbers, finite and not all zero "
                   f"expected")
             parts.append(f"{name[6:8]} {'full' if full else 'fast'} "
-                         f"{secs:.2f} s ({len(vals)} numbers)")
+                         f"{secs:.2f} s ({len(vals)} numbers"
+                         + (f", {v} {n_v}" if v else "") + ")")
     print(f"phase 26 examples on the card "
           f"({time.perf_counter() - t_phase:.1f} s): " + ", ".join(parts),
           flush=True)
@@ -5444,9 +5845,10 @@ def main():
             "11", phase_image_main, dev)
         image_t = run("12", phase_image_timing, dev, name, image_errs,
                       image_counts, lengths)
+        analytic_rows = run("28", phase_analytic_kernels, dev, name)
         run("13", phase_analytic, dev)
         orbit_launches, orbit_rows = run("14", phase_orbit_volume, dev, name)
-        run("15", phase_hotspot, dev)
+        hotspot = run("15", phase_hotspot, dev)
         run("16", phase_shadow, dev)
         run("17", phase_polarized, dev)
         run("18", phase_lineprofile, dev)
@@ -5510,6 +5912,22 @@ def main():
                             "jax.grad (XLA autodiff; no Pallas kernel)")
     for dt, r in grad_rows.items():
         rows.append((r["name"], jvp_src, r["launches"], r))
+    # the analytic kernels, each with the launches of its main path: the
+    # light curve's entry point (phase 15), the orbiting spot's image
+    # (phase 14) and the torus's (phase 7)
+    from sim5_tpu_torch.render import kernel_analytic as ka
+    rows.append((ka.CROSSING, dict(
+        route="cuda", source="sim5_tpu_torch/csrc/crossing_map.cu",
+        replaces="sim5_tpu/render/lightcurve.py:33 (the XLA program "
+                 "equatorial_crossing_map; no Pallas kernel)"),
+        hotspot["launches"], analytic_rows[ka.CROSSING]))
+    seed_src = dict(route="cuda", source="sim5_tpu_torch/csrc/volume_seed.cu",
+                    replaces="sim5_tpu/render/lightcurve.py:113, 127, 138 "
+                             "(the XLA programs _volume_seed_geom, _azm, "
+                             "_pack; no Pallas kernel)")
+    for v, n in ((seed_name(VOL_SPOT), orbit_launches[seed_name(VOL_SPOT)]),
+                 (seed_name(VOL), vol_launches[seed_name(VOL)])):
+        rows.append((v, seed_src, n, analytic_rows[v]))
     print(json.dumps({"kernels": [{
         "name": v, **src, "launches": n, "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -10,7 +10,7 @@ spill report (`-Xptxas -v`) is kept beside the library as
 writes at run time (a march library for traced emission models,
 `march/model_trace.py`) under `build/sim5_tpu_torch/gen/`, against the
 headers of `csrc/`.  `load_host` builds a host C++ source (the native IO
-runtime) the same way with g++.
+runtime, the analytic kernels' operation counter) the same way with g++.
 
 No fast math: the kernels use the IEEE-accurate cosf, sqrtf and division.
 """
@@ -69,10 +69,12 @@ def load_generated(name, source):
                  sorted(CSRC.glob("*.cuh")), GEN_DIR)
 
 
-def load_host(name, src, compiler):
+def load_host(name, src, compiler, headers=()):
     """Build (if needed) and load the C++ file `src` with the host compiler
-    `compiler` (a path to g++) and HOST_FLAGS, as library `name`."""
-    return _load(name, [compiler], HOST_FLAGS, pathlib.Path(src), [])
+    `compiler` (a path to g++) and HOST_FLAGS, as library `name`; the
+    library's name hashes `headers` too (the files `src` includes)."""
+    return _load(name, [compiler], HOST_FLAGS, pathlib.Path(src),
+                 list(headers))
 
 
 def _load(name, cmd, flags, src, headers, out_dir=BUILD_DIR):

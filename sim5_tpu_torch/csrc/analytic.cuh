@@ -1,6 +1,6 @@
 // The analytic geodesic engine of one ray, for one thread: the device
 // functions that the disk image kernel (disk_image.cu) runs per pixel, and
-// that a fused volume-seed kernel can reuse.
+// that the crossing-map and volume-seed kernels build on (azimuth.cuh).
 //
 // Each function is the per-lane form of its plain torch version in
 // sim5_tpu_torch (named beside it): the same operations in the same order,
@@ -103,6 +103,11 @@ SIM5_HD bool IsFinite(T x) {
   return std::isfinite(x);
 #endif
 }
+
+// whether T computes in f32 (the f32 rescale of quartic_roots and the f32
+// tolerances): float; a host build's counting scalar specializes it
+template <typename T>
+struct IsF32 : std::is_same<T, float> {};
 
 template <typename T>
 SIM5_HD T Nan() {
@@ -491,7 +496,7 @@ SIM5_HD int quartic_roots(T a3, T a2, T a1, T a0, T re[4], T im[4]) {
   T r = a0 - a3 * a1 / T(4) + a3 * a3 * a2 / T(16) -
         T(3) * Pow(a3, T(4)) / T(256);
   T lam = T(1);
-  if (std::is_same<T, float>::value) {
+  if (IsF32<T>::value) {
     // exact power-of-two rescale into the f32 exponent range
     int e = floordiv(exponent(p) + 1, 2);
     const int eq = floordiv(exponent(q) + 2, 3);

@@ -14,6 +14,11 @@ Port of `sim5_tpu/render/lightcurve.py`.
   accumulating I = int j e^{-tau} dl with tau = int alpha dl toward the
   observer.
 
+On the card the crossing maps and the seed are kernels, one pixel a
+thread (`kernel_analytic`: `crossing_map<double>`, `volume_seed<T,
+azm>`); on the CPU, and for inputs that require grad, their plain torch
+chains (`_kernel_route`).
+
 Three march engines:
 
 * "loop" (the JAX package's "xla"): a torch loop over `raytrace_step` in
@@ -54,13 +59,49 @@ def equatorial_crossing_map(a, incl, npix, rmax, order=0, device=None):
     """For every image-plane pixel, the equatorial crossing of `order`
     (0 the direct image, 1 the first orbiting one): a dict of (npix, npix)
     tensors r, phi, g (the Keplerian g-factor), delay (the relative time
-    delay) and hit (the mask), and the scalar pixel_area.
+    delay) and hit (the mask), and the scalar pixel_area.  `order` may be
+    a sequence of orders, the order axis: the tensors are then (n_orders,
+    npix, npix), each order's map that of its own call.
 
     phi follows geodesic_position_azm (angle change from infinity); delays
-    are relative to the earliest-arriving hit pixel.  Crossings inside the
-    marginally stable orbit, where there is no circular orbit, are no hit.
-    The map is f64, as the JAX function's; `device=None` means the card.
+    are relative to the earliest-arriving hit pixel of their order.
+    Crossings inside the marginally stable orbit, where there is no
+    circular orbit, are no hit.  The map is f64, as the JAX function's;
+    `device=None` means the card.
+
+    On the card, with no input that requires grad, one launch of the
+    crossing-map kernel computes every order (`kernel_analytic`); with an
+    input that requires grad, and on the CPU, the plain torch chain
+    (`_crossing_map_unanchored`) computes each order, under autograd: the
+    kernel has no derivative.  Each order's map is, bitwise, that of
+    `equatorial_crossing_map_reference`.
     """
+    dev = default_device(device)
+    single = np.ndim(order) == 0
+    orders = (int(order),) if single else tuple(int(o) for o in order)
+    if _kernel_route(dev, a, incl, rmax):
+        from . import kernel_analytic
+        m = kernel_analytic.crossing_maps(a, incl, npix, rmax, orders, dev)
+    else:
+        maps = [_crossing_map_unanchored(a, incl, npix, rmax, o, dev)
+                for o in orders]
+        m = {k: torch.stack([mo[k] for mo in maps]) for k in maps[0]}
+    # the anchor: one masked reduction an order, outside the kernel, as the
+    # JAX program computes it outside any Pallas kernel (the minimum is
+    # exact: each order's bits are those of its own plain map)
+    dt = m["dt"] - torch.amin(torch.where(m["hit"], m["dt"], math.inf),
+                              dim=(-2, -1), keepdim=True)
+    out = dict(r=m["r"], phi=m["phi"], g=m["g"], delay=dt, hit=m["hit"])
+    if single:
+        out = {k: v[0] for k, v in out.items()}
+    out["pixel_area"] = (2.0 * rmax / npix) ** 2
+    return out
+
+
+def _crossing_map_unanchored(a, incl, npix, rmax, order=0, device=None):
+    """The plain torch chain of one order's crossing map: a dict of
+    (npix, npix) f64 tensors r, phi, g, dt (the delay before its
+    anchoring) and hit; the crossing-map kernel's plain version."""
     alpha, beta = image_grid(npix, npix, rmax, dtype=torch.float64,
                              device=default_device(device))
     g = geodesic_init_inf(incl, a, alpha, beta)
@@ -90,9 +131,24 @@ def equatorial_crossing_map(a, incl, npix, rmax, order=0, device=None):
                                  P_far, r_far, m_far)
     dt = dt + (alpha ** 2 + beta ** 2) / (2.0 * R_FAR)
     dt = torch.where(hit & torch.isfinite(dt), dt, 0.0)
+    return dict(r=r_s, phi=phi, g=gf, dt=dt, hit=hit)
+
+
+def equatorial_crossing_map_reference(a, incl, npix, rmax, order=0,
+                                      device=None):
+    """The plain torch version of `equatorial_crossing_map` for one order,
+    on `device` (the card unless the caller asks for the CPU),
+    differentiable: the chain, then the anchor."""
+    m = _crossing_map_unanchored(a, incl, npix, rmax, order, device)
+    hit, dt = m["hit"], m["dt"]
     dt = dt - torch.min(torch.where(hit, dt, math.inf))
-    return dict(r=r_s, phi=phi, g=gf, delay=dt, hit=hit,
+    return dict(r=m["r"], phi=m["phi"], g=m["g"], delay=dt, hit=hit,
                 pixel_area=(2.0 * rmax / npix) ** 2)
+
+
+def crossing_order(m, k):
+    """Order k's map of an `equatorial_crossing_map` with the order axis."""
+    return {key: v if key == "pixel_area" else v[k] for key, v in m.items()}
 
 
 def hotspot_lightcurve(a, incl, r_spot, spot_size, t_obs, npix=256,
@@ -104,7 +160,9 @@ def hotspot_lightcurve(a, incl, r_spot, spot_size, t_obs, npix=256,
 
     t_obs: observer times [GM/c^3].  Returns the flux at each, (n_t,) f64
     (arbitrary units, normalized to spot intensity 1), on `device` (the
-    card unless the caller asks for the CPU).
+    card unless the caller asks for the CPU).  The crossing maps of all
+    orders are one `equatorial_crossing_map` call (one kernel launch on
+    the card).
     """
     if rmax is None:
         rmax = r_spot * 2.5
@@ -112,9 +170,11 @@ def hotspot_lightcurve(a, incl, r_spot, spot_size, t_obs, npix=256,
     Om = OmegaK(torch.as_tensor(r_spot, dtype=torch.float64, device=dev), a)
     t = torch.as_tensor(np.asarray(t_obs, dtype=np.float64), device=dev)
     total = torch.zeros_like(t)
+    maps = equatorial_crossing_map(a, incl, npix, rmax, range(n_orders),
+                                   device=dev)
     for order in range(n_orders):
-        m = equatorial_crossing_map(a, incl, npix, rmax, order, device=dev)
-        total = total + spot_flux(m, Om, r_spot, spot_size, t)
+        total = total + spot_flux(crossing_order(maps, order), Om, r_spot,
+                                  spot_size, t)
     return total
 
 
@@ -154,9 +214,9 @@ def _volume_seed_azm(g, ok, P0s, r0, m0):
                                  torch.where(ok, m0, 0.0), P0s).to(r0.dtype)
 
 
-def _volume_seed_pack(g, ok, P0s, r0, m0, phi0, a, t0, r_start, precision):
-    """March state of the seeded rays (and the valid mask): invalid pixels
-    get a finite dummy ray that `ok` keeps inactive."""
+def _volume_seed_rays(g, ok, P0s, r0, m0, phi0, t0, r_start):
+    """The seeded rays (x0, k) and the valid mask: invalid pixels get a
+    finite dummy ray that `ok` keeps inactive."""
     ok = ok & torch.isfinite(r0) & torch.isfinite(m0) & torch.isfinite(phi0)
     r0 = torch.where(ok, r0, r_start)
     m0 = torch.where(ok, m0, 0.0)
@@ -169,22 +229,53 @@ def _volume_seed_pack(g, ok, P0s, r0, m0, phi0, a, t0, r_start, precision):
         [torch.ones_like(r0), -torch.ones_like(r0), torch.zeros_like(r0),
          torch.zeros_like(r0)], -1))
     x0 = torch.stack([torch.full_like(r0, t0), r0, m0, phi0], -1)
-    st = raytrace_prepare(a, x0, k, precision=precision)
-    return st, ok
+    return x0, k, ok
+
+
+def _volume_seed_plain(a, incl, t0, npix, rmax, r_start, axisymmetric,
+                       dtype, device):
+    """The plain torch chain of the seed's rays: (x0, k, ok), as the
+    volume-seed kernel writes them (its plain version)."""
+    g, ok, P0s, r0, m0 = _volume_seed_geom(a, incl, npix, rmax, r_start,
+                                           dtype, default_device(device))
+    phi0 = (torch.zeros_like(r0) if axisymmetric
+            else _volume_seed_azm(g, ok, P0s, r0, m0))
+    return _volume_seed_rays(g, ok, P0s, r0, m0, phi0, t0, r_start)
+
+
+def _volume_seed_reference(a, incl, t0, npix, rmax, r_start, precision,
+                           axisymmetric=False, dtype=torch.float64,
+                           device=None):
+    """The plain torch version of `_volume_seed`, differentiable: the
+    plain rays (geometry, azimuth, packing; axisymmetric=True starts every
+    ray at phi = 0 and skips the azimuth, see volume_image), then
+    raytrace_prepare."""
+    x0, k, ok = _volume_seed_plain(a, incl, t0, npix, rmax, r_start,
+                                   axisymmetric, dtype, device)
+    return raytrace_prepare(a, x0, k, precision=precision), ok
 
 
 def _volume_seed(a, incl, t0, npix, rmax, r_start, precision,
                  axisymmetric=False, dtype=torch.float64, device=None):
     """Seed every pixel's ray on its analytic geodesic at r = r_start:
-    returns (march state, valid mask).  Three stages: geometry, azimuth
-    and packing; axisymmetric=True starts every ray at phi = 0 and skips
-    the azimuth stage (see volume_image)."""
-    g, ok, P0s, r0, m0 = _volume_seed_geom(a, incl, npix, rmax, r_start,
-                                           dtype, default_device(device))
-    phi0 = (torch.zeros_like(r0) if axisymmetric
-            else _volume_seed_azm(g, ok, P0s, r0, m0))
-    return _volume_seed_pack(g, ok, P0s, r0, m0, phi0, a, t0, r_start,
-                             precision)
+    returns (march state, valid mask).  axisymmetric=True starts every ray
+    at phi = 0 and computes no azimuth (see volume_image).
+
+    On the card, with no input that requires grad, one launch of the
+    volume-seed kernel writes the rays (`kernel_analytic`), and
+    raytrace_prepare makes the state; with an input that requires grad
+    (the scan engine's gradients), and on the CPU, the plain torch chain
+    (`_volume_seed_reference`), under autograd: the kernel has no
+    derivative."""
+    dev = default_device(device)
+    if not _kernel_route(dev, a, incl, t0, rmax, r_start):
+        return _volume_seed_reference(a, incl, t0, npix, rmax, r_start,
+                                      precision, axisymmetric=axisymmetric,
+                                      dtype=dtype, device=dev)
+    from . import kernel_analytic
+    x0, k, ok = kernel_analytic.volume_seed_rays(
+        a, incl, t0, npix, rmax, r_start, axisymmetric, dtype, dev)
+    return raytrace_prepare(a, x0, k, precision=precision), ok
 
 
 def _transfer_step(st, I, tau, active, emissivity_fn, absorption_fn, r_min,
@@ -278,6 +369,14 @@ def _requires_grad(*vals):
                for t in fields):
             return True
     return False
+
+
+def _kernel_route(device, *vals):
+    """Whether an analytic entry point (the crossing map, the seed) runs
+    its kernel: on the card, with no input among `vals` that requires
+    grad.  Otherwise it runs the plain torch chain, under autograd: the
+    kernels have no derivative."""
+    return device.type == "cuda" and not _requires_grad(*vals)
 
 
 def _as_f32(st):

@@ -21,14 +21,16 @@ from sim5_tpu_torch.core import kerr_metric, tetrad_zamo, on2bl
 from sim5_tpu_torch.march import (raytrace_prepare, kernel_march,
                                   RTOPT_POLARIZATION)
 from sim5_tpu_torch.march.emission import GaussianSource
-from sim5_tpu_torch.render import kernel_image
+from sim5_tpu_torch.render import kernel_analytic, kernel_image
 
 # C parameter types of the launchers -> the ctypes type the wrapper must use
 C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
            "float": ctypes.c_float, "double": ctypes.c_double}
 # every CUDA library's declared signatures, by function
 SIGNATURES = {**kernel_march.SIGNATURES, **kernel_image.SIGNATURES,
-              **kernel_image.JVP_SIGNATURES}
+              **kernel_image.JVP_SIGNATURES,
+              **kernel_analytic.CROSSING_SIGNATURES,
+              **kernel_analytic.SEED_SIGNATURES}
 
 
 def _extern_c_functions():
