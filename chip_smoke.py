@@ -239,22 +239,31 @@ models (`sim5_tpu_torch/march/model_trace.py`) into
     unsupported op and data-dependent control flow refused on the card
     before any build or launch;
 28. (run before 13) the analytic engine's kernels against their plain
-    torch chains on the card: crossing_map<double> at example 07's 192^2,
-    orders 0 and 1 in one launch (hit sets equal; g 1e-12 relative; r
-    1e-12 relative + `far_bound`, the far field's r^2 dP with dP 32 ulps
-    of Tpp + |Tip|, which order 1's crossings at r ~ 1e4-1e5 need; phi and the delay within `phi_bound` /
+    torch chains on the card, each two passes over a work list: the
+    crossing map (crossing_classify<double>, crossing_hits<double>) at
+    example 07's 192^2, orders 0 and 1 in one launch of each pass (hit sets
+    equal; g 1e-12 relative; r 1e-12 relative + `far_bound`, the far
+    field's r^2 dP with dP 32 ulps of Tpp + |Tip|, which order 1's
+    crossings at r ~ 1e4-1e5 need; phi and the delay within `phi_bound` /
     `time_bound` (+ `far_bound`); the pixels that are no hit exactly the
-    plain chain's); volume_seed<T, azm> on example
-    07's spot at 512^2 in f64 and f32, with and without the azimuth, and
-    on example 11's torus (f64, axisymmetric): f64 valid sets equal, r0,
-    m0 and k within `seed_bounds` (1e-12 of max(|v|, 1e-3 of the field's
-    peak), and the square root's spread where k^r or k^theta passes
-    through 0), phi0 within `phi_bound`, the dummy rays exact; f32 against the f64 chain no
-    further than 2x the plain f32 chain's own distance + 1e-6 of each
-    field's scale, valid sets within 1% of the pixels; each kernel's
-    CUDA-event time, its plain chain's and its bound from the operations
-    its pixels execute (counted on the host's cores beside the phase by
-    `kernel_analytic.operation_counts`).
+    plain chain's); the seed (seed_geometry<T, azm>, seed_azimuth<T>) on
+    example 07's spot at 512^2 in f64 and f32, with and without the
+    azimuth, and on example 11's torus (f64, axisymmetric): f64 valid sets
+    equal, r0, m0 and k within `seed_bounds` (1e-12 of max(|v|, 1e-3 of the
+    field's peak), and the square root's spread where k^r or k^theta passes
+    through 0), phi0 within `phi_bound`, the dummy rays exact; f32 against
+    the f64 chain no further than 2x the plain f32 chain's own distance +
+    1e-6 of each field's scale, valid sets within 1% of the pixels; every
+    output bitwise the same from run to run; each kernel's CUDA-event time,
+    each pass's on the card (torch.profiler), its plain chain's, its bound
+    from the operations its pixels execute (counted on the host's cores
+    beside the phase by `kernel_analytic.operation_counts`, at Carlson's
+    rule and at the fixed depth of the one-pass kernels before them) and
+    its FP64 issue-slot bound (the FP64-pipe instructions of each
+    operation's SASS); a crossing map past 2^26 pixels and orders, bitwise
+    from run to run; then the counted instances of the two passes
+    (`kernel_analytic.counted_run`: per stage warps, lanes and cycles, per
+    Carlson chain its levels), their outputs bitwise the kernels'.
 
 Then one JSON line on the kernels, the card's name and power limit, and
 the result as the last line.  Any failed check exits non-zero.  The script
@@ -276,6 +285,21 @@ grad (host clock, synchronised), its backward alone and forward mode on
 the headline frame, f64 and f32 (CUDA events); it hashes the tangents of
 forward mode beside them and prints whether the two trees' are bitwise
 equal.
+
+    python3 chip_smoke.py --compare-analytic DIR
+
+times the analytic kernels of the checkout at DIR and of this one, each in
+its own process, in turns (DIR, this, this, DIR): the crossing map and the
+five seeds of phase 28 (CUDA events) and hotspot_lightcurve's entry point
+(host clock, synchronised); it prints the largest distance between the
+two trees' outputs.
+
+    python3 chip_smoke.py --tune-analytic
+
+builds the crossing map's and the seed's libraries with one pass at each
+of TUNE_ANALYTIC's (threads a block, minimum blocks an SM) pairs, eight
+builds at a time, and times each (about 5 minutes): what the committed
+kClassify*, kHit*, kGeom* and kAzm* constants were chosen by.
 
     python3 chip_smoke.py --tune-tangent
 
@@ -582,6 +606,11 @@ def sass_counts(lib_path, instance=INSTANCE,
     return counts
 
 
+# the SASS opcodes that issue to the FP64 and to the FP32 pipe
+FP64_PIPE = ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX")
+FP32_PIPE = ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL", "FCHK")
+
+
 def image_sass_summary(counts):
     """Static SASS counts of each disk image instance: all, FP64, FP32,
     MUFU, CALL, and local loads and stores."""
@@ -589,9 +618,8 @@ def image_sass_summary(counts):
         return "not measured (no cuobjdump)"
     out = []
     for name, c in sorted(counts.items()):
-        fp64 = sum(c[o] for o in ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX"))
-        fp32 = sum(c[o] for o in ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP",
-                                  "FSEL", "FCHK"))
+        fp64 = sum(c[o] for o in FP64_PIPE)
+        fp32 = sum(c[o] for o in FP32_PIPE)
         out.append(f"{name}: {sum(c.values())} instructions, FP64 {fp64}, "
                    f"FP32 {fp32}, MUFU {c['MUFU']}, CALL {c['CALL']}, BRA "
                    f"{c['BRA']}, LDL {c['LDL']}, STL {c['STL']}")
@@ -620,6 +648,10 @@ K1(op_sin, sin(x) + y)
 K1(op_cos, cos(x) + y)
 K1(op_acos, acos(x) + y)
 K1(op_log1p, log1p(x) + y)
+K1(op_log, log(x) + y)
+K1(op_asin, asin(x) + y)
+K1(op_atan, atan(x) + y)
+K1(op_atanh, atanh(x) + y)
 K1(op_pow, pow(x, y))
 K1(op_frexp, fr(x) + y)
 K1(op_ldexp, ldexp(x, (int)y))
@@ -631,9 +663,11 @@ def op_lengths():
     and transcendental the image kernel calls, built as the kernel is
     (sm_90a, --fmad=false, no fast math): a one-function kernel's
     instructions before its EXIT, less those of x + y (plus one for the
-    binary ones, which replace the add).  An out-of-line slow path after
-    EXIT is not counted; one inlined and branched over is.  {} without
-    cuobjdump."""
+    binary ones, which replace the add); and {(op, t, "pipe"): n} the same
+    of its instructions that issue to the FP64 pipe (t 'd': FP64_PIPE) or
+    the FP32 pipe ('f': FP32_PIPE).  An out-of-line slow path after EXIT
+    is not counted; one inlined and branched over is (so a length counts
+    the slow path's instructions too).  {} without cuobjdump."""
     from sim5_tpu_torch import _build
     tool = _cuobjdump()
     if tool is None:
@@ -648,21 +682,28 @@ def op_lengths():
                    timeout=300)
     text = subprocess.run([tool, "-sass", str(cubin)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    raw, cur = {}, None
+    raw, pipe, cur = {}, {}, None
     for ln in text.splitlines():
         if "Function :" in ln:
             m = re.search(r"op_(\w+?)I([df])E", ln)
             cur = (m[1], m[2]) if m else None
             if cur:
-                raw[cur] = 0
+                raw[cur] = pipe[cur] = 0
         elif cur is not None:
             op = SASS_OP.match(ln)
             if op and op[1].startswith("EXIT"):
                 cur = None
             elif op:
                 raw[cur] += 1
-    return {(op, t): n - raw[("base", t)] + (op in ("div", "pow", "ldexp"))
-            for (op, t), n in raw.items() if op != "base"}
+                pipe[cur] += op[1].split(".")[0] in (
+                    FP64_PIPE if cur[1] == "d" else FP32_PIPE)
+    out = {}
+    for (op, t), n in raw.items():
+        if op != "base":
+            one = op in ("div", "pow", "ldexp")
+            out[op, t] = n - raw[("base", t)] + one
+            out[op, t, "pipe"] = pipe[op, t] - pipe[("base", t)] + one
+    return out
 
 
 def sass_summary(counts, key):
@@ -838,8 +879,13 @@ def phase_device():
     # phase 21) goes on building beside the phases (`tangent_build`)
     from sim5_tpu_torch.render import kernel_analytic
     t0 = time.perf_counter()
-    pool = concurrent.futures.ThreadPoolExecutor(7)
+    pool = concurrent.futures.ThreadPoolExecutor(9)
     BACKGROUND["tangent"] = pool.submit(kernel_image._jvp_lib)
+    # the analytic kernels' counted instances (phase 28) build beside the
+    # phases too
+    BACKGROUND["analytic_counted"] = [
+        pool.submit(kernel_analytic._lib, f"{n}_counted")
+        for n in ("crossing_map", "volume_seed")]
     futs = [pool.submit(kernel_march._lib), pool.submit(kernel_image._lib),
             pool.submit(op_lengths),
             pool.submit(kernel_analytic._lib, "crossing_map"),
@@ -870,22 +916,27 @@ def phase_device():
           + f" | image: {kernel_image.kernel_config()}; {image_att} | image "
           f"ptxas: " + ptxas_summary(bi["log"], IMAGE_INSTANCE, image_label)
           + f" | image SASS (static): {image_sass_summary(image_sass)} | SASS "
-          f"lengths (f64 d, f32 f): "
-          + (", ".join(f"{op}_{t} {n}" for (op, t), n in sorted(
-              lengths.items())) or "not measured (no cuobjdump)")
+          f"lengths (f64 d, f32 f; all instructions / those of the FP "
+          f"pipe): "
+          + (", ".join(f"{k[0]}_{k[1]} {n}/{lengths[(*k, 'pipe')]}"
+                       for k, n in sorted(lengths.items()) if len(k) == 2)
+             or "not measured (no cuobjdump)")
           + f" | analytic kernels: {analytic_build_text()}", flush=True)
     return name, lengths
 
 
-# the analytic kernels' entry functions in the ptxas report
+# the analytic kernels' entry functions in the ptxas report (their passes)
 ANALYTIC_INSTANCE = re.compile(
-    r"(crossing_map)|volume_seedI([df])Lb([01])E")
+    r"(crossing_classify)|(crossing_hits)|seed_geometryI([df])Lb([01])E|"
+    r"seed_azimuthI([df])")
 
 
 def analytic_label(m):
-    return ("crossing_map<double>" if m[1] else
-            f"volume_seed<{'double' if m[2] == 'd' else 'float'}, "
-            f"{'true' if m[3] == '1' else 'false'}>")
+    t = {"d": "double", "f": "float"}
+    return ("crossing_classify<double>" if m[1] else
+            "crossing_hits<double>" if m[2] else
+            f"seed_geometry<{t[m[3]]}, {'true' if m[4] == '1' else 'false'}>"
+            if m[3] else f"seed_azimuth<{t[m[5]]}>")
 
 
 def analytic_build_text():
@@ -896,16 +947,23 @@ def analytic_build_text():
     from sim5_tpu_torch.render import kernel_analytic as ka
     parts = [f"{n} {BUILDS[n]['seconds']:.2f} s cached={BUILDS[n]['cached']}"
              for n in ("crossing_map", "volume_seed", "analytic_ops")]
+    return (", ".join(parts) + f" | {ka.MAX_ORDERS} orders a launch at "
+            f"most | {analytic_attributes_text()}")
+
+
+def analytic_attributes_text():
+    """Each analytic pass's registers, local memory and resident blocks,
+    and the compiler's registers, stack and spills of each."""
+    from sim5_tpu_torch._build import BUILDS
+    from sim5_tpu_torch.render import kernel_analytic as ka
     atts = "; ".join(
         f"{v}: {att['registers']} registers, {att['local_bytes']} bytes "
-        f"local, {att['blocks_per_sm']} blocks an SM"
-        for v, att in ((v, ka.kernel_attributes(v))
-                       for v in (ka.CROSSING, *ka.SEEDS.values())))
+        f"local, {att['blocks_per_sm']} blocks of {att['threads']} an SM"
+        for v, att in ((v, ka.kernel_attributes(v)) for v in ka.LAUNCHES))
     reports = "; ".join(
         ptxas_summary(BUILDS[n]["log"], ANALYTIC_INSTANCE, analytic_label)
-        for n in ("crossing_map", "volume_seed"))
-    return (", ".join(parts) + f" | {ka.MAX_ORDERS} orders a launch at "
-            f"most | {atts} | ptxas: {reports}")
+        for n in ("crossing_map", "volume_seed") if n in BUILDS)
+    return f"{atts} | ptxas: {reports}"
 
 
 def tangent_build():
@@ -1302,7 +1360,7 @@ def volume_main(dev, cfg=VOL, source=None):
     gate)."""
     from sim5_tpu_torch.march import kernel_march
     from sim5_tpu_torch.march.emission import is_family
-    from sim5_tpu_torch.render import lightcurve, volume_image
+    from sim5_tpu_torch.render import kernel_analytic, lightcurve, volume_image
     source = source or torus
     images, launches, march, parts = {}, {}, {}, []
     seed_v = seed_name(cfg)
@@ -1321,6 +1379,8 @@ def volume_main(dev, cfg=VOL, source=None):
         check(seeds[seed_v] == 1, f"alpha0={alpha0}: the image's seed "
               f"launched {launched(seeds)}, not {seed_v} once")
         launches[seed_v] = seeds[seed_v]
+        for pv in kernel_analytic.PASSES[seed_v]:
+            launches[pv] = seeds[pv]
         march_ms = sum(e0.elapsed_time(e1) for e0, e1 in events)
         traced = not is_family(source(), source(alpha0))
         variant = kernel_march.VARIANTS[(1 if alpha0 == 0.0 else 2)
@@ -2233,7 +2293,7 @@ def phase_hotspot(dev):
           f"{lcn.max():.6e} (modulation {lcn.max() / lcn.min():.3f}x), one "
           f"period apart within {per_rel:.3e} (gate 1e-9)", flush=True)
     return dict(map_s=map_s, lc_s=lc_s, entry_s=entry_s, big_s=big_s,
-                launches=entry_launches[v])
+                launches=entry_launches)
 
 
 # --- phase 28: the analytic engine's kernels (csrc/crossing_map.cu,
@@ -2241,6 +2301,12 @@ def phase_hotspot(dev):
 
 ANALYTIC_REPS = 2        # launches between two CUDA events (phase 28)
 OPS_THREADS = 6          # host threads of the operation counter
+# bytes of a listed pixel's entry in the work buffer (its geodesic's 27
+# scalars and 3 ints and its position: csrc/crossing_map.cu's HitGeom,
+# csrc/volume_seed.cu's SeedGeom<T>), written by the first pass and read
+# by the second
+HIT_ENTRY_BYTES = 29 * 8 + 12
+SEED_ENTRY_BYTES = {torch.float64: 28 * 8 + 12, torch.float32: 28 * 4 + 12}
 # the seeds phase 28 holds against their plain chain: example 07's spot
 # with and without the azimuth in f64 and f32, and example 11's torus
 # (axisymmetric, f64), each at N_VOL_PIX^2
@@ -2259,9 +2325,15 @@ def reset_analytic():
 
 
 def analytic_launches():
-    """The analytic kernels' launch counts since the last reset."""
+    """The analytic kernels' launch counts since the last reset: each
+    pass's, and each kernel's (kernel_analytic.PASSES) where each of its
+    passes launched as many times, else -1."""
     from sim5_tpu_torch.render import kernel_analytic
-    return dict(kernel_analytic.LAUNCHES)
+    counts = dict(kernel_analytic.LAUNCHES)
+    for kernel, passes in kernel_analytic.PASSES.items():
+        n = {counts[p] for p in passes}
+        counts[kernel] = n.pop() if len(n) == 1 else -1
+    return counts
 
 
 def seed_name(cfg, dtype=torch.float64):
@@ -2318,18 +2390,27 @@ def synced_seconds(fn):
 def start_op_counts():
     """Phase 28's launches' operation counts (kernel_analytic.
     operation_counts: the kernels' pixels on a counting scalar on the
-    host's cores), in a thread beside the card's work: a future of
-    {key: {precision: {kind: count}}}."""
+    host's cores) at Carlson's rule, the kernels' depth, and for the crossing
+    map and the f64 seed with the azimuth also at the fixed depth of PR
+    14's kernels, in a thread beside the card's work: a future of {key:
+    counts}, key ("crossing", adaptive) or (case, dtype, axisymmetric,
+    adaptive)."""
     def run():
         from sim5_tpu_torch.render import kernel_analytic as ka
-        out = {"crossing": ka.operation_counts(
-            "crossing", SPOT["a"], SPOT["incl"], N_HOTSPOT,
-            2.5 * SPOT["r_spot"], (0, 1), threads=OPS_THREADS)[0]}
+        out = {}
+        for adaptive in (True, False):
+            out["crossing", adaptive] = ka.operation_counts(
+                "crossing", SPOT["a"], SPOT["incl"], N_HOTSPOT,
+                2.5 * SPOT["r_spot"], (0, 1), threads=OPS_THREADS,
+                adaptive=adaptive)[0]
         for case, cfg, dt, axi in SEED_CASES:
-            out[case, dt, axi] = ka.operation_counts(
-                "seed", cfg["a"], cfg["incl"], N_VOL_PIX, cfg["rmax"],
-                r_start=cfg["r_start"], dtype=dt, axisymmetric=axi,
-                threads=OPS_THREADS)[0]
+            for adaptive in ((True, False) if (dt == torch.float64 and not axi
+                                               and case == "spot")
+                             else (True,)):
+                out[case, dt, axi, adaptive] = ka.operation_counts(
+                    "seed", cfg["a"], cfg["incl"], N_VOL_PIX, cfg["rmax"],
+                    r_start=cfg["r_start"], dtype=dt, axisymmetric=axi,
+                    threads=OPS_THREADS, adaptive=adaptive)[0]
         return out
     pool = concurrent.futures.ThreadPoolExecutor(1)
     fut = pool.submit(run)
@@ -2340,12 +2421,34 @@ def start_op_counts():
 def analytic_bound(ops, out_bytes):
     """(ms, "operations" or "bytes"): the counted operations of each
     precision over its peak rate (each addition, multiplication, division,
-    square root and transcendental one operation), or the outputs' bytes
-    written once over HBM's rate, the larger."""
+    square root and transcendental one operation), or the bytes written
+    once and read once over HBM's rate, the larger."""
     t_ops = (sum(ops["f64"].values()) / H100_FP64
              + sum(ops["f32"].values()) / H100_FP32) * 1e3
     t_bytes = out_bytes / H100_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def issue_bound(ops, fns, lengths):
+    """ms of the counted operations as issue slots of the FP64 (FP32)
+    pipe: an addition or multiplication one instruction, a division,
+    square root or transcendental the instructions of its SASS sequence
+    that issue to that pipe (op_lengths' "pipe" counts: not its MUFU
+    seed, integer, predicate or branch instructions; but those of an
+    inlined slow path it branches over, which the pipe may not issue), at
+    half the peak FLOP rate (an FMA counts two operations there); None
+    without the lengths."""
+    if not lengths:
+        return None
+    ms = 0.0
+    for p, t, peak in (("f64", "d", H100_FP64), ("f32", "f", H100_FP32)):
+        o, f = ops[p], fns[p]
+        slots = (o["add"] + o["mul"]
+                 + o["div"] * lengths[("div", t, "pipe")]
+                 + o["sqrt"] * lengths[("sqrt", t, "pipe")]
+                 + sum(n * lengths[(fn, t, "pipe")] for fn, n in f.items()))
+        ms += slots / (peak / 2.0) * 1e3
+    return ms
 
 
 def ops_text(ops):
@@ -2353,35 +2456,195 @@ def ops_text(ops):
                      for p in ("f64", "f32") if sum(ops[p].values()))
 
 
-def phase_analytic_kernels(dev, name):
-    """crossing_map<double> at example 07's 192^2, orders 0 and 1 in one
-    launch, and volume_seed<T, azm> on example 07's spot (f64 and f32,
-    with and without the azimuth) and example 11's torus (f64), each at
-    512^2, against their plain torch chains on the card; each kernel's
-    CUDA-event time (min of IMAGE_RUNS runs of ANALYTIC_REPS launches),
-    its plain chain's (host clock, synchronised), the launches and the
-    bound from the operations the run's pixels execute.  Returns the
-    kernels line's row of each main-path instance."""
+def tensors_of(out):
+    """The tensors of a kernel's outputs (a dict or a tuple), in order."""
+    return list(out.values()) if isinstance(out, dict) else list(out)
+
+
+def counted_table(stages, chains):
+    """The counted run's stages (warps, lane use, Mcycles and share of the
+    counted cycles) and chains (calls, mean levels, lane use of the
+    levels issued) as text."""
+    total = sum(v["cycles"] for v in stages.values()) or 1
+    st = "; ".join(
+        f"{s} {v['warps']} warps, {v['lanes'] / (32 * v['warps']):.3f} lane "
+        f"use, {v['cycles'] / 1e6:.2f} Mcycles ({v['cycles'] / total:.3f})"
+        for s, v in stages.items() if v["warps"])
+    ch = "; ".join(
+        f"{c} {v['lane_calls']} lane calls, {v['levels'] / v['lane_calls']:.2f}"
+        f" levels, {v['levels'] / max(v['levels_issued'], 1):.3f} of the "
+        f"issued" for c, v in chains.items() if v["lane_calls"])
+    return f"stages: {st} | chains: {ch}"
+
+
+def analytic_counted(dev, outs):
+    """Phase 28's counted runs (kernel_analytic.counted_run): the crossing
+    map (192^2, orders 0-1) and the spot's f64 seed with the azimuth
+    (512^2) through the counted instances of their two passes; each run's
+    outputs bitwise the kernels' own (`outs`), its time (CUDA events, the
+    counters' atomics included) and its counters.  Returns the text."""
+    from sim5_tpu_torch.render import kernel_analytic as ka
+    t0 = time.perf_counter()
+    futs = BACKGROUND.pop("analytic_counted", None)
+    if futs is None:     # the phase run alone: build them now
+        for lib in ("crossing_map", "volume_seed"):
+            ka._lib(f"{lib}_counted")
+    else:
+        for f in futs:
+            f.result()
+    wait_s = time.perf_counter() - t0
+    a, incl, rmax = SPOT["a"], SPOT["incl"], 2.5 * SPOT["r_spot"]
+    cfg = VOL_SPOT
+    runs = {"crossing": lambda: ka.counted_run(
+                "crossing", a, incl, N_HOTSPOT, rmax, (0, 1), device=dev),
+            "seed": lambda: ka.counted_run(
+                "seed", cfg["a"], cfg["incl"], N_VOL_PIX, cfg["rmax"],
+                r_start=cfg["r_start"], device=dev)}
+    parts = []
+    for kind, fn in runs.items():
+        out, stages, chains = fn()
+        ms = event_runs(fn, 1)
+        parts.append(f"{kind}: {ms[0]:.4f} ms counted | "
+                     + counted_table(stages, chains))
+        check(same_bits(tensors_of(out), tensors_of(outs[kind])),
+              f"counted {kind}: the counted two passes are not bitwise the "
+              f"kernels'")
+    return (f"counted instances (their library waited {wait_s:.1f} s; "
+            f"outputs bitwise the kernels'): " + " || ".join(parts))
+
+
+# a crossing map of more than 2^26 pixels and orders (two orders of
+# N_BIG_MAP^2): more than lists of int indices with a full region for each
+# of their 16 bins can hold
+N_BIG_MAP = 5800
+
+
+def big_crossing_map(dev, a, incl, rmax, hit_small):
+    """Phase 28's crossing map of N_BIG_MAP^2 pixels, orders 0 and 1 (2^26
+    and more pixels and orders in one launch of each pass): each pass
+    launched once, bitwise from run to run, r, g, phi and the delay
+    finite, and each order's hit fraction within 0.01 of the 192^2 map's
+    (`hit_small`).  Returns the text."""
+    from sim5_tpu_torch.render import kernel_analytic as ka
+    n = N_BIG_MAP
+    check(2 * n * n > 2 ** 26, "the big map is not past 2^26")
+    reset_analytic()
+    m, sec = synced_seconds(lambda: ka.crossing_maps(a, incl, n, rmax,
+                                                     (0, 1), dev))
+    check(analytic_launches()[ka.CROSSING] == 1, f"the {n}^2 map launched "
+          f"{launched(analytic_launches())}, not each pass once")
+    again = ka.crossing_maps(a, incl, n, rmax, (0, 1), dev)
+    check(same_bits(tensors_of(m), tensors_of(again)),
+          f"crossing map {n}^2: two runs differ")
+    del again
+    for key in ("r", "g", "phi", "dt"):
+        check(bool(torch.isfinite(m[key]).all()), f"crossing map {n}^2: "
+              f"{key} not finite")
+    frac = [float(m["hit"][j].double().mean()) for j in range(2)]
+    small = [float(hit_small[j].double().mean()) for j in range(2)]
+    check(all(abs(f - f0) <= 0.01 for f, f0 in zip(frac, small)),
+          f"crossing map {n}^2: hit fractions {frac} against the "
+          f"{N_HOTSPOT}^2 map's {small}")
+    n_hits = int(m["hit"].sum())
+    del m
+    torch.cuda.empty_cache()
+    return (f"{ka.CROSSING} {n}^2 orders 0 and 1 ({2 * n * n} pixels and "
+            f"orders, {n_hits} hits), each pass launched once, bitwise from "
+            f"run to run: {sec:.3f} s (host clock, the first call), hit "
+            f"fractions {frac[0]:.4f} / {frac[1]:.4f} (the {N_HOTSPOT}^2 "
+            f"map's {small[0]:.4f} / {small[1]:.4f})")
+
+
+def pass_pattern(pv):
+    """A regex of the pass `pv` (a key of kernel_analytic.LAUNCHES) in a
+    profiler's kernel name, demangled or mangled."""
+    kernel, _, args = pv.partition("<")
+    args = [a.strip() for a in args.rstrip(">").split(",")]
+    if kernel.startswith("crossing"):
+        return rf"(?<![A-Za-z_]){kernel}(<|I)"
+    t = args[0]
+    if kernel == "seed_azimuth":
+        return rf"(?<![A-Za-z_]){kernel}(<{t}\b|I{t[0]})"
+    b = {"true": "1", "false": "0"}[args[1]]
+    return rf"(?<![A-Za-z_]){kernel}(<{t}, {args[1]}\b|I{t[0]}Lb{b}E)"
+
+
+def device_ms_by_kernel(fn, reps=6):
+    """{kernel: device ms a launch} of the kernels and copies in fn(): the
+    mean over the launches that torch.profiler's trace of `reps` calls
+    holds (CUPTI: each kernel's own time on the card, without the host's
+    gaps between launches, which CUDA events around a call include)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us and e.count and str(e.device_type).endswith("CUDA"):
+            out[e.key] = us / 1e3 / e.count
+    return out
+
+
+def pass_device_ms(fn, expect, tries=4):
+    """{pass: device ms a launch} of the analytic kernels' passes in fn()
+    (each launched once a call; device_ms_by_kernel), profiled again, up
+    to `tries` times, until the trace holds every pass of `expect`: the
+    trace now and then holds no kernel at all."""
+    from sim5_tpu_torch.render import kernel_analytic as ka
+    for _ in range(tries):
+        ms = device_ms_by_kernel(fn)
+        out = {pv: v for k, v in ms.items() for pv in ka.LAUNCHES
+               if re.search(pass_pattern(pv), k)}
+        if set(expect) <= set(out):
+            break
+    return out
+
+
+def phase_analytic_kernels(dev, name, lengths=None):
+    """The crossing map (classify and hit passes) at example 07's 192^2,
+    orders 0 and 1 in one launch of each pass, and the volume seed
+    (geometry and azimuth passes) on example 07's spot (f64 and f32, with
+    and without the azimuth) and example 11's torus (f64), each at 512^2,
+    against their plain torch chains on the card; every output bitwise the
+    same from run to run; each kernel's CUDA-event time (min of
+    IMAGE_RUNS runs of ANALYTIC_REPS launches), each pass's alone, its
+    plain chain's (host clock, synchronised), the launches, the bound from
+    the operations the run's pixels execute (Carlson's rule; the fixed
+    depth beside it) and the FP64 issue-slot bound; then the counted
+    instances (analytic_counted).  Returns the kernels line's row of each
+    main-path pass."""
     from sim5_tpu_torch import geodesic as gd
     from sim5_tpu_torch.render import image_grid, lightcurve
     from sim5_tpu_torch.render import kernel_analytic as ka
     ops_f = start_op_counts()
-    rows, main, parts = {}, {}, []
-    # the crossing map, both orders in one launch
+    rows, main, parts, outs = {}, {}, [], {}
+    # the crossing map, both orders in one launch of each pass
     a, incl, rmax, n = SPOT["a"], SPOT["incl"], 2.5 * SPOT["r_spot"], \
         N_HOTSPOT
+    cls_v, hit_v = ka.PASSES[ka.CROSSING]
     reset_analytic()
     m, _ = synced_seconds(lambda: ka.crossing_maps(a, incl, n, rmax, (0, 1),
                                                    dev))
     check(analytic_launches()[ka.CROSSING] == 1, "the two orders' crossing "
-          f"map launched {ka.CROSSING} {analytic_launches()} times")
+          f"map launched {launched(analytic_launches())}, not each pass once")
+    again = ka.crossing_maps(a, incl, n, rmax, (0, 1), dev)
+    check(same_bits(tensors_of(m), tensors_of(again)),
+          "crossing map: two runs differ")
+    outs["crossing"] = m
     plain, plain_s = synced_seconds(lambda: [
         lightcurve._crossing_map_unanchored(a, incl, n, rmax, o, dev)
         for o in (0, 1)])
     g = gd.geodesic_init_inf(incl, a, *image_grid(n, n, rmax, device=dev))
-    err, texts = 0.0, []
+    err_cls, err_hit, texts = 0.0, 0.0, []
+    n_hits = 0
     for j, p in enumerate(plain):
         hit, tag = p["hit"], f"crossing map order {j}"
+        n_hits += int(hit.sum())
         check(torch.equal(m["hit"][j], hit), f"{tag}: hit sets differ "
               f"({int((m['hit'][j] != hit).sum())} pixels)")
         far = far_bound(g, p["r"])
@@ -2402,8 +2665,10 @@ def phase_analytic_kernels(dev, name):
         check(w_phi[0] <= 1.0 and w_dt[0] <= 1.0, f"{tag}: phi "
               f"{w_phi[1]:.3e} ({w_phi[0]:.3f} of its bound), delay "
               f"{w_dt[1]:.3e} ({w_dt[0]:.3f})")
-        err = max([err] + [float((m[k][j] - p[k]).abs()[hit].max())
-                           for k in ("r", "phi", "g")])
+        err_cls = max([err_cls] + [float((m[k][j] - p[k]).abs()[hit].max())
+                                   for k in ("r", "g")])
+        err_hit = max(err_hit, float((m["phi"][j] - p["phi"]).abs()[hit]
+                                     .max()))
         texts.append(f"order {j}: hit {float(hit.double().mean()):.4f}, r "
                      f"{rel_r:.3e} ({w_r[0]:.3f} of its bound, max r "
                      f"{float(p['r'][hit].max()):.4e}) g {rel_g:.3e} "
@@ -2412,14 +2677,30 @@ def phase_analytic_kernels(dev, name):
                      f"{w_dt[1]:.3e} ({w_dt[0]:.3f})")
     ms = event_runs(lambda: ka.crossing_maps(a, incl, n, rmax, (0, 1), dev),
                     ANALYTIC_REPS)
-    rows[ka.CROSSING] = main[ka.CROSSING] = dict(
-        ms=ms[0], plain_ms=plain_s * 1e3, max_abs_err=err,
-        out_bytes=2 * n * n * 33, ops_key="crossing")
-    parts.append(f"{ka.CROSSING} {n}^2 orders 0 and 1, LAUNCHES=1: "
-                 f"{spread(ms)} ms (CUDA events, min / median / max of "
-                 f"{IMAGE_RUNS} runs of {ANALYTIC_REPS}), plain "
-                 f"{plain_s:.3f} s | "
-                 + "; ".join(texts))
+    dms = pass_device_ms(lambda: ka.crossing_maps(a, incl, n, rmax, (0, 1),
+                                                  dev), (cls_v, hit_v))
+    check(set(dms) == {cls_v, hit_v}, f"the profiler saw {sorted(dms)}")
+    plain_ms = plain_s * 1e3
+    rows[cls_v] = dict(ms=dms[cls_v], plain_ms=plain_ms, max_abs_err=err_cls,
+                       out_bytes=2 * n * n * 33 + n_hits * HIT_ENTRY_BYTES,
+                       ops_key=("crossing", True), part=0)
+    rows[hit_v] = dict(ms=dms[hit_v], plain_ms=plain_ms, max_abs_err=err_hit,
+                       out_bytes=n_hits * (HIT_ENTRY_BYTES + 16),
+                       ops_key=("crossing", True), part=1)
+    rows[ka.CROSSING] = dict(ms=ms[0], plain_ms=plain_ms,
+                             max_abs_err=max(err_cls, err_hit),
+                             out_bytes=2 * n * n * 33,
+                             ops_key=("crossing", True), part=None,
+                             pr14_key=("crossing", False))
+    main[cls_v], main[hit_v] = rows[cls_v], rows[hit_v]
+    parts.append(f"{ka.CROSSING} {n}^2 orders 0 and 1, each pass launched "
+                 f"once, bitwise from run to run: {spread(ms)} ms (CUDA "
+                 f"events, min / median / max of {IMAGE_RUNS} runs of "
+                 f"{ANALYTIC_REPS}, host gaps included); on the card "
+                 f"(profiler) {cls_v} {dms[cls_v]:.4f}, {hit_v} "
+                 f"{dms[hit_v]:.4f} ({n_hits} hits); plain "
+                 f"{plain_s:.3f} s | " + "; ".join(texts))
+    parts.append(big_crossing_map(dev, a, incl, rmax, m["hit"]))
     # the seeds
     f64_plain = {}
     for case, cfg, dt, axi in SEED_CASES:
@@ -2431,9 +2712,14 @@ def phase_analytic_kernels(dev, name):
         (x0, k, ok), _ = synced_seconds(lambda: ka.volume_seed_rays(*args,
                                                                     dev))
         check(analytic_launches()[v] == 1, f"{tag}: launched "
-              f"{analytic_launches()}")
+              f"{launched(analytic_launches())}")
+        check(same_bits([x0, k, ok], ka.volume_seed_rays(*args, dev)),
+              f"{tag}: two runs differ")
+        if case == "spot" and dt == torch.float64 and not axi:
+            outs["seed"] = (x0, k, ok)
         (px0, pk, pok), p_s = synced_seconds(
             lambda: lightcurve._volume_seed_plain(*args, dev))
+        err_phi = 0.0
         if dt == torch.float64:
             f64_plain[case, axi] = (px0, pk, pok)
             check(torch.equal(ok, pok), f"{tag}: valid sets differ "
@@ -2460,7 +2746,8 @@ def phase_analytic_kernels(dev, name):
                 check(w[0] <= 1.0, f"{tag}: phi0 {w[1]:.3e} ({w[0]:.3f} of "
                       f"its bound)")
                 text += f", phi0 {w[1]:.3e} ({w[0]:.3f} of bound)"
-            err = max(float((x0 - px0).abs()[ok].max()),
+                err_phi = w[1]
+            err = max(float((x0[..., :3] - px0[..., :3]).abs()[ok].max()),
                       float((k - pk).abs()[ok].max()))
         else:
             # against the f64 plain chain, no further than 2x the plain f32
@@ -2487,35 +2774,88 @@ def phase_analytic_kernels(dev, name):
             text = (f"vs the f64 chain {ratio:.3f} of its gate (2x the plain "
                     f"f32's distance + 1e-6 of scale), valid sets differ on "
                     f"{mism}")
-            err = max(float((x0.double() - px0.double()).abs()[ok & pok]
-                            .max()), float((k.double() - pk.double()).abs()
-                                           [ok & pok].max()))
+            err = max(float((x0.double() - px0.double())[..., :3].abs()
+                            [ok & pok].max()), float(
+                (k.double() - pk.double()).abs()[ok & pok].max()))
+            err_phi = float((x0.double() - px0.double())[..., 3].abs()
+                            [ok & pok].max())
         ms = event_runs(lambda: ka.volume_seed_rays(*args, dev),
                         ANALYTIC_REPS)
-        rows[tag] = dict(ms=ms[0], plain_ms=p_s * 1e3, max_abs_err=err,
-                         out_bytes=ok.numel() * (8 * x0.element_size() + 1),
-                         ops_key=(case, dt, axi))
+        passes = ka.PASSES[v]
+        key = (case, dt, axi, True)
+        n_valid = int(ok.sum())
+        item = x0.element_size()
+        out_bytes = ok.numel() * (8 * item + 1)
+        rows[tag] = dict(ms=ms[0], plain_ms=p_s * 1e3,
+                         max_abs_err=max(err, err_phi), out_bytes=out_bytes,
+                         ops_key=key, part=None,
+                         pr14_key=(case, dt, axi, False)
+                         if (case, dt, axi) == ("spot", torch.float64, False)
+                         else None)
+        dms = pass_device_ms(lambda: ka.volume_seed_rays(*args, dev), passes)
+        check(set(dms) == set(passes), f"{tag}: the profiler saw "
+              f"{sorted(dms)}")
+        text_passes = "; on the card (profiler) " + ", ".join(
+            f"{pv} {dms[pv]:.4f}" for pv in passes)
+        if len(passes) == 2:
+            entry = SEED_ENTRY_BYTES[dt]
+            rows[f"{case} {passes[0]}"] = dict(
+                ms=dms[passes[0]], plain_ms=p_s * 1e3, max_abs_err=err,
+                out_bytes=out_bytes + n_valid * entry, ops_key=key, part=0)
+            rows[f"{case} {passes[1]}"] = dict(
+                ms=dms[passes[1]], plain_ms=p_s * 1e3, max_abs_err=err_phi,
+                out_bytes=n_valid * (entry + 4 * item), ops_key=key, part=1)
+        else:
+            rows[f"{case} {passes[0]}"] = dict(rows[tag], ms=dms[passes[0]],
+                                               part=0)
         if dt == torch.float64 and (case == "torus" or not axi):
-            main[v] = rows[tag]
-        parts.append(f"{tag} {N_VOL_PIX}^2, LAUNCHES=1: {spread(ms)} ms, plain "
-                     f"{p_s:.3f} s, valid {float(ok.double().mean()):.4f}, "
-                     f"{text}")
+            for pv in passes:
+                main[pv] = rows[f"{case} {pv}"]
+        parts.append(f"{tag} {N_VOL_PIX}^2, each pass launched once, "
+                     f"bitwise from run to run: {spread(ms)} ms (host gaps "
+                     f"included){text_passes}, plain {p_s:.3f} s, valid "
+                     f"{float(ok.double().mean()):.4f}, {text}")
+    counted_text = analytic_counted(dev, outs)
     t0 = time.perf_counter()
     ops = ops_f.result()
     ops_wait = time.perf_counter() - t0
     bounds = []
     for key, row in rows.items():
-        row["bound_ms"], row["bound_by"] = analytic_bound(
-            ops[row["ops_key"]], row["out_bytes"])
-        bounds.append(f"{key}: {row['bound_ms']:.4f} ms ({row['bound_by']}; "
-                      f"{row['bound_ms'] / row['ms']:.3f} of the time; ops "
-                      f"add/mul/div/sqrt/transcendental "
-                      f"{ops_text(ops[row['ops_key']])})")
+        o = ops[row["ops_key"]]
+        j = row["part"]
+        po = o if j is None else o["passes"][j]
+        pf = o["fn"] if j is None else o["fn_passes"][j]
+        row["bound_ms"], row["bound_by"] = analytic_bound(po, row["out_bytes"])
+        row["issue_ms"] = issue_bound(po, pf, lengths)
+        issue = ("not measured (no SASS lengths)" if row["issue_ms"] is None
+                 else f"{row['issue_ms']:.4f} ms, "
+                      f"{row['issue_ms'] / row['ms']:.3f} of the time")
+        text = (f"{key}: {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                f"{row['bound_ms'] / row['ms']:.3f} of the time), FP64 issue "
+                f"slots {issue}; ops add/mul/div/sqrt/transcendental "
+                f"{ops_text(po)}")
+        if row.get("pr14_key"):
+            old = ops[row["pr14_key"]]
+            f_new = sum(o["f64"].values())
+            f_old = sum(old["f64"].values())
+            text += (f"; at the fixed depth {ops_text(old)} (f64 "
+                     f"{f_new / f_old:.3f} of it; issue slots "
+                     + ("not measured" if lengths is None or not lengths else
+                        f"{issue_bound(old, old['fn'], lengths):.4f} ms")
+                     + "); levels at Carlson's rule: " + ", ".join(
+                         f"{c} {v['levels'] / v['calls']:.2f} (deepest "
+                         f"{v['deepest']})" for c, v in o["levels"].items()
+                         if v["calls"]))
+        bounds.append(text)
     print(f"phase 28 analytic kernels vs their plain chains on the card "
-          f"({name}): " + " | ".join(parts) + " | bounds (counted "
+          f"({name}): {analytic_attributes_text()} | " + " | ".join(parts)
+          + " | bounds (counted "
           f"operations over 34 / 67 TFLOP/s f64 / f32, or bytes over 3.35 "
-          f"TB/s; the counter waited {ops_wait:.2f} s): " + "; ".join(bounds),
-          flush=True)
+          f"TB/s; FP64 issue slots: + and x one, /, sqrt and transcendentals"
+          f" the FP64 (FP32) pipe instructions of their SASS, over 17 / 33.5 "
+          f"T lane instructions/s; the "
+          f"counter waited {ops_wait:.2f} s): " + "; ".join(bounds)
+          + " | " + counted_text, flush=True)
     return main
 
 
@@ -4341,6 +4681,236 @@ def compare_grad(other):
     return 0
 
 
+def analytic_times(dev, out_path):
+    """The analytic kernels' times through entry points every checkout of
+    the port with these kernels has (kernel_analytic.crossing_maps,
+    volume_seed_rays; lightcurve.hotspot_lightcurve): the crossing map of
+    phase 28 (192^2, orders 0-1) and its five seeds (512^2), CUDA events
+    around a call (ms, sorted) and the card's own time a call
+    (call_device_ms), and the light curve's entry point (example 07, 192^2, two
+    orders, 96 samples; seconds, host clock, synchronised, sorted); the
+    outputs saved to out_path (torch.save) for compare_analytic."""
+    from sim5_tpu_torch.core import OmegaK
+    from sim5_tpu_torch.render import hotspot_lightcurve
+    from sim5_tpu_torch.render import kernel_analytic as ka
+    a, incl, rs, size = (SPOT[k] for k in ("a", "incl", "r_spot", "size"))
+    times, outs = {}, {}
+
+    def crossing():
+        return ka.crossing_maps(a, incl, N_HOTSPOT, 2.5 * rs, (0, 1), dev)
+
+    outs["crossing"] = {k: v.cpu() for k, v in crossing().items()}
+    times["crossing"] = event_runs(crossing, ANALYTIC_REPS)
+    times["crossing, on the card"] = [call_device_ms(crossing)]
+    for case, cfg, dt, axi in SEED_CASES:
+        key = f"{case} {ka.SEEDS[dt, not axi]}"
+
+        def seed():
+            return ka.volume_seed_rays(cfg["a"], cfg["incl"], 0.0, N_VOL_PIX,
+                                       cfg["rmax"], cfg["r_start"], axi, dt,
+                                       dev)
+
+        outs[key] = [v.cpu() for v in seed()]
+        times[key] = event_runs(seed, ANALYTIC_REPS)
+        times[f"{key}, on the card"] = [call_device_ms(seed)]
+    period = 2.0 * math.pi / float(OmegaK(torch.tensor(rs,
+                                                       dtype=torch.float64),
+                                          a))
+    t_obs = np.arange(HOTSPOT_T) / HOTSPOT_T * 2 * period
+    times["hotspot_lightcurve (s)"] = host_runs(lambda: hotspot_lightcurve(
+        a, incl, rs, size, t_obs, npix=N_HOTSPOT, n_orders=2, device=dev))
+    torch.save(outs, out_path)
+    return times
+
+
+def call_device_ms(fn, tries=4):
+    """ms the card spends in fn()'s kernels and copies a call, each
+    launched once a call (device_ms_by_kernel, summed; profiled again, up
+    to `tries` times, while the trace holds no kernel)."""
+    for _ in range(tries):
+        ms = device_ms_by_kernel(fn)
+        if ms:
+            break
+    return sum(ms.values())
+
+
+def compare_analytic(other):
+    """The analytic kernels' times (analytic_times) of the checkout at
+    `other` and of this one, each in its own process with its tree first
+    on sys.path (each builds its own kernels), in turns: other, this, this,
+    other.  Prints each run, the best of each tree side by side and the
+    largest distance between the two trees' outputs; 0 if every run
+    ran."""
+    here = pathlib.Path(__file__).resolve().parent
+    trees = {"other": pathlib.Path(other).resolve(), "this": here}
+    got = {k: [] for k in trees}
+    with tempfile.TemporaryDirectory(prefix="sim5_analytic_") as tmp:
+        for j, key in enumerate(("other", "this", "this", "other")):
+            out = pathlib.Path(tmp) / f"{key}.pt"
+            proc = subprocess.run(
+                [sys.executable, str(here / "chip_smoke.py"),
+                 "--analytic-times", str(trees[key]), str(out)],
+                capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                print(proc.stdout + proc.stderr, file=sys.stderr)
+                return 1
+            got[key].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+            print(f"{trees[key]}: {json.dumps(got[key][-1])}", flush=True)
+        outs = {k: torch.load(pathlib.Path(tmp) / f"{k}.pt") for k in trees}
+    lines = []
+    for what in got["this"][0]:
+        a = min(r[what][0] for r in got["other"])
+        b = min(r[what][0] for r in got["this"])
+        lines.append(f"{what}: other {a:.6g}, this {b:.6g}, this / other "
+                     f"{b / a:.4f}")
+    dist = []
+    for key, o in outs["this"].items():
+        p = outs["other"][key]
+        xs, ys = (list(o.values()), list(p.values())) if isinstance(o, dict) \
+            else (o, p)
+        d = max(float((x.double() - y.double()).abs().max())
+                for x, y in zip(xs, ys))
+        dist.append(f"{key} {d:.3e}")
+    print(f"analytic kernels, best of two runs each ({card()}): "
+          + " | ".join(lines) + " | largest distance between the two "
+          "trees' outputs (every field): " + ", ".join(dist), flush=True)
+    return 0
+
+
+# --tune-analytic: the (threads a block, minimum blocks an SM) pairs each
+# pass of the crossing map and of the seed is built at, one pass at a time
+# (the other as committed): the second passes, whose chains are long, and
+# the first passes
+TUNE_ANALYTIC = {1: ((128, 2), (128, 3), (128, 5), (128, 6), (64, 8),
+                     (256, 2), (64, 12), (64, 6)),
+                 0: ((128, 3), (128, 5), (64, 9), (256, 2))}
+TUNE_VARS = {("crossing_map", 0): ("kClassifyThreads", "kClassifyMinBlocks"),
+             ("crossing_map", 1): ("kHitThreads", "kHitMinBlocks"),
+             ("volume_seed", 0): ("kGeomThreads", "kGeomMinBlocks"),
+             ("volume_seed", 1): ("kAzmThreads", "kAzmMinBlocks")}
+
+
+def tune_analytic_build(key):
+    """Build (lib, pass, threads, blocks) of csrc/<lib>.cu with that pass at
+    (threads, blocks) (threads None: as committed) into build/; returns
+    (key, its ctypes library, seconds, the compiler's report)."""
+    from sim5_tpu_torch import _build
+    from sim5_tpu_torch.render import kernel_analytic as ka
+    name, j, threads, blocks = key
+    out = _build.BUILD_DIR / "tune"
+    out.mkdir(parents=True, exist_ok=True)
+    src_text = (_build.CSRC / f"{name}.cu").read_text()
+    if threads is not None:
+        var = TUNE_VARS[name, j]
+        src_text, n_sub = re.subn(
+            rf"constexpr int {var[0]} = \d+, {var[1]} = \d+;",
+            f"constexpr int {var[0]} = {threads}, {var[1]} = {blocks};",
+            src_text)
+        check(n_sub == 1, f"{name}.cu: no {var[0]} line to tune")
+    tag = f"{name}_{j}_{threads}_{blocks}"
+    src, lib = out / f"{tag}.cu", out / f"lib{tag}.so"
+    src.write_text(src_text)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, *ka.NVCC_EXTRA, "-I",
+         str(_build.CSRC), "-o", str(lib), str(src)], capture_output=True,
+        text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr[-4000:]}")
+    dll = ctypes.CDLL(str(lib))
+    sigs = (ka.CROSSING_SIGNATURES if name == "crossing_map"
+            else ka.SEED_SIGNATURES)
+    for fn, (argtypes, restype) in sigs.items():
+        if fn not in ka.COUNTED_FUNCTIONS:
+            f = getattr(dll, fn)
+            f.argtypes, f.restype = argtypes, restype
+    return key, dll, time.perf_counter() - t0, proc.stdout + proc.stderr
+
+
+def tune_runs(name, dev):
+    """{what: fn} of a tuning build's timed calls, and {what: outputs} to
+    hold against the first build's."""
+    from sim5_tpu_torch.render import kernel_analytic as ka
+    if name == "crossing_map":
+        a, incl, rmax = SPOT["a"], SPOT["incl"], 2.5 * SPOT["r_spot"]
+        runs = {"map": lambda: ka.crossing_maps(a, incl, N_HOTSPOT, rmax,
+                                                (0, 1), dev)}
+        return runs, {"map": runs["map"]()}
+    cfg = VOL_SPOT
+    runs, outs = {}, {}
+    for dt in (torch.float64, torch.float32):
+        t = "f64" if dt == torch.float64 else "f32"
+        for axi in (False, True):
+            args = (cfg["a"], cfg["incl"], 0.0, N_VOL_PIX, cfg["rmax"],
+                    cfg["r_start"], axi, dt, dev)
+            what = f"{t} {'axisymmetric ' if axi else ''}seed"
+            runs[what] = lambda args=args: ka.volume_seed_rays(*args)
+            outs[what] = runs[what]()
+    return runs, outs
+
+
+def tune_analytic(dev):
+    """Time the crossing map (192^2, orders 0-1) and the spot's seeds
+    (512^2, f64 and f32, with and without the azimuth), each call by CUDA
+    events and each pass on the card by the profiler (pass_device_ms), in
+    builds with one pass at each of TUNE_ANALYTIC's pairs and as
+    committed, in two rounds (the second in reverse; the minimum kept),
+    every build's outputs bitwise the committed build's, with each pass's
+    registers, local memory and resident blocks and the compiler's
+    spills.  One line a build."""
+    from sim5_tpu_torch.render import kernel_analytic as ka
+    keys = [(n, j, t, b) for n in ("crossing_map", "volume_seed")
+            for j, t, b in ((1, None, None),
+                            *((j, t, b) for j in (1, 0)
+                              for t, b in TUNE_ANALYTIC[j]))]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
+        built = list(pool.map(tune_analytic_build, keys))
+    print(f"tune: {len(built)} builds in {time.perf_counter() - t0:.1f} s "
+          f"({os.cpu_count()} at a time) on {card()}", flush=True)
+    ref, res = {}, {}
+    for rnd in range(2):
+        for key, lib, _, _ in (built if rnd == 0 else built[::-1]):
+            ka._LIBS[key[0]] = lib
+            runs, outs = tune_runs(key[0], dev)
+            for k_out, v in outs.items():
+                check(same_bits(tensors_of(ref.setdefault(k_out, v)),
+                                tensors_of(v)),
+                      f"tune {key}: {k_out} differs from the first build's")
+            r = res.setdefault(key, {})
+            for what, fn in runs.items():
+                ms = {"call": event_runs(fn, ANALYTIC_REPS)[0],
+                      **pass_device_ms(fn, ())}
+                for k_ms, v in ms.items():
+                    w = f"{what}: {k_ms}"
+                    r[w] = min(r.get(w, v), v)
+    ka._LIBS.clear()
+    for key, lib, sec, log in built:
+        name, j, threads, blocks = key
+        att = []
+        for pj in range(2):
+            out = (ctypes.c_int * 4)()
+            if name == "crossing_map":
+                lib.sim5_crossing_map_attributes(pj, out)
+                att.append(f"pass {pj} {out[0]}/{out[1]}/{out[2]}x{out[3]}")
+            else:
+                for f64 in (1, 0):
+                    lib.sim5_volume_seed_attributes(f64, 1, pj, out)
+                    att.append(f"{'f64' if f64 else 'f32'} pass {pj} "
+                               f"{out[0]}/{out[1]}/{out[2]}x{out[3]}")
+        shape = ("committed" if threads is None
+                 else f"pass {j} at {threads} x {blocks}")
+        spills = "; ".join(sorted({ln.strip() for ln in log.splitlines()
+                                   if "spill" in ln and "0 bytes spill" not
+                                   in ln}))
+        print(f"tune {name} {shape} (built in {sec:.1f} s): "
+              + ", ".join(f"{w} {v:.4f} ms" for w, v in res[key].items())
+              + " | registers/local bytes/blocks x threads an SM: "
+              + ", ".join(att) + f" | ptxas spills: {spills or 'none'}",
+              flush=True)
+    return 0
+
+
 # --tune-tangent: the (threads a block, minimum blocks an SM) pairs each
 # instance of the tangent kernel is timed at, every instance of a build at
 # one pair; and other backward instances at the committed pairs, as
@@ -5811,6 +6381,18 @@ def main():
         return 0
     if sys.argv[1:2] == ["--compare-grad"]:
         return compare_grad(sys.argv[2])
+    if sys.argv[1:2] == ["--analytic-times"]:
+        sys.path.insert(0, sys.argv[2])
+        print(json.dumps(analytic_times(dev, sys.argv[3])))
+        return 0
+    if sys.argv[1:2] == ["--compare-analytic"]:
+        return compare_analytic(sys.argv[2])
+    if sys.argv[1:2] == ["--tune-analytic"]:
+        try:
+            return tune_analytic(dev)
+        except PhaseFailed as e:
+            print(f"FAILED: {e}", file=sys.stderr)
+            return 1
     if sys.argv[1:2] == ["--tune-tangent"]:
         try:
             return tune_tangent(dev)
@@ -5845,7 +6427,7 @@ def main():
             "11", phase_image_main, dev)
         image_t = run("12", phase_image_timing, dev, name, image_errs,
                       image_counts, lengths)
-        analytic_rows = run("28", phase_analytic_kernels, dev, name)
+        analytic_rows = run("28", phase_analytic_kernels, dev, name, lengths)
         run("13", phase_analytic, dev)
         orbit_launches, orbit_rows = run("14", phase_orbit_volume, dev, name)
         hotspot = run("15", phase_hotspot, dev)
@@ -5912,22 +6494,25 @@ def main():
                             "jax.grad (XLA autodiff; no Pallas kernel)")
     for dt, r in grad_rows.items():
         rows.append((r["name"], jvp_src, r["launches"], r))
-    # the analytic kernels, each with the launches of its main path: the
-    # light curve's entry point (phase 15), the orbiting spot's image
-    # (phase 14) and the torus's (phase 7)
+    # the analytic kernels' passes, each with the launches of its main
+    # path: the light curve's entry point (phase 15), the orbiting spot's
+    # image (phase 14) and the torus's (phase 7)
     from sim5_tpu_torch.render import kernel_analytic as ka
-    rows.append((ka.CROSSING, dict(
+    crossing_src = dict(
         route="cuda", source="sim5_tpu_torch/csrc/crossing_map.cu",
         replaces="sim5_tpu/render/lightcurve.py:33 (the XLA program "
-                 "equatorial_crossing_map; no Pallas kernel)"),
-        hotspot["launches"], analytic_rows[ka.CROSSING]))
+                 "equatorial_crossing_map; no Pallas kernel)")
+    for pv in ka.PASSES[ka.CROSSING]:
+        rows.append((pv, crossing_src, hotspot["launches"][pv],
+                     analytic_rows[pv]))
     seed_src = dict(route="cuda", source="sim5_tpu_torch/csrc/volume_seed.cu",
                     replaces="sim5_tpu/render/lightcurve.py:113, 127, 138 "
                              "(the XLA programs _volume_seed_geom, _azm, "
                              "_pack; no Pallas kernel)")
-    for v, n in ((seed_name(VOL_SPOT), orbit_launches[seed_name(VOL_SPOT)]),
-                 (seed_name(VOL), vol_launches[seed_name(VOL)])):
-        rows.append((v, seed_src, n, analytic_rows[v]))
+    for v, counts in ((seed_name(VOL_SPOT), orbit_launches),
+                      (seed_name(VOL), vol_launches)):
+        for pv in ka.PASSES[v]:
+            rows.append((pv, seed_src, counts[pv], analytic_rows[pv]))
     print(json.dumps({"kernels": [{
         "name": v, **src, "launches": n, "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

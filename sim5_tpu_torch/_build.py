@@ -47,11 +47,12 @@ def _nvcc():
     return found
 
 
-def load(name, extra_flags=()):
-    """Build (if needed) and load `csrc/<name>.cu` as a ctypes library,
-    with `extra_flags` after NVCC_FLAGS (this library's own options)."""
+def load(name, extra_flags=(), source=None):
+    """Build (if needed) and load `csrc/<source>.cu` (source: `name` unless
+    given) as the ctypes library `name`, with `extra_flags` after
+    NVCC_FLAGS (this library's own options)."""
     return _load(name, [_nvcc()], NVCC_FLAGS + tuple(extra_flags),
-                 CSRC / f"{name}.cu", sorted(CSRC.glob("*.cuh")))
+                 CSRC / f"{source or name}.cu", sorted(CSRC.glob("*.cuh")))
 
 
 def load_generated(name, source):

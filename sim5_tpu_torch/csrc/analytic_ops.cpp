@@ -4,10 +4,16 @@
 // in T (the same bits as the kernels' pixels on T) and counts each
 // addition or subtraction, multiplication, division, square root and
 // transcendental function (sin, cos, acos, asin, atan, atanh, log, log1p,
-// pow) it executes, by the precision it runs in.  The control flow is the
-// kernels' own: a pixel counts the operations of its trajectory type and
-// its branches only.  chip_smoke.py divides the counts of a run's pixels
-// by the card's peak rates for the kernels' bound.  Built at first use by
+// pow; each also by name) it executes, by the precision it runs in, and
+// by pass: the geometry (crossing_geometry, seed_geometry) and the rest
+// (crossing_hit, seed_azimuth), the kernels' two passes.  The control flow
+// is the kernels' own: a pixel counts the operations of its trajectory
+// type and its branches only.  Either depth policy of azimuth.cuh's
+// Carlson chains runs (FixedDepth, the plain chains' depth, or
+// AdaptiveDepth, the kernels'), and
+// each chain's levels are counted too: its calls, their levels and the
+// deepest.  chip_smoke.py divides the counts of a run's pixels by the
+// card's peak rates for the kernels' bound.  Built at first use by
 // kernel_analytic.operation_counts (_build.load_host); it runs on the
 // host's cores, one std::thread a band of pixels.
 
@@ -20,8 +26,12 @@
 namespace {
 
 enum Kind { kAdd, kMul, kDiv, kSqrt, kTrans, kKinds };
-// the calling thread's counts, [f64, f32][kind]
+enum Fn { kSin, kCos, kAcos, kAsin, kAtan, kAtanh, kLog, kLog1p, kPow, kFns };
+// the calling thread's counts, [f64, f32][kind], the transcendentals by
+// name, and [chain][calls, levels, deepest] of the Carlson chains
 thread_local long long t_ops[2][kKinds];
+thread_local long long t_fn[2][kFns];
+thread_local long long t_levels[sim5::kChainKinds][3];
 
 }  // namespace
 
@@ -37,9 +47,14 @@ struct Ops {
   explicit constexpr Ops(const Ops<U>& o) : v(T(o.v)) {}
   explicit operator double() const { return v; }
 
+  static constexpr int kPrec = std::is_same<T, double>::value ? 0 : 1;
   static Ops tally(int k, T x) {
-    ++t_ops[std::is_same<T, double>::value ? 0 : 1][k];
+    ++t_ops[kPrec][k];
     return Ops(x);
+  }
+  static Ops fn(int f, T x) {
+    ++t_fn[kPrec][f];
+    return tally(kTrans, x);
   }
   friend Ops operator+(Ops a, Ops b) { return tally(kAdd, a.v + b.v); }
   friend Ops operator-(Ops a, Ops b) { return tally(kAdd, a.v - b.v); }
@@ -54,15 +69,15 @@ struct Ops {
   friend bool operator!=(Ops a, Ops b) { return a.v != b.v; }
 
   friend Ops Sqrt(Ops x) { return tally(kSqrt, sim5::Sqrt(x.v)); }
-  friend Ops Sin(Ops x) { return tally(kTrans, sim5::Sin(x.v)); }
-  friend Ops Cos(Ops x) { return tally(kTrans, sim5::Cos(x.v)); }
-  friend Ops Acos(Ops x) { return tally(kTrans, sim5::Acos(x.v)); }
-  friend Ops Asin(Ops x) { return tally(kTrans, sim5::Asin(x.v)); }
-  friend Ops Atan(Ops x) { return tally(kTrans, sim5::Atan(x.v)); }
-  friend Ops Atanh(Ops x) { return tally(kTrans, sim5::Atanh(x.v)); }
-  friend Ops Log(Ops x) { return tally(kTrans, sim5::Log(x.v)); }
-  friend Ops Log1p(Ops x) { return tally(kTrans, sim5::Log1p(x.v)); }
-  friend Ops Pow(Ops x, Ops y) { return tally(kTrans, sim5::Pow(x.v, y.v)); }
+  friend Ops Sin(Ops x) { return fn(kSin, sim5::Sin(x.v)); }
+  friend Ops Cos(Ops x) { return fn(kCos, sim5::Cos(x.v)); }
+  friend Ops Acos(Ops x) { return fn(kAcos, sim5::Acos(x.v)); }
+  friend Ops Asin(Ops x) { return fn(kAsin, sim5::Asin(x.v)); }
+  friend Ops Atan(Ops x) { return fn(kAtan, sim5::Atan(x.v)); }
+  friend Ops Atanh(Ops x) { return fn(kAtanh, sim5::Atanh(x.v)); }
+  friend Ops Log(Ops x) { return fn(kLog, sim5::Log(x.v)); }
+  friend Ops Log1p(Ops x) { return fn(kLog1p, sim5::Log1p(x.v)); }
+  friend Ops Pow(Ops x, Ops y) { return fn(kPow, sim5::Pow(x.v, y.v)); }
   friend Ops Floor(Ops x) { return Ops(sim5::Floor(x.v)); }
   friend Ops Ceil(Ops x) { return Ops(sim5::Ceil(x.v)); }
   friend Ops Abs(Ops x) { return Ops(sim5::Abs(x.v)); }
@@ -100,6 +115,21 @@ struct Wide<Ops<T>> {
 
 namespace {
 
+// a depth policy that counts each chain's levels into t_levels
+template <typename Base>
+struct Counted : Base {
+  static void note(int chain, int levels) {
+    long long* c = t_levels[chain];
+    ++c[0];
+    c[1] += levels;
+    if (levels > c[2]) c[2] = levels;
+  }
+};
+
+}  // namespace
+
+namespace {
+
 using sim5::Ops;
 
 sim5::GaussRule rule(const double* g) {
@@ -112,40 +142,88 @@ sim5::GaussRule rule(const double* g) {
   return q;
 }
 
-// fn(i) over pixels [0, npix) in `threads` bands; the threads' counts added
-// into ops[2][kKinds]
+// the counts of the calling thread: [pass][precision][kind], then
+// [pass][precision][transcendental], then [chain][3]
+constexpr int kOpWords = 2 * 2 * kKinds, kFnWords = 2 * 2 * kFns,
+              kLevelWords = sim5::kChainKinds * 3;
+
+struct Tally {
+  long long ops[kOpWords] = {}, fns[kFnWords] = {}, levels[kLevelWords] = {};
+};
+
+void clear_thread() {
+  for (int p = 0; p < 2; ++p) {
+    for (int k = 0; k < kKinds; ++k) t_ops[p][k] = 0;
+    for (int f = 0; f < kFns; ++f) t_fn[p][f] = 0;
+  }
+  for (int c = 0; c < sim5::kChainKinds; ++c)
+    for (int j = 0; j < 3; ++j) t_levels[c][j] = 0;
+}
+
+// the thread's counts since clear_thread() added to pass `pass` of *t, and
+// cleared
+void take(Tally* t, int pass) {
+  for (int p = 0; p < 2; ++p) {
+    for (int k = 0; k < kKinds; ++k)
+      t->ops[(pass * 2 + p) * kKinds + k] += t_ops[p][k];
+    for (int f = 0; f < kFns; ++f)
+      t->fns[(pass * 2 + p) * kFns + f] += t_fn[p][f];
+  }
+  for (int c = 0; c < sim5::kChainKinds; ++c) {
+    long long* l = t->levels + 3 * c;
+    l[0] += t_levels[c][0];
+    l[1] += t_levels[c][1];
+    if (t_levels[c][2] > l[2]) l[2] = t_levels[c][2];
+  }
+  clear_thread();
+}
+
+// fn(i, tally) over pixels [0, npix) in `threads` bands, fn taking each
+// pass's counts into its tally; the threads' tallies added into out
 template <typename F>
-void bands(long long npix, int threads, long long* ops, F fn) {
+void bands(long long npix, int threads, long long* out, F fn) {
   threads = threads < 1 ? 1 : threads;
-  std::vector<std::vector<long long>> counts(threads,
-                                             std::vector<long long>(2 * kKinds));
+  std::vector<Tally> tallies(threads);
   std::vector<std::thread> pool;
   for (int t = 0; t < threads; ++t)
     pool.emplace_back([&, t]() {
-      for (int p = 0; p < 2; ++p)
-        for (int k = 0; k < kKinds; ++k) t_ops[p][k] = 0;
-      for (long long i = t; i < npix; i += threads) fn(i);
-      for (int p = 0; p < 2; ++p)
-        for (int k = 0; k < kKinds; ++k) counts[t][p * kKinds + k] = t_ops[p][k];
+      clear_thread();
+      for (long long i = t; i < npix; i += threads) fn(i, &tallies[t]);
     });
   for (auto& th : pool) th.join();
-  for (int t = 0; t < threads; ++t)
-    for (int j = 0; j < 2 * kKinds; ++j) ops[j] += counts[t][j];
+  for (const Tally& t : tallies) {
+    for (int j = 0; j < kOpWords; ++j) out[j] += t.ops[j];
+    for (int j = 0; j < kFnWords; ++j) out[kOpWords + j] += t.fns[j];
+    long long* l = out + kOpWords + kFnWords;
+    for (int c = 0; c < sim5::kChainKinds; ++c) {
+      l[3 * c] += t.levels[3 * c];
+      l[3 * c + 1] += t.levels[3 * c + 1];
+      if (t.levels[3 * c + 2] > l[3 * c + 2]) l[3 * c + 2] = t.levels[3 * c + 2];
+    }
+  }
 }
 
-template <typename T, bool kAzm>
+template <typename T, bool kAzm, typename D>
 void seed_t(double a, double incl, double rmax, double r_start, double t0,
             int n, const sim5::GaussRule& q, T* x0, T* k, unsigned char* ok,
             int threads, long long* ops) {
   using O = Ops<T>;
-  bands((long long)n * n, threads, ops, [&](long long i) {
+  bands((long long)n * n, threads, ops, [&](long long i, Tally* tally) {
     const O i_ = O(T(incl));
     const O c = Cos(i_), s = Sin(i_);
     O vx[4], vk[4];
-    bool v;
-    sim5::seed_pixel<O, kAzm>(O(T(a)), i_, c, s, O(T(rmax)), O(T(r_start)),
-                              O(T(t0)), (int)(i % n), (int)(i / n), n, q, vx,
-                              vk, v);
+    sim5::Geod<O> g;
+    O P0s;
+    bool v = sim5::seed_geometry(O(T(a)), i_, c, s, O(T(rmax)), O(T(r_start)),
+                                 O(T(t0)), (int)(i % n), (int)(i / n), n, g,
+                                 P0s, vx, vk);
+    take(tally, 0);
+    if (kAzm) {
+      sim5::NoStage st;
+      v = sim5::seed_azimuth<O, Counted<D>>(v, g, P0s, O(T(r_start)), q, vx,
+                                            vk, st);
+    }
+    take(tally, 1);
     for (int j = 0; j < 4; ++j) {
       x0[4 * i + j] = vx[j].v;
       k[4 * i + j] = vk[j].v;
@@ -154,57 +232,90 @@ void seed_t(double a, double incl, double rmax, double r_start, double t0,
   });
 }
 
-}  // namespace
+template <typename T, typename D>
+void seed_d(int azm, double a, double incl, double rmax, double r_start,
+            double t0, int n, const sim5::GaussRule& q, void* x0, void* k,
+            unsigned char* ok, int threads, long long* ops) {
+  T *x = static_cast<T*>(x0), *kk = static_cast<T*>(k);
+  if (azm)
+    seed_t<T, true, D>(a, incl, rmax, r_start, t0, n, q, x, kk, ok, threads,
+                       ops);
+  else
+    seed_t<T, false, D>(a, incl, rmax, r_start, t0, n, q, x, kk, ok, threads,
+                        ops);
+}
 
-// The crossing map of one image order as crossing_map<double> computes it
-// (sim5_crossing_map's arguments; the outputs in host memory), and the
-// operations its pixels ran into ops[0..10) (f64 then f32: additions,
-// multiplications, divisions, square roots, transcendentals), added to.
-extern "C" void sim5_ops_crossing(double a, double incl, double rmax,
-                                  double rms, int n, int order,
-                                  const double* gauss, double* r, double* phi,
-                                  double* g, double* dt, unsigned char* hit,
-                                  int threads, long long* ops) {
-  const sim5::GaussRule q = rule(gauss);
+template <typename D>
+void crossing_d(double a, double incl, double rmax, double rms, int n,
+                int order, const sim5::GaussRule& q, double* r, double* phi,
+                double* g, double* dt, unsigned char* hit, int threads,
+                long long* ops) {
   using O = Ops<double>;
-  bands((long long)n * n, threads, ops, [&](long long i) {
+  bands((long long)n * n, threads, ops, [&](long long i, Tally* tally) {
     const O c = Cos(O(incl)), s = Sin(O(incl));
-    O vr, vphi, vg, vdt;
-    bool h;
-    sim5::crossing_pixel<O>(O(a), O(incl), c, s, O(rmax), O(rms), order,
-                            (int)(i % n), (int)(i / n), n, q, vr, vphi, vg,
-                            vdt, h);
-    r[i] = vr.v;
-    phi[i] = vphi.v;
-    g[i] = vg.v;
-    dt[i] = vdt.v;
+    const int ix = (int)(i % n), iy = (int)(i / n);
+    sim5::Geod<O> geo;
+    O P, r_s, gf;
+    const bool h = sim5::crossing_geometry(O(a), O(incl), c, s, O(rmax),
+                                           O(rms), order, ix, iy, n, geo, P,
+                                           r_s, gf);
+    take(tally, 0);
+    O vphi(0.0), vdt(0.0);
+    sim5::NoStage st;
+    sim5::crossing_hit<O, Counted<D>>(h, geo, P, r_s, ix, iy, n, O(rmax), q,
+                                      vphi, vdt, st);
+    take(tally, 1);
+    r[i] = r_s.v;
+    phi[i] = h ? vphi.v : 0.0;
+    g[i] = h ? gf.v : 1.0;
+    dt[i] = h ? vdt.v : 0.0;
     hit[i] = h;
   });
 }
 
-// The seed as volume_seed<T, azm != 0> computes it (sim5_volume_seed's
-// arguments; the outputs in host memory), and its operations into ops as
-// sim5_ops_crossing.
-extern "C" void sim5_ops_seed(int f64, int azm, double a, double incl,
-                              double rmax, double r_start, double t0, int n,
-                              const double* gauss, void* x0, void* k,
-                              unsigned char* ok, int threads, long long* ops) {
+}  // namespace
+
+// The crossing map of one image order as the crossing-map kernels compute
+// it (sim5_crossing_map's arguments; the outputs in host memory), their
+// Carlson chains at AdaptiveDepth if `adaptive`, else at FixedDepth (PR
+// 14's kernel), and the counts into ops (added to): [pass][f64, f32]
+// [additions, multiplications, divisions, square roots, transcendentals],
+// then [pass][f64, f32][sin, cos, acos, asin, atan, atanh, log, log1p,
+// pow], then [RF, RD, RJ, RC][calls, levels, deepest] (the deepest is the
+// largest seen).
+extern "C" void sim5_ops_crossing(double a, double incl, double rmax,
+                                  double rms, int n, int order, int adaptive,
+                                  const double* gauss, double* r, double* phi,
+                                  double* g, double* dt, unsigned char* hit,
+                                  int threads, long long* ops) {
   const sim5::GaussRule q = rule(gauss);
-  if (f64) {
-    double *x = static_cast<double*>(x0), *kk = static_cast<double*>(k);
-    if (azm)
-      seed_t<double, true>(a, incl, rmax, r_start, t0, n, q, x, kk, ok,
-                           threads, ops);
-    else
-      seed_t<double, false>(a, incl, rmax, r_start, t0, n, q, x, kk, ok,
-                            threads, ops);
-  } else {
-    float *x = static_cast<float*>(x0), *kk = static_cast<float*>(k);
-    if (azm)
-      seed_t<float, true>(a, incl, rmax, r_start, t0, n, q, x, kk, ok,
-                          threads, ops);
-    else
-      seed_t<float, false>(a, incl, rmax, r_start, t0, n, q, x, kk, ok,
-                           threads, ops);
-  }
+  if (adaptive)
+    crossing_d<sim5::AdaptiveDepth>(a, incl, rmax, rms, n, order, q, r, phi,
+                                    g, dt, hit, threads, ops);
+  else
+    crossing_d<sim5::FixedDepth>(a, incl, rmax, rms, n, order, q, r, phi, g,
+                                 dt, hit, threads, ops);
+}
+
+// The seed as the volume-seed kernels compute it (sim5_volume_seed's
+// arguments; the outputs in host memory), its chains as
+// sim5_ops_crossing's, and its counts into ops as sim5_ops_crossing's.
+extern "C" void sim5_ops_seed(int f64, int azm, int adaptive, double a,
+                              double incl, double rmax, double r_start,
+                              double t0, int n, const double* gauss, void* x0,
+                              void* k, unsigned char* ok, int threads,
+                              long long* ops) {
+  const sim5::GaussRule q = rule(gauss);
+  if (f64 && adaptive)
+    seed_d<double, sim5::AdaptiveDepth>(azm, a, incl, rmax, r_start, t0, n, q,
+                                        x0, k, ok, threads, ops);
+  else if (f64)
+    seed_d<double, sim5::FixedDepth>(azm, a, incl, rmax, r_start, t0, n, q, x0,
+                                     k, ok, threads, ops);
+  else if (adaptive)
+    seed_d<float, sim5::AdaptiveDepth>(azm, a, incl, rmax, r_start, t0, n, q,
+                                       x0, k, ok, threads, ops);
+  else
+    seed_d<float, sim5::FixedDepth>(azm, a, incl, rmax, r_start, t0, n, q, x0,
+                                    k, ok, threads, ops);
 }

@@ -58,55 +58,170 @@ SIM5_HD T Rem2(T n) {
 }
 
 // ---------------------------------------------------------------------------
-// Carlson RC, RJ and RD (special/carlson.py)
+// The depth of the Carlson chains that the azimuth and the time run
+// ---------------------------------------------------------------------------
+//
+// The special functions below, the integrals and the azimuth and time
+// functions take a depth policy D (FixedDepth unless given) for their RF,
+// RD, RJ and RC duplication chains:
+// - FixedDepth: Prec<T>::kRfDup levels on every lane, RJ's term a nested RC
+//   of as many: the plain version's chains (special/carlson.py), which the
+//   JAX package unrolls for lanes that run in lockstep;
+// - AdaptiveDepth: Carlson's stopping rule (B. C. Carlson, Numer.
+//   Algorithms 10 (1995) 13-26).  Q = r^(-1/6) max |A_0 - v| over the
+//   chain's arguments v about their mean A_0, r the tolerance of the 5th-
+//   order series tail at f64 rounding (3u for RF and RC, u / 4 for RD and
+//   RJ, u the unit roundoff), and a lane stops at the first level m with
+//   4^-m Q < |A_m|, A_m the chain's own mean, which it updates as it runs;
+//   at most kRfDup levels, so that no lane does more than the fixed chain.
+//   A warp runs its deepest lane's depth.  RJ's term is Carlson's 6 sum
+//   4^-m RC(1, 1 + e_m) / d_m, RC in closed form (atan or atanh of
+//   sqrt|e_m| over sqrt|e_m|, its series where |e_m| is small), 1 + e_m =
+//   2 sqrt(p_m) (p_m + lambda_m) / d_m free of cancellation.  Each tail
+//   takes one reciprocal of its mean in place of its divisions.
+// The geometry that the crossing map and the seed share with the disk image
+// (init_inf, P_int, position_rad, position_pol) keeps analytic.cuh's fixed
+// chains whatever the policy.  D::note(chain, levels) sees each chain's
+// depth: the kernels' counted instances count them (crossing_map.cu,
+// volume_seed.cu), and a host build may.  D::kShare: the azimuth and the
+// delay compute the values their integrals share once (the RR integrals'
+// map, the theta terms' complete integrals), the same bits as computing
+// them in each integral, which FixedDepth keeps (the plain chains' operations).
+
+enum ChainKind : int { kChainRF, kChainRD, kChainRJ, kChainRC, kChainKinds };
+
+struct FixedDepth {
+  static constexpr bool kAdaptive = false, kShare = false;
+  SIM5_HD static void note(int, int) {}
+};
+struct AdaptiveDepth {
+  static constexpr bool kAdaptive = true, kShare = true;
+  SIM5_HD static void note(int, int) {}
+};
+
+// Carlson's r^(-1/6): (3u)^(-1/6) for RF and RC, (u / 4)^(-1/6) for RD
+// and RJ, u = 2^-53 (f64) or 2^-24 (f32).  Carlson takes (3r)^(-1/8) for
+// RC's 7th-order series; the port's RC tail stops at the 5th order.
+template <typename T>
+SIM5_HD T stop_q_rf() {
+  return T(IsF32<T>::value ? 13.322930842489667 : 379.82022430228585);
+}
+template <typename T>
+SIM5_HD T stop_q_rd() {
+  return T(IsF32<T>::value ? 20.158736798317967 : 574.7005687343988);
+}
+
+// ---------------------------------------------------------------------------
+// Carlson RF, RC, RJ and RD (special/carlson.py)
 // ---------------------------------------------------------------------------
 
+// RF(x, y, z) under policy D: analytic.cuh's fixed chain, or Carlson's rule
+// with the tail's one reciprocal
+template <typename T, typename D = FixedDepth>
+SIM5_HD T rf_p(T x, T y, T z) {
+  if constexpr (!D::kAdaptive) {
+    D::note(kChainRF, Prec<T>::kRfDup);
+    return rf(x, y, z);
+  } else {
+    T xt = ClampMin(x, Prec<T>::rf_floor());
+    T yt = ClampMin(y, Prec<T>::rf_floor());
+    T zt = z;
+    T A = (xt + yt + zt) / T(3);
+    T Q = stop_q_rf<T>() * Max(Max(Abs(A - xt), Abs(A - yt)), Abs(A - zt));
+    int m = 0;
+    for (; m < Prec<T>::kRfDup && !(Q < Abs(A)); ++m) {
+      const T sx = Sqrt(xt), sy = Sqrt(yt), sz = Sqrt(zt);
+      const T lam = sx * (sy + sz) + sy * sz;
+      xt = T(0.25) * (xt + lam);
+      yt = T(0.25) * (yt + lam);
+      zt = T(0.25) * (zt + lam);
+      A = T(0.25) * (A + lam);
+      Q = T(0.25) * Q;
+    }
+    D::note(kChainRF, m);
+    const T ave = (xt + yt + zt) / T(3);
+    const T inv = T(1) / ave;
+    const T dx = (ave - xt) * inv, dy = (ave - yt) * inv,
+            dz = (ave - zt) * inv;
+    const T e2 = dx * dy - dz * dz;
+    const T e3 = dx * dy * dz;
+    return (T(1) + (T(1.0 / 24.0) * e2 - T(0.1) - T(3.0 / 44.0) * e3) * e2 +
+            T(1.0 / 14.0) * e3) *
+           Sqrt(inv);
+  }
+}
+
 // _RCPos.forward: RC for x >= tiny, y > 0
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T rc_pos(T x, T y) {
   T xt = x, yt = y;
-  for (int i = 0; i < Prec<T>::kRfDup; ++i) {
-    const T lam = T(2) * Sqrt(xt) * Sqrt(yt) + yt;
-    xt = T(0.25) * (xt + lam);
-    yt = T(0.25) * (yt + lam);
+  if constexpr (!D::kAdaptive) {
+    for (int i = 0; i < Prec<T>::kRfDup; ++i) {
+      const T lam = T(2) * Sqrt(xt) * Sqrt(yt) + yt;
+      xt = T(0.25) * (xt + lam);
+      yt = T(0.25) * (yt + lam);
+    }
+    D::note(kChainRC, Prec<T>::kRfDup);
+    const T ave = (xt + yt + yt) / T(3);
+    const T sv = (yt - ave) / ave;
+    return (T(1) + sv * sv * (T(0.3) + sv * (T(1.0 / 7.0) +
+                                              sv * (T(0.375) + sv * T(9.0 / 22.0))))) /
+           Sqrt(ave);
+  } else {
+    T A = (xt + yt + yt) / T(3);
+    T Q = stop_q_rf<T>() * Abs(A - xt);
+    int m = 0;
+    for (; m < Prec<T>::kRfDup && !(Q < Abs(A)); ++m) {
+      const T lam = T(2) * Sqrt(xt) * Sqrt(yt) + yt;
+      xt = T(0.25) * (xt + lam);
+      yt = T(0.25) * (yt + lam);
+      A = T(0.25) * (A + lam);
+      Q = T(0.25) * Q;
+    }
+    D::note(kChainRC, m);
+    const T ave = (xt + yt + yt) / T(3);
+    const T inv = T(1) / ave;
+    const T sv = (yt - ave) * inv;
+    return (T(1) + sv * sv * (T(0.3) + sv * (T(1.0 / 7.0) +
+                                              sv * (T(0.375) + sv * T(9.0 / 22.0))))) *
+           Sqrt(inv);
   }
-  const T ave = (xt + yt + yt) / T(3);
-  const T sv = (yt - ave) / ave;
-  return (T(1) + sv * sv * (T(0.3) + sv * (T(1.0 / 7.0) +
-                                            sv * (T(0.375) + sv * T(9.0 / 22.0))))) /
-         Sqrt(ave);
 }
 
 // rc: RC(x, y), the Cauchy principal value for y < 0
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_HD T rc(T x, T y) {
   const T tiny = Prec<T>::rf_floor();
   if (y < T(0)) {
     const T xt0 = ClampMin(x - y, tiny);
-    return Sqrt(x) / Sqrt(xt0) * rc_pos(xt0, -y);
+    return Sqrt(x) / Sqrt(xt0) * rc_pos<T, D>(xt0, -y);
   }
-  return T(1) * rc_pos(ClampMin(x, tiny), y == T(0) ? tiny : y);
+  return T(1) * rc_pos<T, D>(ClampMin(x, tiny), y == T(0) ? tiny : y);
 }
 
-// _RJPos.forward: RJ for x, y, z >= tiny, p > 0
+// RC(1, 1 + e) in closed form, ope = 1 + e computed without cancellation:
+// atan(sqrt e) / sqrt e, atanh(sqrt -e) / sqrt -e (atanh t = log1p(2 t (1
+// + t) / ope) / 2, since 1 - t = ope / (1 + t)), or for |e| < 2^-9 its
+// series sum (-e)^k / (2k + 1) to e^5 (the next term below 2^-54 / 13)
 template <typename T>
-SIM5_NI T rj_pos(T x, T y, T z, T p) {
-  T xt = x, yt = y, zt = z, pt = p, s = T(0), fac = T(1);
-  for (int i = 0; i < Prec<T>::kRfDup; ++i) {
-    const T sx = Sqrt(xt), sy = Sqrt(yt), sz = Sqrt(zt);
-    const T lam = sx * (sy + sz) + sy * sz;
-    const T al = pt * (sx + sy + sz) + sx * sy * sz;
-    const T pl = pt + lam;
-    s = s + fac * rc(al * al, pt * (pl * pl));
-    xt = T(0.25) * (xt + lam);
-    yt = T(0.25) * (yt + lam);
-    zt = T(0.25) * (zt + lam);
-    pt = T(0.25) * (pt + lam);
-    fac = T(0.25) * fac;
+SIM5_HD T rc_one(T e, T ope) {
+  if (Abs(e) < T(0.001953125))
+    return T(1) + e * (T(-1.0 / 3.0) +
+                       e * (T(0.2) + e * (T(-1.0 / 7.0) +
+                                          e * (T(1.0 / 9.0) -
+                                               e * T(1.0 / 11.0)))));
+  if (e > T(0)) {
+    const T t = Sqrt(e);
+    return Atan(t) / t;
   }
-  const T ave = T(0.2) * (xt + yt + zt + pt + pt);
-  const T dx = (ave - xt) / ave, dy = (ave - yt) / ave, dz = (ave - zt) / ave;
-  const T dp = (ave - pt) / ave;
+  const T t = Sqrt(-e);
+  return T(0.5) * Log1p(T(2) * t * (T(1) + t) / ope) / t;
+}
+
+// RJ's 5th-order series at the converged (x, y, z, p), before its factor
+// ave^(-3/2): the bracket of _RJPos.forward's tail, with ave's deviations
+template <typename T>
+SIM5_HD T rj_series(T dx, T dy, T dz, T dp) {
   const double C1 = 3.0 / 14.0, C2 = 1.0 / 3.0, C3 = 3.0 / 22.0,
                C4 = 3.0 / 26.0;
   const double C5 = 0.75 * C3, C6 = 1.5 * C4, C7 = 0.5 * C2, C8 = C3 + C3;
@@ -115,16 +230,69 @@ SIM5_NI T rj_pos(T x, T y, T z, T p) {
   const T ec = dp * dp;
   const T ed = ea - T(3) * ec;
   const T ee = eb + T(2) * dp * (ea - ec);
-  return T(3) * s +
-         fac *
-             (T(1) + ed * (T(-C1) + T(C5) * ed - T(C6) * ee) +
-              eb * (T(C7) + dp * (T(-C8) + dp * T(C4))) +
-              dp * ea * (T(C2) - dp * T(C3)) - T(C2) * dp * ec) /
-             (ave * Sqrt(ave));
+  return T(1) + ed * (T(-C1) + T(C5) * ed - T(C6) * ee) +
+         eb * (T(C7) + dp * (T(-C8) + dp * T(C4))) +
+         dp * ea * (T(C2) - dp * T(C3)) - T(C2) * dp * ec;
+}
+
+// _RJPos.forward: RJ for x, y, z >= tiny, p > 0
+template <typename T, typename D = FixedDepth>
+SIM5_NI T rj_pos(T x, T y, T z, T p) {
+  T xt = x, yt = y, zt = z, pt = p, s = T(0), fac = T(1);
+  if constexpr (!D::kAdaptive) {
+    for (int i = 0; i < Prec<T>::kRfDup; ++i) {
+      const T sx = Sqrt(xt), sy = Sqrt(yt), sz = Sqrt(zt);
+      const T lam = sx * (sy + sz) + sy * sz;
+      const T al = pt * (sx + sy + sz) + sx * sy * sz;
+      const T pl = pt + lam;
+      s = s + fac * rc<T, D>(al * al, pt * (pl * pl));
+      xt = T(0.25) * (xt + lam);
+      yt = T(0.25) * (yt + lam);
+      zt = T(0.25) * (zt + lam);
+      pt = T(0.25) * (pt + lam);
+      fac = T(0.25) * fac;
+    }
+    D::note(kChainRJ, Prec<T>::kRfDup);
+    const T ave = T(0.2) * (xt + yt + zt + pt + pt);
+    const T dx = (ave - xt) / ave, dy = (ave - yt) / ave, dz = (ave - zt) / ave;
+    const T dp = (ave - pt) / ave;
+    return T(3) * s + fac * rj_series(dx, dy, dz, dp) / (ave * Sqrt(ave));
+  } else {
+    // Carlson 1995: delta = (p - x)(p - y)(p - z), d_m = prod (sqrt p_m +
+    // sqrt v_m), e_m = 4^(-3m) delta / d_m^2
+    const T delta = (p - x) * (p - y) * (p - z);
+    T A = T(0.2) * (x + y + z + p + p);
+    T Q = stop_q_rd<T>() * Max(Max(Abs(A - x), Abs(A - y)),
+                               Max(Abs(A - z), Abs(A - p)));
+    T f64 = T(1);   // 4^(-3m)
+    int m = 0;
+    for (; m < Prec<T>::kRfDup && !(Q < Abs(A)); ++m) {
+      const T sx = Sqrt(xt), sy = Sqrt(yt), sz = Sqrt(zt), sp = Sqrt(pt);
+      const T lam = sx * (sy + sz) + sy * sz;
+      const T dm = (sp + sx) * (sp + sy) * (sp + sz);
+      const T e = f64 * delta / (dm * dm);
+      const T ope = T(2) * sp * (pt + lam) / dm;
+      s = s + fac * rc_one(e, ope) / dm;
+      xt = T(0.25) * (xt + lam);
+      yt = T(0.25) * (yt + lam);
+      zt = T(0.25) * (zt + lam);
+      pt = T(0.25) * (pt + lam);
+      A = T(0.25) * (A + lam);
+      Q = T(0.25) * Q;
+      fac = T(0.25) * fac;
+      f64 = T(0.015625) * f64;
+    }
+    D::note(kChainRJ, m);
+    const T ave = T(0.2) * (xt + yt + zt + pt + pt);
+    const T inv = T(1) / ave;
+    const T dx = (ave - xt) * inv, dy = (ave - yt) * inv,
+            dz = (ave - zt) * inv, dp = (ave - pt) * inv;
+    return T(6) * s + fac * rj_series(dx, dy, dz, dp) * (inv * Sqrt(inv));
+  }
 }
 
 // rj: RJ(x, y, z, p), the Cauchy principal value for p < 0
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T rj(T x, T y, T z, T p) {
   const T tiny = Prec<T>::rf_floor();
   if (p < T(0)) {
@@ -137,31 +305,97 @@ SIM5_NI T rj(T x, T y, T z, T p) {
     const T pt = ys + b_;
     const T rho = xs * zs / ys_safe;
     const T tau = p * pt / ys_safe;
-    const T rcx = rc(rho, tau);
+    const T rcx = rc<T, D>(rho, tau);
     const T xt = ClampMin(xs, tiny), yt = ClampMin(ys, tiny),
             zt = ClampMin(zs, tiny);
-    const T ans = rj_pos(xt, yt, zt, pt);
-    return a_ * (b_ * ans + T(3) * (rcx - rf(xt, yt, zt)));
+    const T ans = rj_pos<T, D>(xt, yt, zt, pt);
+    return a_ * (b_ * ans + T(3) * (rcx - rf_p<T, D>(xt, yt, zt)));
   }
-  return rj_pos(ClampMin(x, tiny), ClampMin(y, tiny), ClampMin(z, tiny),
-                p == T(0) ? tiny : p);
+  return rj_pos<T, D>(ClampMin(x, tiny), ClampMin(y, tiny), ClampMin(z, tiny),
+                      p == T(0) ? tiny : p);
+}
+
+// analytic.cuh's rd_chain<T, 4> on (x, y, z) under policy D: RD's slot
+// (z) carried; with rf_too, a lane stops where RF's rule holds as well
+template <typename T, typename D>
+SIM5_HD Chain<T> rd_chain_p(T x, T y, T z, bool rf_too) {
+  if constexpr (!D::kAdaptive) {
+    D::note(kChainRD, Prec<T>::kRfDup);
+    return rd_chain<T, 4>(x, y, z);
+  } else {
+    Chain<T> c;
+    c.v[0] = x;
+    c.v[1] = y;
+    c.v[2] = z;
+    c.fac = T(1);
+    for (int i = 0; i < 3; ++i) c.s[i] = T(0);
+    T A = T(0.2) * (x + y + T(3) * z);
+    T Q = stop_q_rd<T>() * Max(Max(Abs(A - x), Abs(A - y)), Abs(A - z));
+    T Af = (x + y + z) / T(3);
+    T Qf = rf_too ? stop_q_rf<T>() * Max(Max(Abs(Af - x), Abs(Af - y)),
+                                          Abs(Af - z))
+                  : T(0);
+    int m = 0;
+    for (; m < Prec<T>::kRfDup && !(Q < Abs(A) && Qf < Abs(Af)); ++m) {
+      T sq[3];
+      for (int i = 0; i < 3; ++i) sq[i] = Sqrt(c.v[i]);
+      const T lam = sq[0] * (sq[1] + sq[2]) + sq[1] * sq[2];
+      c.s[2] = c.s[2] + c.fac / (sq[2] * (c.v[2] + lam));
+      for (int i = 0; i < 3; ++i) c.v[i] = T(0.25) * (c.v[i] + lam);
+      c.fac = T(0.25) * c.fac;
+      A = T(0.25) * (A + lam);
+      Q = T(0.25) * Q;
+      Af = T(0.25) * (Af + lam);
+      Qf = T(0.25) * Qf;
+    }
+    D::note(kChainRD, m);
+    return c;
+  }
+}
+
+// RD with slot 2 in the -3/2 slot from a chain of rd_chain_p: Chain::rd(2),
+// or under AdaptiveDepth its tail with one reciprocal
+template <typename T, typename D>
+SIM5_HD T rd_of(const Chain<T>& c) {
+  if constexpr (!D::kAdaptive) {
+    return c.rd(2);
+  } else {
+    const T xa = c.v[0], xb = c.v[1], xc = c.v[2];
+    const T ave = T(0.2) * (xa + xb + T(3) * xc);
+    const T inv = T(1) / ave;
+    const T dx = (ave - xa) * inv, dy = (ave - xb) * inv,
+            dz = (ave - xc) * inv;
+    const T C1 = T(3.0 / 14.0), C2 = T(1.0 / 6.0), C3 = T(9.0 / 22.0),
+            C4 = T(3.0 / 26.0), C5 = T(0.25 * (9.0 / 22.0)),
+            C6 = T(1.5 * (3.0 / 26.0));
+    const T ea = dx * dy;
+    const T eb = dz * dz;
+    const T ec = ea - eb;
+    const T ed = ea - T(6) * eb;
+    const T ee = ed + ec + ec;
+    const T tail = T(1) + ed * (-C1 + C5 * ed - C6 * dz * ee) +
+                   dz * (C2 * ee + dz * (-C3 * ec + dz * C4 * ea));
+    return T(3) * c.s[2] + c.fac * tail * (inv * Sqrt(inv));
+  }
 }
 
 // rd: RD(x, y, z), the chain of analytic.cuh's rule
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T rd(T x, T y, T z) {
   const T fl = Prec<T>::rf_floor();
-  return rd_chain<T, 4>(ClampMin(x, fl), ClampMin(y, fl), z).rd(2);
+  return rd_of<T, D>(rd_chain_p<T, D>(ClampMin(x, fl), ClampMin(y, fl), z,
+                                      false));
 }
 
 // rf(x, y, z) and rd(x, y, z) from one duplication chain: the bits of the
-// two calls (their chains compute the same triples)
-template <typename T>
+// two calls (their chains compute the same triples) under FixedDepth
+template <typename T, typename D = FixedDepth>
 SIM5_NI void rf_rd(T x, T y, T z, T& f, T& d) {
   const T fl = Prec<T>::rf_floor();
-  const Chain<T> c = rd_chain<T, 4>(ClampMin(x, fl), ClampMin(y, fl), z);
+  const Chain<T> c =
+      rd_chain_p<T, D>(ClampMin(x, fl), ClampMin(y, fl), z, true);
   f = rf_tail(c.v[0], c.v[1], c.v[2]);
-  d = c.rd(2);
+  d = rd_of<T, D>(c);
 }
 
 // ---------------------------------------------------------------------------
@@ -175,20 +409,21 @@ SIM5_HD T clamp_m(T m) {
 }
 
 // elliptic_f_cos: F(phi, m), phi by its cosine
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T elliptic_f_cos(T cos_phi, T m) {
   m = clamp_m(m);
   if (cos_phi == T(1)) return T(0);
   const bool neg = cos_phi < T(0);
   const T c = Abs(cos_phi);
-  const T X = neg ? T(2) * rf(T(0), T(1) - m, T(1)) : T(0);
+  const T X = neg ? T(2) * rf_p<T, D>(T(0), T(1) - m, T(1)) : T(0);
   const T s2 = T(1) - c * c;
-  const T base = Sqrt(ClampMin(s2, T(0))) * rf(T(1) - s2, T(1) - s2 * m, T(1));
+  const T base = Sqrt(ClampMin(s2, T(0))) *
+                 rf_p<T, D>(T(1) - s2, T(1) - s2 * m, T(1));
   return X + (neg ? -base : base);
 }
 
 // elliptic_e_cos: E(phi, m), phi by its cosine (_e_complete, _e_base)
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T elliptic_e_cos(T cos_phi, T m) {
   m = clamp_m(m);
   if (cos_phi == T(1)) return T(0);
@@ -196,44 +431,45 @@ SIM5_NI T elliptic_e_cos(T cos_phi, T m) {
   const T c = Abs(cos_phi);
   T X = T(0), f, d;
   if (neg) {
-    rf_rd(T(0), T(1) - m, T(1), f, d);
+    rf_rd<T, D>(T(0), T(1) - m, T(1), f, d);
     X = T(2) * (f - m * d / T(3));
   }
   const T c2 = c * c;
   const T s = Sqrt(ClampMin(T(1) - c2, T(0)));
-  rf_rd(c2, T(1) - m + c2 * m, T(1), f, d);
+  rf_rd<T, D>(c2, T(1) - m + c2 * m, T(1), f, d);
   const T base = s * (f - (s * s * m) * d / T(3));
   return X + (neg ? -base : base);
 }
 
 // elliptic_pi_complete: Pi(n, m)
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T elliptic_pi_complete(T n, T m) {
   m = clamp_m(m);
   n = n == T(1) ? T(0.99999999) : n;
   if (IsInf(n)) return T(0);
   const T q = T(1) - m;
-  return rf(T(0), q, T(1)) + n * rj(T(0), q, T(1), T(1) - n) / T(3);
+  return rf_p<T, D>(T(0), q, T(1)) + n * rj<T, D>(T(0), q, T(1), T(1) - n) / T(3);
 }
 
 // elliptic_pi_cos: Pi(phi, n, m), phi by its cosine
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T elliptic_pi_cos(T cos_phi, T n, T m) {
   m = clamp_m(m);
   if (IsInf(n) || cos_phi == T(1)) return T(0);
-  if (cos_phi == T(0)) return elliptic_pi_complete(n, m);
+  if (cos_phi == T(0)) return elliptic_pi_complete<T, D>(n, m);
   const bool negp = cos_phi < T(0);
   const T c = Abs(cos_phi);
   T X = T(0);
   if (negp)
-    X = T(2) * (rf(T(0), T(1) - m, T(1)) +
-                n * rj(T(0), T(1) - m, T(1), T(1) - n) / T(3));
+    X = T(2) * (rf_p<T, D>(T(0), T(1) - m, T(1)) +
+                n * rj<T, D>(T(0), T(1) - m, T(1), T(1) - n) / T(3));
   const T c2 = c * c;
   const T s2 = T(1) - c2;
   const T s = Sqrt(ClampMin(s2, T(0)));
   const T ns2 = -n * s2;
   const T q = T(1) - s2 * m;
-  const T base = s * (rf(c2, q, T(1)) - ns2 * rj(c2, q, T(1), T(1) + ns2) / T(3));
+  const T base = s * (rf_p<T, D>(c2, q, T(1)) -
+                      ns2 * rj<T, D>(c2, q, T(1), T(1) + ns2) / T(3));
   return X + (negp ? -base : base);
 }
 
@@ -249,38 +485,38 @@ SIM5_HD void sncndn_m(T u, T m, T& sn, T& cn, T& dn) {
 }
 
 // _elliptic_k_raw: K(m) by RF
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_HD T k_raw(T m) {
   m = m >= T(1) ? T(1.0 - 1e-8) : m;
-  return rf(T(0), T(1) - m, T(1));
+  return rf_p<T, D>(T(0), T(1) - m, T(1));
 }
 
 // _elliptic_f_sin_raw
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_HD T f_sin_raw(T sin_phi, T m) {
   const T s2 = sin_phi * sin_phi;
-  return sin_phi * rf(T(1) - s2, T(1) - s2 * m, T(1));
+  return sin_phi * rf_p<T, D>(T(1) - s2, T(1) - s2 * m, T(1));
 }
 
 // jacobi_isn: u with sn(u | m) = z
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T jacobi_isn(T z, T m) {
   if (Abs(m) < T(1e-8)) return Asin(Clamp(z, T(-1), T(1)));
   if (Abs(m - T(1)) < T(1e-8)) {
     const T zc = Clamp(z, T(-1.0 + 1e-15), T(1.0 - 1e-15));
     return Log(Sqrt((T(1) + zc) / (T(1) - zc)));
   }
-  return z * rf(T(1) - z * z, T(1) - m * z * z, T(1));
+  return z * rf_p<T, D>(T(1) - z * z, T(1) - m * z * z, T(1));
 }
 
 // jacobi_icn: u with cn(u | m) = z, its special branches included
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T jacobi_icn(T z, T m) {
   if (z > T(1) && z < T(1.0 + 1e-8)) z = T(1);
   if (z < T(-1) && z > T(-1.0 - 1e-8)) z = T(-1);
   if (m > T(1) && m < T(1.0 + 1e-8)) m = T(1);
   if (m < T(0) && m > T(-1e-8)) m = T(0);
-  if (z == T(0)) return k_raw(m);
+  if (z == T(0)) return k_raw<T, D>(m);
   if (z == T(1)) return T(0);
   const T edge_hi = T(1.0 - 1e-15);
   const T az_c = ClampMax(Abs(z), T(1));
@@ -297,37 +533,38 @@ SIM5_NI T jacobi_icn(T z, T m) {
   if (az_c >= edge_hi)
     icn1 = T(0);
   else if (az_c == T(0))
-    icn1 = k_raw(m);
+    icn1 = k_raw<T, D>(m);
   else
     icn1 = Sqrt(T(1) - az_g * az_g) *
-           rf(az_g * az_g, T(1) - m * (T(1) - az_g * az_g), T(1));
+           rf_p<T, D>(az_g * az_g, T(1) - m * (T(1) - az_g * az_g), T(1));
   if (z > T(0)) return icn1;
   // z < 0: 2 / sqrt(1 - m) F_sin(-z | m / (m - 1)) + icn(|z|)
   const T m_safe = m >= T(1) ? T(1.0 - 1e-12) : m;
   const T mp = m_safe / (m_safe - T(1) - (m_safe == T(1) ? T(1e-300) : T(0)));
-  const T f = az_c >= edge_hi ? rf(T(0), T(1) - mp, T(1)) : f_sin_raw(az_g, mp);
+  const T f = az_c >= edge_hi ? rf_p<T, D>(T(0), T(1) - mp, T(1))
+                               : f_sin_raw<T, D>(az_g, mp);
   return T(2) / Sqrt(T(1) - m_safe) * f + icn1;
 }
 
 // icn_signed: jacobi_icn's generic branches, -1 < z < 1, 0 < m < 1
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T icn_signed(T z, T m) {
   const T feps = T(8.0 * static_cast<double>(Prec<T>::eps()));
   const T az = Clamp(Abs(z), feps, T(1) - feps);
   const T icn1 = Sqrt(T(1) - az * az) *
-                 rf(az * az, T(1) - m * (T(1) - az * az), T(1));
+                 rf_p<T, D>(az * az, T(1) - m * (T(1) - az * az), T(1));
   if (z >= T(0)) return icn1;
   const T m_safe = Clamp(m, T(0), T(1) - feps);
   const T mp = m_safe / (m_safe - T(1));
-  return T(2) / Sqrt(T(1) - m_safe) * f_sin_raw(az, mp) + icn1;
+  return T(2) / Sqrt(T(1) - m_safe) * f_sin_raw<T, D>(az, mp) + icn1;
 }
 
 // jacobi_itn: u with tn(u | m) = z (even in z, as the reference)
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T jacobi_itn(T z, T m) {
   if (m == T(0)) return Atan(z);
   if (m == T(1)) return Log(z + Sqrt(T(1) + z * z));
-  return jacobi_isn(Sqrt(z * z / (T(1) + z * z)), m);
+  return jacobi_isn<T, D>(Sqrt(z * z / (T(1) + z * z)), m);
 }
 
 // ---------------------------------------------------------------------------
@@ -349,35 +586,37 @@ SIM5_NI T integral_C1(T u, T m) {
 }
 
 // integral_C2
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_C2(T u, T m) {
   T sn, cn, dn;
   sncndn_m(u, m, sn, cn, dn);
-  return (elliptic_e_cos(cn, m) - (T(1) - m) * u) / m;
+  return (elliptic_e_cos<T, D>(cn, m) - (T(1) - m) * u) / m;
 }
 
 // integral_C2_cos
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_C2_cos(T cn_u, T m) {
-  return (elliptic_e_cos(cn_u, m) - (T(1) - m) * elliptic_f_cos(cn_u, m)) / m;
+  return (elliptic_e_cos<T, D>(cn_u, m) -
+          (T(1) - m) * elliptic_f_cos<T, D>(cn_u, m)) /
+         m;
 }
 
 // integral_Z1
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_Z1(T a, T b, T u, T m) {
   T sn, cn, dn;
   sncndn_m(u, m, sn, cn, dn);
-  return ((a - b) * elliptic_pi_cos(cn, a, m) + b * u) / a;
+  return ((a - b) * elliptic_pi_cos<T, D>(cn, a, m) + b * u) / a;
 }
 
 // integral_Z2
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_Z2(T a, T b, T u, T m) {
   T sn, cn, dn;
   sncndn_m(u, m, sn, cn, dn);
-  const T V1 = elliptic_pi_cos(cn, a, m);
+  const T V1 = elliptic_pi_cos<T, D>(cn, a, m);
   const T V2 = T(0.5) / ((a - T(1)) * (m - a)) *
-               (a * elliptic_e_cos(cn, m) + (m - a) * u +
+               (a * elliptic_e_cos<T, D>(cn, m) + (m - a) * u +
                 (T(2) * a * m + T(2) * a - a * a - T(3) * m) * V1 -
                 (a * a * sn * cn * dn) / (T(1) - a * sn * sn));
   const T ab = a - b;
@@ -391,17 +630,17 @@ SIM5_HD T rm1_at(T a, T u, T m, T dn) {
 }
 
 // integral_Rm2 at (sn, cn, dn) = sncndn(u | m)
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T rm2_at(T a, T u, T m, T cn, T dn) {
   const T a2 = a * a;
   const T acos_dn = Acos(Clamp(dn, T(-1), T(1)));
-  return ((m - a2 * (T(1) - m)) * u + a2 * elliptic_e_cos(cn, m) +
+  return ((m - a2 * (T(1) - m)) * u + a2 * elliptic_e_cos<T, D>(cn, m) +
           T(2) * a * Sqrt(m) * acos_dn) /
          m;
 }
 
 // integral_R1 at (sn, cn, dn) = sncndn(u | m)
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T r1_at(T a, T m, T sn, T cn, T dn) {
   const T a2 = a * a;
   const T n = a2 / (a2 - T(1));
@@ -420,15 +659,15 @@ SIM5_NI T r1_at(T a, T m, T sn, T cn, T dn) {
     const T y_in = Abs(y) < T(1) ? y : T(1) / (y == T(0) ? T(1) : y);
     f1 = -Atanh(Clamp(y_in, T(-1.0 + 1e-300), T(1.0 - 1e-300))) / sn_;
   }
-  return (elliptic_pi_cos(cn, n, m) + a * f1) / (T(1) - a2);
+  return (elliptic_pi_cos<T, D>(cn, n, m) + a * f1) / (T(1) - a2);
 }
 
 // integral_R1
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_R1(T a, T u, T m) {
   T sn, cn, dn;
   sncndn_m(u, m, sn, cn, dn);
-  return r1_at(a, m, sn, cn, dn);
+  return r1_at<T, D>(a, m, sn, cn, dn);
 }
 
 // integral_Rm1
@@ -440,11 +679,11 @@ SIM5_NI T integral_Rm1(T a, T u, T m) {
 }
 
 // integral_Rm2
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_Rm2(T a, T u, T m) {
   T sn, cn, dn;
   sncndn_m(u, m, sn, cn, dn);
-  return rm2_at(a, u, m, cn, dn);
+  return rm2_at<T, D>(a, u, m, cn, dn);
 }
 
 // integral_R0
@@ -455,15 +694,15 @@ SIM5_HD T integral_R0(T u, T) {
 
 // integral_R2: its R1, Rm1 and Rm2 at the one sncndn(u | m) they each
 // evaluate
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_R2(T a, T u, T m) {
   const T a2 = a * a;
   const T mma = m + (T(1) - m) * a2;
   T sn, cn, dn;
   sncndn_m(u, m, sn, cn, dn);
   return T(1) / (a2 - T(1)) / mma *
-         ((a2 * (T(2) * m - T(1)) - T(2) * m) * r1_at(a, m, sn, cn, dn) +
-          T(2) * m * rm1_at(a, u, m, dn) - m * rm2_at(a, u, m, cn, dn) +
+         ((a2 * (T(2) * m - T(1)) - T(2) * m) * r1_at<T, D>(a, m, sn, cn, dn) +
+          T(2) * m * rm1_at(a, u, m, dn) - m * rm2_at<T, D>(a, u, m, cn, dn) +
           a * a2 * sn * dn / (T(1) + a * cn));
 }
 
@@ -478,18 +717,18 @@ SIM5_HD T re_sn(T a, T b, T d, T X) {
 }
 
 // integral_R_r0_re
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_R_r0_re(T a, T b, T c, T d, T X) {
   const T m4 = re_m(a, b, c, d);
-  return T(2) / Sqrt((a - c) * (b - d)) * jacobi_isn(re_sn(a, b, d, X), m4);
+  return T(2) / Sqrt((a - c) * (b - d)) * jacobi_isn<T, D>(re_sn(a, b, d, X), m4);
 }
 
 // integral_R_r0_re_inf
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_R_r0_re_inf(T a, T b, T c, T d) {
   const T m4 = re_m(a, b, c, d);
   return T(2) / Sqrt((a - c) * (b - d)) *
-         jacobi_isn(Sqrt((b - d) / (a - d)), m4);
+         jacobi_isn<T, D>(Sqrt((b - d) / (a - d)), m4);
 }
 
 // the A, B and m of the RC forms (BF 260)
@@ -516,100 +755,177 @@ SIM5_HD T cc_cn(T a, T b, const CCForm<T>& f, T X) {
 }
 
 // integral_R_r0_cc
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_R_r0_cc(T a, T b, T u, T v, T X) {
   const CCForm<T> f = cc_form(a, b, u, v);
-  return jacobi_icn(cc_cn(a, b, f, X), f.m) / Sqrt(f.A * f.B);
+  return jacobi_icn<T, D>(cc_cn(a, b, f, X), f.m) / Sqrt(f.A * f.B);
 }
 
 // integral_R_r0_cc_inf
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_R_r0_cc_inf(T a, T b, T u, T v) {
   const CCForm<T> f = cc_form(a, b, u, v);
-  return jacobi_icn((f.A - f.B) / (f.A + f.B), f.m) / Sqrt(f.A * f.B);
+  return jacobi_icn<T, D>((f.A - f.B) / (f.A + f.B), f.m) / Sqrt(f.A * f.B);
 }
 
 // integral_R_r1_re
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_R_r1_re(T a, T b, T c, T d, T X) {
   const T m2 = re_m(a, b, c, d);
-  const T u = jacobi_isn(re_sn(a, b, d, X), m2);
+  const T u = jacobi_isn<T, D>(re_sn(a, b, d, X), m2);
   const T a2 = (a - d) / (b - d);
   const T b2 = ((a - d) * b) / (a * (b - d));
-  const T Z = integral_Z1(a2, b2, u, m2) - integral_Z1(a2, b2, T(0), m2);
+  const T Z = integral_Z1<T, D>(a2, b2, u, m2) -
+              integral_Z1<T, D>(a2, b2, T(0), m2);
   return a * T(2) / Sqrt((a - c) * (b - d)) * Z;
 }
 
 // integral_R_r2_re
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_R_r2_re(T a, T b, T c, T d, T X) {
   const T m2 = re_m(a, b, c, d);
-  const T u = jacobi_isn(re_sn(a, b, d, X), m2);
+  const T u = jacobi_isn<T, D>(re_sn(a, b, d, X), m2);
   const T a2 = (a - d) / (b - d);
   const T b2 = ((a - d) * b) / (a * (b - d));
-  const T Z = integral_Z2(a2, b2, u, m2) - integral_Z2(a2, b2, T(0), m2);
+  const T Z = integral_Z2<T, D>(a2, b2, u, m2) -
+              integral_Z2<T, D>(a2, b2, T(0), m2);
   return a * a * T(2) / Sqrt((a - c) * (b - d)) * Z;
 }
 
 // integral_R_r1_cc
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_R_r1_cc(T a, T b, T u, T v, T X1, T X2) {
   const CCForm<T> f = cc_form(a, b, u, v);
   const T A = f.A, B = f.B, m = f.m;
   const T g = T(1) / Sqrt(A * B);
   const T alpha1 = (B * a + b * A) / (B * a - b * A);
   const T alpha2 = (B + A) / (B - A);
-  const T u1 = elliptic_f_cos(cc_cn(a, b, f, X1), m);
-  const T u2 = elliptic_f_cos(cc_cn(a, b, f, X2), m);
+  const T u1 = elliptic_f_cos<T, D>(cc_cn(a, b, f, X1), m);
+  const T u2 = elliptic_f_cos<T, D>(cc_cn(a, b, f, X2), m);
   const T t0 = alpha1 * (u2 - u1);
   const T t1 = (alpha2 - alpha1) *
-               (integral_R1(alpha2, u2, m) - integral_R1(alpha2, u1, m));
+               (integral_R1<T, D>(alpha2, u2, m) -
+                integral_R1<T, D>(alpha2, u1, m));
   return (B * a - b * A) / (B + A) * g * (t0 + t1);
 }
 
 // integral_R_r2_cc
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_R_r2_cc(T a, T b, T u, T v, T X1, T X2) {
   const CCForm<T> f = cc_form(a, b, u, v);
   const T A = f.A, B = f.B, m = f.m;
   const T g = T(1) / Sqrt(A * B);
   const T alpha1 = (B * a + b * A) / (B * a - b * A);
   const T alpha2 = (B + A) / (B - A);
-  const T u1 = elliptic_f_cos(cc_cn(a, b, f, X1), m);
-  const T u2 = elliptic_f_cos(cc_cn(a, b, f, X2), m);
+  const T u1 = elliptic_f_cos<T, D>(cc_cn(a, b, f, X1), m);
+  const T u2 = elliptic_f_cos<T, D>(cc_cn(a, b, f, X2), m);
   const T d21 = alpha2 - alpha1;
   const T t0 = alpha1 * alpha1 * (u2 - u1);
   const T t1 = T(2) * alpha1 * d21 *
-               (integral_R1(alpha2, u2, m) - integral_R1(alpha2, u1, m));
+               (integral_R1<T, D>(alpha2, u2, m) -
+                integral_R1<T, D>(alpha2, u1, m));
   const T t2 = d21 * d21 *
-               (integral_R2(alpha2, u2, m) - integral_R2(alpha2, u1, m));
+               (integral_R2<T, D>(alpha2, u2, m) -
+                integral_R2<T, D>(alpha2, u1, m));
   const T w = (B * a - b * A) / (B + A);
   return w * w * g * (t0 + t1 + t2);
 }
 
 // integral_R_rp_re and integral_R_rp_re_inf: sn the map's value at X (or
 // at infinity)
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T rp_re_at(T a, T b, T c, T d, T p, T sn) {
   const T m2 = re_m(a, b, c, d);
-  const T u1 = jacobi_isn(sn, m2);
+  const T u1 = jacobi_isn<T, D>(sn, m2);
   const T a2 = (a - d) / (b - d);
   const T c2 = ((p - b) * (a - d)) / ((p - a) * (b - d));
-  const T Z = integral_Z1(c2, a2, u1, m2) - integral_Z1(c2, a2, T(0), m2);
+  const T Z = integral_Z1<T, D>(c2, a2, u1, m2) -
+              integral_Z1<T, D>(c2, a2, T(0), m2);
   return T(-2) / Sqrt((a - c) * (b - d)) / (p - a) * Z;
 }
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_HD T integral_R_rp_re(T a, T b, T c, T d, T p, T X) {
-  return rp_re_at(a, b, c, d, p, re_sn(a, b, d, X));
+  return rp_re_at<T, D>(a, b, c, d, p, re_sn(a, b, d, X));
 }
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_HD T integral_R_rp_re_inf(T a, T b, T c, T d, T p) {
-  return rp_re_at(a, b, c, d, p, Sqrt((b - d) / (a - d)));
+  return rp_re_at<T, D>(a, b, c, d, p, Sqrt((b - d) / (a - d)));
+}
+
+// The RR (from infinity) integrals at one point of the map share its u =
+// isn(sn | m), sncndn(u | m) and, for R1 and R2, Pi(cn, a2 | m); the
+// functions below compute each shared value once and otherwise the
+// operations of the single integrals, so that each result has their bits
+// (the azimuth and the delay take them where D::kShare).
+// Z1 and Z2 at (sn, cn, dn) = sncndn(u | m), V1 = Pi(cn, a | m) given
+template <typename T, typename D>
+SIM5_HD T z1_at(T a, T b, T u, T m, T cn) {
+  return ((a - b) * elliptic_pi_cos<T, D>(cn, a, m) + b * u) / a;
+}
+template <typename T, typename D>
+SIM5_HD T z2_at(T a, T b, T u, T m, T sn, T cn, T dn, T V1) {
+  const T V2 = T(0.5) / ((a - T(1)) * (m - a)) *
+               (a * elliptic_e_cos<T, D>(cn, m) + (m - a) * u +
+                (T(2) * a * m + T(2) * a - a * a - T(3) * m) * V1 -
+                (a * a * sn * cn * dn) / (T(1) - a * sn * sn));
+  const T ab = a - b;
+  return (b * b * u + T(2) * b * ab * V1 + ab * ab * V2) / (a * a);
+}
+
+// integral_R_rp_re at the map's value sn for the two poles p1 and p2 (or
+// integral_R_rp_re_inf with sn its value at infinity): R[0], R[1]
+template <typename T, typename D = FixedDepth>
+SIM5_NI void rp_re_pair(T a, T b, T c, T d, T p1, T p2, T sn, T* R) {
+  const T m2 = re_m(a, b, c, d);
+  const T u1 = jacobi_isn<T, D>(sn, m2);
+  const T a2 = (a - d) / (b - d);
+  T s_u, c_u, d_u, s_0, c_0, d_0;
+  sncndn_m(u1, m2, s_u, c_u, d_u);
+  sncndn_m(T(0), m2, s_0, c_0, d_0);
+  const T ps[2] = {p1, p2};
+  for (int j = 0; j < 2; ++j) {
+    const T p = ps[j];
+    const T c2 = ((p - b) * (a - d)) / ((p - a) * (b - d));
+    const T Z = z1_at<T, D>(c2, a2, u1, m2, c_u) -
+                z1_at<T, D>(c2, a2, T(0), m2, c_0);
+    R[j] = T(-2) / Sqrt((a - c) * (b - d)) / (p - a) * Z;
+  }
+}
+
+// the terms of an RR ray's radial travel time at X: integral_R_r0_re,
+// _r1_re, _r2_re and _rp_re at the poles p1 and p2, into R[0..5)
+template <typename T, typename D = FixedDepth>
+SIM5_NI void rr_time_terms(T a, T b, T c, T d, T p1, T p2, T X, T* R) {
+  const T m2 = re_m(a, b, c, d);
+  const T sn = re_sn(a, b, d, X);
+  const T u = jacobi_isn<T, D>(sn, m2);
+  R[0] = T(2) / Sqrt((a - c) * (b - d)) * u;
+  const T a2 = (a - d) / (b - d);
+  const T b2 = ((a - d) * b) / (a * (b - d));
+  T s_u, c_u, d_u, s_0, c_0, d_0;
+  sncndn_m(u, m2, s_u, c_u, d_u);
+  sncndn_m(T(0), m2, s_0, c_0, d_0);
+  const T V_u = elliptic_pi_cos<T, D>(c_u, a2, m2);
+  const T V_0 = elliptic_pi_cos<T, D>(c_0, a2, m2);
+  const T Z1 = ((a2 - b2) * V_u + b2 * u) / a2 -
+               ((a2 - b2) * V_0 + b2 * T(0)) / a2;
+  R[1] = a * T(2) / Sqrt((a - c) * (b - d)) * Z1;
+  const T Z2 = z2_at<T, D>(a2, b2, u, m2, s_u, c_u, d_u, V_u) -
+               z2_at<T, D>(a2, b2, T(0), m2, s_0, c_0, d_0, V_0);
+  R[2] = a * a * T(2) / Sqrt((a - c) * (b - d)) * Z2;
+  const T ps[2] = {p1, p2};
+  for (int j = 0; j < 2; ++j) {
+    const T p = ps[j];
+    const T c2 = ((p - b) * (a - d)) / ((p - a) * (b - d));
+    const T Z = z1_at<T, D>(c2, a2, u, m2, c_u) -
+                z1_at<T, D>(c2, a2, T(0), m2, c_0);
+    R[3 + j] = T(-2) / Sqrt((a - c) * (b - d)) / (p - a) * Z;
+  }
 }
 
 // integral_R_rp_cc2 and integral_R_rp_cc2_inf: cn2 the map's value at X2
 // (or at infinity)
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T rp_cc2_at(T a, T b, T u, T v, T p, T X1, const T* X2) {
   const CCForm<T> f = cc_form(a, b, u, v);
   const T A = f.A, B = f.B, m = f.m;
@@ -617,21 +933,22 @@ SIM5_NI T rp_cc2_at(T a, T b, T u, T v, T p, T X1, const T* X2) {
   const T num = B * a + b * A - p * A - p * B;
   const T alpha1 = num / (B * a - b * A + p * A - p * B);
   const T alpha2 = (B + A) / (B - A);
-  const T u1 = elliptic_f_cos(cc_cn(a, b, f, X1), m);
-  const T u2 = elliptic_f_cos(
+  const T u1 = elliptic_f_cos<T, D>(cc_cn(a, b, f, X1), m);
+  const T u2 = elliptic_f_cos<T, D>(
       X2 != nullptr ? cc_cn(a, b, f, *X2) : (A - B) / (A + B), m);
   const T t0 = alpha2 * (u2 - u1);
   const T t1 = (alpha1 - alpha2) *
-               (integral_R1(alpha1, u2, m) - integral_R1(alpha1, u1, m));
+               (integral_R1<T, D>(alpha1, u2, m) -
+                integral_R1<T, D>(alpha1, u1, m));
   return (B - A) * g / num * (t0 + t1);
 }
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_HD T integral_R_rp_cc2(T a, T b, T u, T v, T p, T X1, T X2) {
-  return rp_cc2_at(a, b, u, v, p, X1, &X2);
+  return rp_cc2_at<T, D>(a, b, u, v, p, X1, &X2);
 }
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_HD T integral_R_rp_cc2_inf(T a, T b, T u, T v, T p, T X1) {
-  return rp_cc2_at(a, b, u, v, p, X1, static_cast<const T*>(nullptr));
+  return rp_cc2_at<T, D>(a, b, u, v, p, X1, static_cast<const T*>(nullptr));
 }
 
 // _band_setup: the bound band's map, once for every integrand at Y
@@ -639,7 +956,7 @@ template <typename T>
 struct Band {
   T r1, r2, r3, r4, mm4, c4, kappa, u;
 };
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI Band<T> band_setup(T r1, T r2, T r3, T r4, T Y) {
   Band<T> b;
   b.r1 = r1;
@@ -650,7 +967,7 @@ SIM5_NI Band<T> band_setup(T r1, T r2, T r3, T r4, T Y) {
   b.c4 = T(2) / Sqrt((r1 - r3) * (r2 - r4));
   b.kappa = (r2 - r3) / (r1 - r3);
   const T sn = Sqrt(Clamp((r1 - r3) / (r2 - r3) * (r2 - Y) / (r1 - Y), T(0), T(1)));
-  b.u = jacobi_isn(sn, b.mm4);
+  b.u = jacobi_isn<T, D>(sn, b.mm4);
   return b;
 }
 // integral_R_r0_bh, _r1_bh, _r2_bh and _rp_bh on the band's map
@@ -658,50 +975,52 @@ template <typename T>
 SIM5_HD T band_r0(const Band<T>& b) {
   return b.c4 * b.u;
 }
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_HD T band_r1(const Band<T>& b) {
-  return b.c4 * b.r2 * integral_Z1(b.kappa, b.kappa * b.r1 / b.r2, b.u, b.mm4);
+  return b.c4 * b.r2 *
+         integral_Z1<T, D>(b.kappa, b.kappa * b.r1 / b.r2, b.u, b.mm4);
 }
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_HD T band_r2(const Band<T>& b) {
   return b.c4 * (b.r2 * b.r2) *
-         integral_Z2(b.kappa, b.kappa * b.r1 / b.r2, b.u, b.mm4);
+         integral_Z2<T, D>(b.kappa, b.kappa * b.r1 / b.r2, b.u, b.mm4);
 }
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_HD T band_rp(const Band<T>& b, T p) {
   const T n = b.kappa * (b.r1 - p) / (b.r2 - p);
-  return b.c4 / (b.r2 - p) * integral_Z1(n, b.kappa, b.u, b.mm4);
+  return b.c4 / (b.r2 - p) * integral_Z1<T, D>(n, b.kappa, b.u, b.mm4);
 }
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_HD T integral_R_r0_bh(T r1, T r2, T r3, T r4, T Y) {
-  return band_r0(band_setup(r1, r2, r3, r4, Y));
+  return band_r0(band_setup<T, D>(r1, r2, r3, r4, Y));
 }
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_HD T integral_R_r1_bh(T r1, T r2, T r3, T r4, T Y) {
-  return band_r1(band_setup(r1, r2, r3, r4, Y));
+  return band_r1<T, D>(band_setup<T, D>(r1, r2, r3, r4, Y));
 }
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_HD T integral_R_r2_bh(T r1, T r2, T r3, T r4, T Y) {
-  return band_r2(band_setup(r1, r2, r3, r4, Y));
+  return band_r2<T, D>(band_setup<T, D>(r1, r2, r3, r4, Y));
 }
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_HD T integral_R_rp_bh(T r1, T r2, T r3, T r4, T p, T Y) {
-  return band_rp(band_setup(r1, r2, r3, r4, Y), p);
+  return band_rp<T, D>(band_setup<T, D>(r1, r2, r3, r4, Y), p);
 }
 
 // integral_T_m0
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_T_m0(T a2, T b2, T X) {
   const T m = b2 / (a2 + b2);
-  return jacobi_icn(X / Sqrt(b2), m) / Sqrt(a2 + b2);
+  return jacobi_icn<T, D>(X / Sqrt(b2), m) / Sqrt(a2 + b2);
 }
 
 // integral_T_m2
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_T_m2(T a2, T b2, T X) {
   const T m = b2 / (a2 + b2);
   const T cn = X / Sqrt(b2);
-  return b2 / Sqrt(a2 + b2) * (integral_C2_cos(cn, m) - integral_C2(T(0), m));
+  return b2 / Sqrt(a2 + b2) *
+         (integral_C2_cos<T, D>(cn, m) - integral_C2<T, D>(T(0), m));
 }
 
 // _dn_amplitude_cos: cos(am u) of the dn-band map at X, and its modulus
@@ -713,40 +1032,40 @@ SIM5_HD T dn_amplitude_cos(T c2, T b2, T X, T& mm) {
 }
 
 // integral_T_m0_dn
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_T_m0_dn(T c2, T b2, T X) {
   T mm;
   const T cn = dn_amplitude_cos(c2, b2, X, mm);
-  return elliptic_f_cos(cn, mm) / Sqrt(b2);
+  return elliptic_f_cos<T, D>(cn, mm) / Sqrt(b2);
 }
 
 // integral_T_m2_dn
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_T_m2_dn(T c2, T b2, T X) {
   T mm;
   const T cn = dn_amplitude_cos(c2, b2, X, mm);
-  return Sqrt(b2) * elliptic_e_cos(cn, mm);
+  return Sqrt(b2) * elliptic_e_cos<T, D>(cn, mm);
 }
 
 // integral_T_mp_dn
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T integral_T_mp_dn(T c2, T b2, T p, T X) {
   T mm;
   const T cn = dn_amplitude_cos(c2, b2, X, mm);
   const T n = -b2 * mm / (p - b2);
-  return elliptic_pi_cos(cn, n, mm) / (Sqrt(b2) * (p - b2));
+  return elliptic_pi_cos<T, D>(cn, n, mm) / (Sqrt(b2) * (p - b2));
 }
 
-// integral_T_mp
-template <typename T>
-SIM5_NI T integral_T_mp(T a2, T b2, T p, T X) {
+// integral_T_mp; pi_c, if given, its elliptic_pi_complete(n, m)
+template <typename T, typename D = FixedDepth>
+SIM5_NI T integral_T_mp(T a2, T b2, T p, T X, const T* pi_c = nullptr) {
   const T m = b2 / (a2 + b2);
   const T n = b2 / (b2 - p);
   const T aX = Abs(X) / Sqrt(b2);
-  const T pi_pos = elliptic_pi_cos(aX, n, m);
+  const T pi_pos = elliptic_pi_cos<T, D>(aX, n, m);
   if (X >= T(0)) return pi_pos / Sqrt(a2 + b2) / (p - b2);
-  return (T(2) * elliptic_pi_complete(n, m) - pi_pos) / Sqrt(a2 + b2) /
-         (p - b2);
+  const T pc = pi_c != nullptr ? *pi_c : elliptic_pi_complete<T, D>(n, m);
+  return (T(2) * pc - pi_pos) / Sqrt(a2 + b2) / (p - b2);
 }
 
 // ---------------------------------------------------------------------------
@@ -989,18 +1308,18 @@ SIM5_HD VFold<T> vortical_fold(const Geod<T>& g, T P) {
 
 // _theta_phi_cum(g, P2) - _theta_phi_cum(g, P1): the P-independent complete
 // term once for both
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T theta_phi_diff(const Geod<T>& g, T P2, T P1) {
   const T one = T(1);
   const T la = g.l / g.a;
   if (g.q < T(0)) {
     const VFold<T> f2 = vortical_fold(g, P2), f1 = vortical_fold(g, P1);
-    const T full = T(2) * integral_T_mp_dn(f2.c2, f2.b2, one, Sqrt(f2.c2));
+    const T full = T(2) * integral_T_mp_dn<T, D>(f2.c2, f2.b2, one, Sqrt(f2.c2));
     T cum[2];
     const VFold<T>* fs[2] = {&f2, &f1};
     for (int i = 0; i < 2; ++i) {
       const VFold<T>& f = *fs[i];
-      const T seg = integral_T_mp_dn(f.c2, f.b2, one, f.xv);
+      const T seg = integral_T_mp_dn<T, D>(f.c2, f.b2, one, f.xv);
       const T segv = f.v <= T(0.5) * g.Tpp ? seg : full - seg;
       cum[i] = la * f.s * (f.j * full + segv);
     }
@@ -1010,7 +1329,12 @@ SIM5_NI T theta_phi_diff(const Geod<T>& g, T P2, T P1) {
   const T m2m = qpos ? g.m2m : one;
   const T m2p = qpos ? g.m2p : T(0.5);
   const T sq = Sqrt(m2p);
-  const T full = integral_T_mp(m2m, m2p, one, -sq);
+  // the complete Pi of the three integral_T_mp: once where D shares
+  T pc = T(0);
+  if (D::kShare)
+    pc = elliptic_pi_complete<T, D>(m2p / (m2p - one), m2p / (m2m + m2p));
+  const T* pi_c = D::kShare ? &pc : nullptr;
+  const T full = integral_T_mp<T, D>(m2m, m2p, one, -sq, pi_c);
   const T Ps[2] = {P2, P1};
   T cum[2];
   for (int i = 0; i < 2; ++i) {
@@ -1019,20 +1343,23 @@ SIM5_NI T theta_phi_diff(const Geod<T>& g, T P2, T P1) {
     T sn, cn, dn;
     sncndn_m((qpos ? dT : T(0.5) * g.Tpp) / g.mK, g.mm, sn, cn, dn);
     const T x = Min(Max(sq * cn, -sq), sq);
-    cum[i] = la * (n * full + integral_T_mp(m2m, m2p, one, x));
+    cum[i] = la * (n * full + integral_T_mp<T, D>(m2m, m2p, one, x, pi_c));
   }
   return cum[0] - cum[1];
 }
 
-// _theta_time_cum(g, P)
-template <typename T>
-SIM5_NI T theta_time_cum(const Geod<T>& g, T P) {
+// _theta_time_cum(g, P); full, if given, its P-independent integral (the
+// vortical fold's full T_m2_dn period, or M20)
+template <typename T, typename D = FixedDepth>
+SIM5_NI T theta_time_cum(const Geod<T>& g, T P, const T* full = nullptr) {
   if (g.q < T(0)) {
     const VFold<T> f = vortical_fold(g, P);
-    const T seg = integral_T_m2_dn(f.c2, f.b2, f.xv);
-    const T full = T(2) * integral_T_m2_dn(f.c2, f.b2, Sqrt(f.c2));
-    const T segv = f.v <= T(0.5) * g.Tpp ? seg : full - seg;
-    return g.a * f.s * (f.j * full + segv);
+    const T seg = integral_T_m2_dn<T, D>(f.c2, f.b2, f.xv);
+    const T fl = full != nullptr
+                     ? *full
+                     : T(2) * integral_T_m2_dn<T, D>(f.c2, f.b2, Sqrt(f.c2));
+    const T segv = f.v <= T(0.5) * g.Tpp ? seg : fl - seg;
+    return g.a * f.s * (f.j * fl + segv);
   }
   const bool qpos = g.q > T(0);
   T n, dT;
@@ -1041,10 +1368,29 @@ SIM5_NI T theta_time_cum(const Geod<T>& g, T P) {
   const T m2m = qpos ? g.m2m : T(1);
   const T m2p = qpos ? g.m2p : T(0.5);
   const T x = Min(m_abs, Sqrt(m2p));
-  const T M2x = integral_T_m2(m2m, m2p, x);
-  const T M20 = integral_T_m2(m2m, m2p, T(0));
+  const T M2x = integral_T_m2<T, D>(m2m, m2p, x);
+  const T M20 = full != nullptr ? *full : integral_T_m2<T, D>(m2m, m2p, T(0));
   const T seg = dT <= T(0.5) * g.Tpp ? M2x : T(2) * M20 - M2x;
   return g.a * (n * T(2) * M20 + seg);
+}
+
+// |_theta_time_cum(g, P2) - _theta_time_cum(g, P1)|, the P-independent
+// integral once where D shares
+template <typename T, typename D = FixedDepth>
+SIM5_HD T theta_time_diff(const Geod<T>& g, T P2, T P1) {
+  if (!D::kShare)
+    return Abs(theta_time_cum<T, D>(g, P2) - theta_time_cum<T, D>(g, P1));
+  T full;
+  if (g.q < T(0)) {
+    const T c2 = -g.m2m;
+    full = T(2) * integral_T_m2_dn<T, D>(c2, g.m2p, Sqrt(c2));
+  } else {
+    const bool qpos = g.q > T(0);
+    full = integral_T_m2<T, D>(qpos ? g.m2m : T(1), qpos ? g.m2p : T(0.5),
+                               T(0));
+  }
+  return Abs(theta_time_cum<T, D>(g, P2, &full) -
+             theta_time_cum<T, D>(g, P1, &full));
 }
 
 // ---------------------------------------------------------------------------
@@ -1186,11 +1532,11 @@ SIM5_NI T cc_time_radial(const Geod<T>& g, const CCSetup<T>& c, T P1, T P2,
 // double in the kernels)
 // ---------------------------------------------------------------------------
 
-// geodesic_position_azm: the azimuth change between (r, m) at P and the
-// anchor (infinity; the apastron passage P = Rpc for bound RR_BH rays)
-template <typename T>
-SIM5_NI T position_azm(const Geod<T>& g, T r, T P, const GaussRule& q) {
-  if (!IsFinite(P)) return Nan<T>();
+// the radial term of geodesic_position_azm at a finite P: the azimuth
+// change of the lane's trajectory type between (r, m) at P and the anchor
+// (infinity; the apastron passage P = Rpc for bound RR_BH rays)
+template <typename T, typename D = FixedDepth>
+SIM5_NI T azm_radial(const Geod<T>& g, T r, T P, const GaussRule& q) {
   const bool is_rr = g.gtype == kTypeRR, is_rc = g.gtype == kTypeRC;
   const bool is_bh = g.gtype == kTypeRRBH, is_cc = g.gtype == kTypeCC;
   const Poles<T> h = horizon_poles(g.a);
@@ -1202,47 +1548,72 @@ SIM5_NI T position_azm(const Geod<T>& g, T r, T P, const GaussRule& q) {
     const T r1 = g.rr[0], r2 = g.rr[1], r3 = g.rr[2], r4 = g.rr[3];
     const T rs = r >= r1 ? r : T(10);
     const T sgn = ppc ? T(1) : T(-1);
-    const T A = integral_R_rp_re_inf(r1, r2, r3, r4, h.rph) +
-                sgn * integral_R_rp_re(r1, r2, r3, r4, h.rph, rs);
-    const T B = integral_R_rp_re_inf(r1, r2, r3, r4, h.rmh) +
-                sgn * integral_R_rp_re(r1, r2, r3, r4, h.rmh, rs);
+    // integral_R_rp_re_inf and integral_R_rp_re at each horizon pole, their
+    // shared values once where D shares
+    T inf[2], at[2];
+    if constexpr (D::kShare) {
+      rp_re_pair<T, D>(r1, r2, r3, r4, h.rph, h.rmh,
+                       Sqrt((r2 - r4) / (r1 - r4)), inf);
+      rp_re_pair<T, D>(r1, r2, r3, r4, h.rph, h.rmh, re_sn(r1, r2, r4, rs),
+                       at);
+    } else {
+      inf[0] = integral_R_rp_re_inf<T, D>(r1, r2, r3, r4, h.rph);
+      at[0] = integral_R_rp_re<T, D>(r1, r2, r3, r4, h.rph, rs);
+      inf[1] = integral_R_rp_re_inf<T, D>(r1, r2, r3, r4, h.rmh);
+      at[1] = integral_R_rp_re<T, D>(r1, r2, r3, r4, h.rmh, rs);
+    }
+    const T A = inf[0] + sgn * at[0];
+    const T B = inf[1] + sgn * at[1];
     phi = A * cp - B * cm;
   } else if (is_rc) {
     const T t1 = g.rr[0], t2 = g.rr[1], tu = g.rr[2], tv = Abs(g.ri[2]);
     const T rs = r >= t1 ? r : T(10);
-    phi = integral_R_rp_cc2_inf(t1, t2, tu, tv, h.rph, rs) * cp -
-          integral_R_rp_cc2_inf(t1, t2, tu, tv, h.rmh, rs) * cm;
+    phi = integral_R_rp_cc2_inf<T, D>(t1, t2, tu, tv, h.rph, rs) * cp -
+          integral_R_rp_cc2_inf<T, D>(t1, t2, tu, tv, h.rmh, rs) * cm;
   } else if (is_bh) {
     // cumulative from the apastron passage, folded over the 2 Rpc period
     const T b1 = g.rr[0], b2 = g.rr[1], b3 = g.rr[2], b4 = g.rr[3];
     const T k_cyc = Floor(P / (T(2) * g.Rpc));
     const T Pf = P - T(2) * g.Rpc * k_cyc;
     const T y = Min(Max(IsFinite(r) ? r : T(5), b3 + T(1e-14)), b2);
-    const Band<T> by = band_setup(b1, b2, b3, b4, y);
-    const T J_y = band_rp(by, h.rph) * cp - band_rp(by, h.rmh) * cm;
+    const Band<T> by = band_setup<T, D>(b1, b2, b3, b4, y);
+    const T J_y = band_rp<T, D>(by, h.rph) * cp - band_rp<T, D>(by, h.rmh) * cm;
     T Jc = T(0);
     if (k_cyc != T(0)) {
-      const Band<T> bc = band_setup(b1, b2, b3, b4, b3 + T(1e-14));
-      Jc = band_rp(bc, h.rph) * cp - band_rp(bc, h.rmh) * cm;
+      const Band<T> bc = band_setup<T, D>(b1, b2, b3, b4, b3 + T(1e-14));
+      Jc = band_rp<T, D>(bc, h.rph) * cp - band_rp<T, D>(bc, h.rmh) * cm;
     }
     phi = T(2) * k_cyc * Jc + (Pf <= g.Rpc ? -J_y : J_y);
   } else if (is_cc) {
     phi = cc_phi_radial(g, cc_setup(g), P, q);
   }
-  // the theta term, anchored at P = 0 (at the apastron for RR_BH)
-  return phi + theta_phi_diff(g, P, is_bh ? g.Rpc : T(0));
+  return phi;
+}
+
+// the anchor of the theta term: P = 0, the apastron passage for RR_BH
+template <typename T>
+SIM5_HD T theta_anchor(const Geod<T>& g) {
+  return g.gtype == kTypeRRBH ? g.Rpc : T(0);
+}
+
+// geodesic_position_azm: the radial term and the theta term
+template <typename T, typename D = FixedDepth>
+SIM5_HD T position_azm(const Geod<T>& g, T r, T P, const GaussRule& q) {
+  if (!IsFinite(P)) return Nan<T>();
+  const T phi = azm_radial<T, D>(g, r, P, q);
+  return phi + theta_phi_diff<T, D>(g, P, theta_anchor(g));
 }
 
 // t_band_J: the bound band's time from y to r2, on the band's map at y
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T band_time(const Band<T>& b, const Poles<T>& h, T A, T B) {
-  return T(4) * band_r0(b) + T(2) * band_r1(b) + band_r2(b) +
-         (A * band_rp(b, h.rph) + B * band_rp(b, h.rmh)) / h.sq;
+  return T(4) * band_r0(b) + T(2) * band_r1<T, D>(b) + band_r2<T, D>(b) +
+         (A * band_rp<T, D>(b, h.rph) + B * band_rp<T, D>(b, h.rmh)) / h.sq;
 }
 
 // t_band_cum: the band's cumulative time at (P, rc) from the apastron
 // passage, folded over the 2 Rpc period
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T band_time_cum(const Geod<T>& g, const Poles<T>& h, T A, T B, T P,
                         T rc) {
   const T b1 = g.rr[0], b2 = g.rr[1], b3 = g.rr[2], b4 = g.rr[3];
@@ -1250,16 +1621,17 @@ SIM5_NI T band_time_cum(const Geod<T>& g, const Poles<T>& h, T A, T B, T P,
   const T k_cyc = Floor(Pz / (T(2) * g.Rpc));
   const T Pf = Pz - T(2) * g.Rpc * k_cyc;
   const T y = Min(Max(IsFinite(rc) ? rc : T(5), b3 + T(1e-14)), b2);
-  const T Jy = band_time(band_setup(b1, b2, b3, b4, y), h, A, B);
+  const T Jy = band_time<T, D>(band_setup<T, D>(b1, b2, b3, b4, y), h, A, B);
   T Jc = T(0);
   if (k_cyc != T(0))
-    Jc = band_time(band_setup(b1, b2, b3, b4, b3 + T(1e-14)), h, A, B);
+    Jc = band_time<T, D>(band_setup<T, D>(b1, b2, b3, b4, b3 + T(1e-14)), h,
+                         A, B);
   return T(2) * k_cyc * Jc + (Pf <= g.Rpc ? -Jy : Jy);
 }
 
 // geodesic_timedelay: the radial travel time between P1 (at r1c) and P2
 // (at r2c)
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_NI T timedelay(const Geod<T>& g, T P1, T r1c, T P2, T r2c,
                     const GaussRule& q) {
   if (!IsFinite(P1) || !IsFinite(P2)) return Nan<T>();
@@ -1275,44 +1647,55 @@ SIM5_NI T timedelay(const Geod<T>& g, T P1, T r1c, T P2, T r2c,
     const T s = ((P1s > g.Rpc && P2s < g.Rpc) || (P1s < g.Rpc && P2s > g.Rpc))
                     ? T(1)
                     : T(-1);
-    const T R0 = integral_R_r0_re(ra, rb, rc_, rd_, x1s) +
-                 s * integral_R_r0_re(ra, rb, rc_, rd_, x2s);
-    const T R1 = integral_R_r1_re(ra, rb, rc_, rd_, x1s) +
-                 s * integral_R_r1_re(ra, rb, rc_, rd_, x2s);
-    const T R2 = integral_R_r2_re(ra, rb, rc_, rd_, x1s) +
-                 s * integral_R_r2_re(ra, rb, rc_, rd_, x2s);
-    const T RA = integral_R_rp_re(ra, rb, rc_, rd_, h.rph, x1s) +
-                 s * integral_R_rp_re(ra, rb, rc_, rd_, h.rph, x2s);
-    const T RB = integral_R_rp_re(ra, rb, rc_, rd_, h.rmh, x1s) +
-                 s * integral_R_rp_re(ra, rb, rc_, rd_, h.rmh, x2s);
+    // integral_R_r0_re, _r1_re, _r2_re and _rp_re at each pole, at x1s
+    // and x2s, their shared values once where D shares
+    T t1[5], t2[5];
+    const T xs[2] = {x1s, x2s};
+    T* ts[2] = {t1, t2};
+    for (int j = 0; j < 2; ++j) {
+      if constexpr (D::kShare) {
+        rr_time_terms<T, D>(ra, rb, rc_, rd_, h.rph, h.rmh, xs[j], ts[j]);
+      } else {
+        ts[j][0] = integral_R_r0_re<T, D>(ra, rb, rc_, rd_, xs[j]);
+        ts[j][1] = integral_R_r1_re<T, D>(ra, rb, rc_, rd_, xs[j]);
+        ts[j][2] = integral_R_r2_re<T, D>(ra, rb, rc_, rd_, xs[j]);
+        ts[j][3] = integral_R_rp_re<T, D>(ra, rb, rc_, rd_, h.rph, xs[j]);
+        ts[j][4] = integral_R_rp_re<T, D>(ra, rb, rc_, rd_, h.rmh, xs[j]);
+      }
+    }
+    const T R0 = t1[0] + s * t2[0];
+    const T R1 = t1[1] + s * t2[1];
+    const T R2 = t1[2] + s * t2[2];
+    const T RA = t1[3] + s * t2[3];
+    const T RB = t1[4] + s * t2[4];
     return T(4) * Abs(R0) + T(2) * Abs(R1) + Abs(R2) +
            (A * Abs(RA) + B * Abs(RB)) / h.sq;
   }
   if (g.gtype == kTypeRC) {
     const T ta = g.rr[0], tb = g.rr[1], tu = g.rr[2], tv = Abs(g.ri[2]);
     const T lo = Min(x1, x2), hi = Max(x1, x2);
-    const T R0 = integral_R_r0_cc(ta, tb, tu, tv, lo) -
-                 integral_R_r0_cc(ta, tb, tu, tv, hi);
-    const T R1 = integral_R_r1_cc(ta, tb, tu, tv, lo, hi);
-    const T R2 = integral_R_r2_cc(ta, tb, tu, tv, lo, hi);
-    const T RA = integral_R_rp_cc2(ta, tb, tu, tv, h.rph, lo, hi);
-    const T RB = integral_R_rp_cc2(ta, tb, tu, tv, h.rmh, lo, hi);
+    const T R0 = integral_R_r0_cc<T, D>(ta, tb, tu, tv, lo) -
+                 integral_R_r0_cc<T, D>(ta, tb, tu, tv, hi);
+    const T R1 = integral_R_r1_cc<T, D>(ta, tb, tu, tv, lo, hi);
+    const T R2 = integral_R_r2_cc<T, D>(ta, tb, tu, tv, lo, hi);
+    const T RA = integral_R_rp_cc2<T, D>(ta, tb, tu, tv, h.rph, lo, hi);
+    const T RB = integral_R_rp_cc2<T, D>(ta, tb, tu, tv, h.rmh, lo, hi);
     return T(4) * Abs(R0) + T(2) * Abs(R1) + Abs(R2) +
            (A * Abs(RA) + B * Abs(RB)) / h.sq;
   }
   if (g.gtype == kTypeRRBH)
-    return Abs(band_time_cum(g, h, A, B, P2s, x2) -
-               band_time_cum(g, h, A, B, P1s, x1));
+    return Abs(band_time_cum<T, D>(g, h, A, B, P2s, x2) -
+               band_time_cum<T, D>(g, h, A, B, P1s, x1));
   if (g.gtype == kTypeCC) return cc_time_radial(g, cc_setup(g), P1s, P2s, q);
   return Nan<T>();
 }
 
 // geodesic_timedelay_full: the radial time and the poloidal term
-template <typename T>
+template <typename T, typename D = FixedDepth>
 SIM5_HD T timedelay_full(const Geod<T>& g, T P1, T r1c, T P2, T r2c,
                          const GaussRule& q) {
-  const T t_rad = timedelay(g, P1, r1c, P2, r2c, q);
-  return t_rad + Abs(theta_time_cum(g, P2) - theta_time_cum(g, P1));
+  const T t_rad = timedelay<T, D>(g, P1, r1c, P2, r2c, q);
+  return t_rad + theta_time_diff<T, D>(g, P2, P1);
 }
 
 // ---------------------------------------------------------------------------
@@ -1328,89 +1711,268 @@ SIM5_HD T grid_coord(int i, int n, T rmax) {
 // the far-field sphere the crossing map's delays are anchored at (R_FAR)
 constexpr double kRFar = 1e4;
 
+// The work lists' bins and the counted instances' stages.  A lane's bin is
+// its trajectory type's (other types, which give no hit, with RR), the
+// vortical (q < 0) lanes of a type in a bin of their own after it; CC,
+// whose Gauss rule is the longest branch, last.  A list of several parts
+// of each lane's work (the crossing map's delay, then its azimuth) holds
+// kWorkBins bins a part, at most kMaxBins in all.
+enum : int { kBinRR, kBinRRBH, kBinRC, kBinCC, kTypeBins };
+constexpr int kWorkBins = 2 * kTypeBins;
+constexpr int kMaxBins = 2 * kWorkBins;
+
+SIM5_HD int type_bin(int gtype) {
+  return gtype == kTypeRRBH ? kBinRRBH
+         : gtype == kTypeRC ? kBinRC
+         : gtype == kTypeCC ? kBinCC
+                            : kBinRR;
+}
+
+template <typename T>
+SIM5_HD int work_bin(const Geod<T>& g) {
+  return 2 * type_bin(g.gtype) + (g.q < T(0) ? 1 : 0);
+}
+
+// the stages a counted instance times: the geometry (init_inf, the crossing
+// or P_int, the inversions; the seed's momentum; the crossing map's
+// gfactorK and ISCO test), the travel time's far end (P_int(R_FAR) and the
+// inversion there), the azimuth's radial term by type bin, its theta term,
+// and the delay (radial and poloidal) by type bin
+enum Stage : int {
+  kStageGeometry,
+  kStageFar,
+  kStageAzm,                            // + type bin
+  kStageTheta = kStageAzm + kTypeBins,
+  kStageTime,                           // + type bin
+  kStages = kStageTime + kTypeBins
+};
+
+// a stage probe that counts nothing.  A counted instance's probe is called
+// by every lane of the warp at each point: begin() before a stage, end(s,
+// p) after it with whether the lane ran it.
+struct NoStage {
+  SIM5_HD void begin() {}
+  SIM5_HD void end(int, bool) {}
+};
+
+// The geometry of pixel (ix, iy) of an n x n crossing map of image order
+// `order` (render/lightcurve.py:_crossing_map_unanchored): its geodesic g,
+// the crossing's P, its radius r_s (10 where there is none) and the
+// Keplerian g-factor gf; returns the hit.
+template <typename T>
+SIM5_HD bool crossing_geometry(T a, T incl, T cos_i, T sin_i, T rmax, T rms,
+                               int order, int ix, int iy, int n, Geod<T>& g,
+                               T& P, T& r_s, T& gf) {
+  NoProbe probe;
+  const T alpha = grid_coord(ix, n, rmax);
+  const T beta = grid_coord(iy, n, rmax);
+  g = init_inf(incl, cos_i, sin_i, a, alpha, beta, probe);
+  P = find_midplane_crossing(g, order);
+  const T r = position_rad(g, P);
+  bool hit = IsFinite(r) && g.status == kOk;
+  r_s = hit ? r : T(10);
+  gf = gfactorK(r_s, a, g.l);
+  return hit && IsFinite(gf) && r_s > rms;
+}
+
+// the azimuth of a hit at (r, P) on g (position_azm), stage by stage: the
+// radial term of each type bin at a call site of its own, then the theta
+// term; NaN where P is not finite.  `live`: whether the lane computes (a
+// lane that does not only calls the probes).
+template <typename T, typename D, typename S>
+SIM5_HD T azimuth_staged(bool live, const Geod<T>& g, T r, T P,
+                         const GaussRule& q, S& st) {
+  const bool fin = live && IsFinite(P);
+  const int bin = type_bin(g.gtype);
+  T phi = Nan<T>();
+  for (int t = 0; t < kTypeBins; ++t) {
+    st.begin();
+    if (fin && bin == t) phi = azm_radial<T, D>(g, r, P, q);
+    st.end(kStageAzm + t, fin && bin == t);
+  }
+  st.begin();
+  if (fin) phi = phi + theta_phi_diff<T, D>(g, P, theta_anchor(g));
+  st.end(kStageTheta, fin);
+  return phi;
+}
+
+// The azimuth of a hit of the crossing map (its geometry g, P and r_s
+// from crossing_geometry), as _crossing_map_unanchored computes it; 0
+// where it is not finite.  A lane that is not `live` only calls the probes.
+template <typename T, typename D = FixedDepth, typename S = NoStage>
+SIM5_HD T crossing_azimuth(bool live, const Geod<T>& g, T P, T r_s,
+                           const GaussRule& q, S& st) {
+  const T phi = azimuth_staged<T, D>(live, g, r_s, P, q, st);
+  return IsFinite(phi) ? phi : T(0);
+}
+
+// The delay of a hit of the crossing map (pixel (ix, iy), its geometry g,
+// P and r_s) before its anchoring, as _crossing_map_unanchored computes it:
+// the travel time to the crossing from the sphere R_FAR plus the plane
+// wavefront's b^2 / (2 R_FAR); 0 where it is not finite.  A lane that is
+// not `live` only calls the probes.
+template <typename T, typename D = FixedDepth, typename S = NoStage>
+SIM5_HD T crossing_delay(bool live, const Geod<T>& g, T P, T r_s, int ix,
+                         int iy, int n, T rmax, const GaussRule& q, S& st) {
+  T P_far = T(0), r_far = T(0);
+  st.begin();
+  if (live) {
+    P_far = P_int(g, T(kRFar), 0);
+    P_far = IsFinite(P_far) ? P_far : T(1e-4);
+    r_far = position_rad(g, P_far);
+  }
+  st.end(kStageFar, live);
+  const int bin = type_bin(g.gtype);
+  T dt = Nan<T>();
+  for (int t = 0; t < kTypeBins; ++t) {
+    st.begin();
+    if (live && bin == t)
+      dt = timedelay_full<T, D>(g, P, r_s, P_far, r_far, q);
+    st.end(kStageTime + t, live && bin == t);
+  }
+  const T alpha = grid_coord(ix, n, rmax);
+  const T beta = grid_coord(iy, n, rmax);
+  dt = dt + (alpha * alpha + beta * beta) / (T(2) * T(kRFar));
+  return IsFinite(dt) ? dt : T(0);
+}
+
+// both of a hit: crossing_azimuth and crossing_delay
+template <typename T, typename D = FixedDepth, typename S = NoStage>
+SIM5_HD void crossing_hit(bool live, const Geod<T>& g, T P, T r_s, int ix,
+                          int iy, int n, T rmax, const GaussRule& q,
+                          T& phi_out, T& dt_out, S& st) {
+  phi_out = crossing_azimuth<T, D>(live, g, P, r_s, q, st);
+  dt_out = crossing_delay<T, D>(live, g, P, r_s, ix, iy, n, rmax, q, st);
+}
+
 // One pixel (ix, iy) of an n x n crossing map of image order `order`
 // (render/lightcurve.py:_crossing_map_unanchored), T double in the kernel:
 // the crossing's radius r, azimuth phi, Keplerian g-factor g, the delay
-// before its anchoring and the hit.  a is the spin as given, rms the ISCO
-// r_ms(a).  A pixel that is no hit gets phi = 0, g = 1 and delay = 0 (r =
-// 10 where there is no crossing) and computes no azimuth or delay.
-template <typename T>
+// before its anchoring and the hit; crossing_geometry, then crossing_hit on
+// a hit.  a is the spin as given, rms the ISCO r_ms(a).  A pixel that is
+// no hit gets phi = 0, g = 1 and delay = 0 (r = 10 where there is no
+// crossing) and computes no azimuth or delay.
+template <typename T, typename D = FixedDepth, typename S = NoStage>
+SIM5_HD void crossing_pixel(T a, T incl, T cos_i, T sin_i, T rmax, T rms,
+                            int order, int ix, int iy, int n,
+                            const GaussRule& q, T& r_out, T& phi_out,
+                            T& g_out, T& dt_out, bool& hit_out, S& st) {
+  Geod<T> g;
+  T P, r_s, gf;
+  st.begin();
+  const bool hit = crossing_geometry(a, incl, cos_i, sin_i, rmax, rms, order,
+                                     ix, iy, n, g, P, r_s, gf);
+  st.end(kStageGeometry, true);
+  T phi = T(0), dt = T(0);
+  crossing_hit<T, D>(hit, g, P, r_s, ix, iy, n, rmax, q, phi, dt, st);
+  r_out = r_s;
+  phi_out = hit ? phi : T(0);
+  g_out = hit ? gf : T(1);
+  dt_out = hit ? dt : T(0);
+  hit_out = hit;
+}
+template <typename T, typename D = FixedDepth>
 SIM5_HD void crossing_pixel(T a, T incl, T cos_i, T sin_i, T rmax, T rms,
                             int order, int ix, int iy, int n,
                             const GaussRule& q, T& r_out, T& phi_out,
                             T& g_out, T& dt_out, bool& hit_out) {
+  NoStage st;
+  crossing_pixel<T, D>(a, incl, cos_i, sin_i, rmax, rms, order, ix, iy, n, q,
+                       r_out, phi_out, g_out, dt_out, hit_out, st);
+}
+
+// the dummy ray of an invalid seed pixel: (t0, r_start, 0, 0), k = (1, -1,
+// 0, 0)
+template <typename T>
+SIM5_HD void seed_dummy(T r_start, T t0, T* x0, T* k) {
+  x0[0] = t0;
+  x0[1] = r_start;
+  x0[2] = T(0);
+  x0[3] = T(0);
+  k[0] = T(1);
+  k[1] = T(-1);
+  k[2] = T(0);
+  k[3] = T(0);
+}
+
+// The geometry of pixel (ix, iy) of an n x n volume seed on the sphere r =
+// r_start (_volume_seed_reference), in T: its geodesic g, P0 and (x0, k)
+// with phi0 = 0; returns whether the pixel is valid but for its azimuth
+// (an invalid pixel gets the dummy ray).
+template <typename T>
+SIM5_HD bool seed_geometry(T a, T incl, T cos_i, T sin_i, T rmax, T r_start,
+                           T t0, int ix, int iy, int n, Geod<T>& g, T& P0s,
+                           T* x0, T* k) {
   NoProbe probe;
   const T alpha = grid_coord(ix, n, rmax);
   const T beta = grid_coord(iy, n, rmax);
-  const Geod<T> g = init_inf(incl, cos_i, sin_i, a, alpha, beta, probe);
-  const T P = find_midplane_crossing(g, order);
-  const T r = position_rad(g, P);
-  bool hit = IsFinite(r) && g.status == kOk;
-  const T r_s = hit ? r : T(10);
-  const T gf = gfactorK(r_s, a, g.l);
-  hit = hit && IsFinite(gf) && r_s > rms;
-  T phi = T(0), dt = T(0);
-  if (hit) {
-    phi = position_azm(g, r_s, P, q);
-    phi = IsFinite(phi) ? phi : T(0);
-    // the travel time to the crossing from the sphere R_FAR, plus the
-    // plane wavefront's b^2 / (2 R_FAR)
-    T P_far = P_int(g, T(kRFar), 0);
-    P_far = IsFinite(P_far) ? P_far : T(1e-4);
-    const T r_far = position_rad(g, P_far);
-    dt = timedelay_full(g, P, r_s, P_far, r_far, q);
-    dt = dt + (alpha * alpha + beta * beta) / (T(2) * T(kRFar));
-    dt = IsFinite(dt) ? dt : T(0);
+  g = init_inf(incl, cos_i, sin_i, a, alpha, beta, probe);
+  const T P0 = P_int(g, r_start, 0);
+  bool ok = g.status == kOk && IsFinite(P0);
+  P0s = ok ? P0 : T(1e-3);
+  const T r0 = position_rad(g, P0s);
+  const T m0 = position_pol(g, P0s);
+  ok = ok && IsFinite(r0) && IsFinite(m0);
+  if (!ok) {
+    seed_dummy(r_start, t0, x0, k);
+    return false;
   }
-  r_out = r_s;
-  phi_out = phi;
-  g_out = hit ? gf : T(1);
-  dt_out = dt;
-  hit_out = hit;
+  momentum(g, P0s, r0, m0, k);
+  k[2] = -k[2];   // k^theta of the march is -dm/dP's sign
+  x0[0] = t0;
+  x0[1] = r0;
+  x0[2] = m0;
+  x0[3] = T(0);
+  return true;
+}
+
+// The azimuth phi0 of a valid seed pixel (seed_geometry's g, P0s and r0 =
+// x0[1]): position_azm in double (_as_f64), rounded to T once, stage by
+// stage; where it is not finite the pixel becomes invalid and gets the
+// dummy ray.  Returns the pixel's validity.  A lane that is not `live`
+// only calls the probes.
+template <typename T, typename D = FixedDepth, typename S = NoStage>
+SIM5_HD bool seed_azimuth(bool live, const Geod<T>& g, T P0s, T r_start,
+                          const GaussRule& q, T* x0, T* k, S& st) {
+  using W = typename Wide<T>::type;
+  const Geod<W> gw = widen_geod<W>(g);
+  const T phi0 = T(azimuth_staged<W, D>(live, gw, W(x0[1]), W(P0s), q, st));
+  if (!live) return false;
+  if (!IsFinite(phi0)) {
+    seed_dummy(r_start, x0[0], x0, k);
+    return false;
+  }
+  x0[3] = phi0;
+  return true;
 }
 
 // One pixel (ix, iy) of an n x n volume seed on the sphere r = r_start
 // (_volume_seed_reference), geometry in T: x0 = (t0, r0, m0, phi0), the
-// march's k (k^theta signed as the integrator takes it) and ok.  With
-// kAzm, phi0 is the azimuth in double rounded to T once; without, 0 (the
-// axisymmetric seed).  An invalid pixel gets the dummy ray (r_start, 0,
-// 0) with k = (1, -1, 0, 0).
-template <typename T, bool kAzm>
+// march's k (k^theta signed as the integrator takes it) and ok;
+// seed_geometry, then with kAzm seed_azimuth (phi0 the azimuth in double
+// rounded to T once); without, phi0 = 0 (the axisymmetric seed).  An
+// invalid pixel gets the dummy ray (r_start, 0, 0) with k = (1, -1, 0, 0).
+template <typename T, bool kAzm, typename D = FixedDepth,
+          typename S = NoStage>
+SIM5_HD void seed_pixel(T a, T incl, T cos_i, T sin_i, T rmax, T r_start, T t0,
+                        int ix, int iy, int n, const GaussRule& q, T* x0, T* k,
+                        bool& ok_out, S& st) {
+  Geod<T> g;
+  T P0s;
+  st.begin();
+  bool ok = seed_geometry(a, incl, cos_i, sin_i, rmax, r_start, t0, ix, iy, n,
+                          g, P0s, x0, k);
+  st.end(kStageGeometry, true);
+  if (kAzm) ok = seed_azimuth<T, D>(ok, g, P0s, r_start, q, x0, k, st);
+  ok_out = ok;
+}
+template <typename T, bool kAzm, typename D = FixedDepth>
 SIM5_HD void seed_pixel(T a, T incl, T cos_i, T sin_i, T rmax, T r_start, T t0,
                         int ix, int iy, int n, const GaussRule& q, T* x0, T* k,
                         bool& ok_out) {
-  NoProbe probe;
-  const T alpha = grid_coord(ix, n, rmax);
-  const T beta = grid_coord(iy, n, rmax);
-  const Geod<T> g = init_inf(incl, cos_i, sin_i, a, alpha, beta, probe);
-  const T P0 = P_int(g, r_start, 0);
-  bool ok = g.status == kOk && IsFinite(P0);
-  const T P0s = ok ? P0 : T(1e-3);
-  T r0 = position_rad(g, P0s);
-  T m0 = position_pol(g, P0s);
-  T phi0 = T(0);
-  if (kAzm && ok) {
-    using W = typename Wide<T>::type;
-    phi0 = T(position_azm(widen_geod<W>(g), W(r0), W(P0s), q));
-  }
-  ok = ok && IsFinite(r0) && IsFinite(m0) && IsFinite(phi0);
-  x0[0] = t0;
-  if (ok) {
-    momentum(g, P0s, r0, m0, k);
-    k[2] = -k[2];   // k^theta of the march is -dm/dP's sign
-  } else {
-    r0 = r_start;
-    m0 = T(0);
-    phi0 = T(0);
-    k[0] = T(1);
-    k[1] = T(-1);
-    k[2] = T(0);
-    k[3] = T(0);
-  }
-  x0[1] = r0;
-  x0[2] = m0;
-  x0[3] = phi0;
-  ok_out = ok;
+  NoStage st;
+  seed_pixel<T, kAzm, D>(a, incl, cos_i, sin_i, rmax, r_start, t0, ix, iy, n,
+                         q, x0, k, ok_out, st);
 }
 
 }  // namespace sim5

@@ -6,7 +6,11 @@ per-pixel functions the kernels call (`sim5::crossing_pixel`,
 position_pol, momentum, position_azm, timedelay, timedelay_full) on
 geodesics made by the plain version, and each special function and Byrd &
 Friedman integral one argument tuple a lane.  That checks the kernels'
-arithmetic and control flow without a card.
+arithmetic and control flow without a card.  Each harness function takes
+the depth policy of its Carlson chains: `FixedDepth` (the plain chains'
+16 levels) and `AdaptiveDepth` (Carlson's stopping rule, which the
+kernels run) meet the same references and gates, each in a test of its
+own (`*_adaptive`).
 
 Cases (32^2 seeds and maps):
 * example 07's spot (a = 0.5, 70 deg, rmax 17.5, r_start 40) and a = 0.9
@@ -94,21 +98,42 @@ static sim5::GaussRule rule(const double* g) {
   return q;
 }
 
-extern "C" void crossing(double a, double incl, double rmax, double rms,
-                         int n, int order, const double* gauss, double* r,
-                         double* phi, double* g, double* dt,
-                         unsigned char* hit) {
+// Each function takes the depth policy of its Carlson chains first:
+// adaptive != 0 sim5::AdaptiveDepth (the kernels'), else sim5::FixedDepth.
+#define SIM5_POLICY(adaptive, CALL)                                        \
+  do {                                                                     \
+    if (adaptive) {                                                        \
+      using D = sim5::AdaptiveDepth;                                       \
+      CALL;                                                                \
+    } else {                                                               \
+      using D = sim5::FixedDepth;                                          \
+      CALL;                                                                \
+    }                                                                      \
+  } while (0)
+
+template <typename D>
+static void crossing_t(double a, double incl, double rmax, double rms, int n,
+                       int order, const double* gauss, double* r, double* phi,
+                       double* g, double* dt, unsigned char* hit) {
   const sim5::GaussRule q = rule(gauss);
   const double c = sim5::Cos(incl), s = sim5::Sin(incl);
   for (int i = 0; i < n * n; ++i) {
     bool h;
-    sim5::crossing_pixel(a, incl, c, s, rmax, rms, order, i % n, i / n, n, q,
-                         r[i], phi[i], g[i], dt[i], h);
+    sim5::crossing_pixel<double, D>(a, incl, c, s, rmax, rms, order, i % n,
+                                    i / n, n, q, r[i], phi[i], g[i], dt[i], h);
     hit[i] = h;
   }
 }
 
-template <typename T, bool kAzm>
+extern "C" void crossing(int adaptive, double a, double incl, double rmax,
+                         double rms, int n, int order, const double* gauss,
+                         double* r, double* phi, double* g, double* dt,
+                         unsigned char* hit) {
+  SIM5_POLICY(adaptive, crossing_t<D>(a, incl, rmax, rms, n, order, gauss, r,
+                                      phi, g, dt, hit));
+}
+
+template <typename T, bool kAzm, typename D>
 static void seed_t(double a, double incl, double rmax, double r_start,
                    double t0, int n, const double* gauss, T* x0, T* k,
                    unsigned char* ok) {
@@ -117,24 +142,33 @@ static void seed_t(double a, double incl, double rmax, double r_start,
   const T c = sim5::Cos(i_), s = sim5::Sin(i_);
   for (int i = 0; i < n * n; ++i) {
     bool v;
-    sim5::seed_pixel<T, kAzm>(T(a), i_, c, s, T(rmax), T(r_start), T(t0),
-                              i % n, i / n, n, q, x0 + 4 * i, k + 4 * i, v);
+    sim5::seed_pixel<T, kAzm, D>(T(a), i_, c, s, T(rmax), T(r_start), T(t0),
+                                 i % n, i / n, n, q, x0 + 4 * i, k + 4 * i, v);
     ok[i] = v;
   }
 }
 
-extern "C" void seed(int f64, int azm, double a, double incl, double rmax,
-                     double r_start, double t0, int n, const double* gauss,
-                     void* x0, void* k, unsigned char* ok) {
+template <typename D>
+static void seed_d(int f64, int azm, double a, double incl, double rmax,
+                   double r_start, double t0, int n, const double* gauss,
+                   void* x0, void* k, unsigned char* ok) {
   if (f64) {
     double *x = static_cast<double*>(x0), *kk = static_cast<double*>(k);
-    if (azm) seed_t<double, true>(a, incl, rmax, r_start, t0, n, gauss, x, kk, ok);
-    else seed_t<double, false>(a, incl, rmax, r_start, t0, n, gauss, x, kk, ok);
+    if (azm) seed_t<double, true, D>(a, incl, rmax, r_start, t0, n, gauss, x, kk, ok);
+    else seed_t<double, false, D>(a, incl, rmax, r_start, t0, n, gauss, x, kk, ok);
   } else {
     float *x = static_cast<float*>(x0), *kk = static_cast<float*>(k);
-    if (azm) seed_t<float, true>(a, incl, rmax, r_start, t0, n, gauss, x, kk, ok);
-    else seed_t<float, false>(a, incl, rmax, r_start, t0, n, gauss, x, kk, ok);
+    if (azm) seed_t<float, true, D>(a, incl, rmax, r_start, t0, n, gauss, x, kk, ok);
+    else seed_t<float, false, D>(a, incl, rmax, r_start, t0, n, gauss, x, kk, ok);
   }
+}
+
+extern "C" void seed(int adaptive, int f64, int azm, double a, double incl,
+                     double rmax, double r_start, double t0, int n,
+                     const double* gauss, void* x0, void* k,
+                     unsigned char* ok) {
+  SIM5_POLICY(adaptive, seed_d<D>(f64, azm, a, incl, rmax, r_start, t0, n,
+                                  gauss, x0, k, ok));
 }
 
 // a geodesic from the plain version's fields: 27 doubles (a, alpha, beta,
@@ -156,16 +190,17 @@ static Geod<double> geod_of(const double* f, const int* k) {
 // per lane: position_azm(r, P), timedelay_full(P, r, P2, r2),
 // timedelay(P, r, P2, r2), P_int(r, 0), P_int(r, 1), position_pol(P),
 // momentum(P, r, position_pol(P)) (4)
-extern "C" void geod(int n, const double* f, const int* ints, const double* P,
-                     const double* r, const double* P2, const double* r2,
-                     const double* gauss, double* out) {
+template <typename D>
+static void geod_t(int n, const double* f, const int* ints, const double* P,
+                   const double* r, const double* P2, const double* r2,
+                   const double* gauss, double* out) {
   const sim5::GaussRule q = rule(gauss);
   for (int i = 0; i < n; ++i) {
     const Geod<double> g = geod_of(f + 27 * i, ints + 3 * i);
     double* o = out + 10 * i;
-    o[0] = sim5::position_azm(g, r[i], P[i], q);
-    o[1] = sim5::timedelay_full(g, P[i], r[i], P2[i], r2[i], q);
-    o[2] = sim5::timedelay(g, P[i], r[i], P2[i], r2[i], q);
+    o[0] = sim5::position_azm<double, D>(g, r[i], P[i], q);
+    o[1] = sim5::timedelay_full<double, D>(g, P[i], r[i], P2[i], r2[i], q);
+    o[2] = sim5::timedelay<double, D>(g, P[i], r[i], P2[i], r2[i], q);
     o[3] = sim5::P_int(g, r[i], 0);
     o[4] = sim5::P_int(g, r[i], 1);
     o[5] = sim5::position_pol(g, P[i]);
@@ -173,13 +208,20 @@ extern "C" void geod(int n, const double* f, const int* ints, const double* P,
   }
 }
 
+extern "C" void geod(int adaptive, int n, const double* f, const int* ints,
+                     const double* P, const double* r, const double* P2,
+                     const double* r2, const double* gauss, double* out) {
+  SIM5_POLICY(adaptive, geod_t<D>(n, f, ints, P, r, P2, r2, gauss, out));
+}
+
 // the goldens' rows: the harness's geodesic_init_inf at (incl, a, alpha,
 // beta), then per lane r(P), position_azm(r, P) and the radial
 // timedelay(P, r1, P2, r2)
-extern "C" void golden(int n, const double* a, const double* incl,
-                       const double* alpha, const double* beta,
-                       const double* P, const double* r1, const double* P2,
-                       const double* r2, const double* gauss, double* out) {
+template <typename D>
+static void golden_t(int n, const double* a, const double* incl,
+                     const double* alpha, const double* beta, const double* P,
+                     const double* r1, const double* P2, const double* r2,
+                     const double* gauss, double* out) {
   const sim5::GaussRule q = rule(gauss);
   sim5::NoProbe probe;
   for (int i = 0; i < n; ++i) {
@@ -188,63 +230,79 @@ extern "C" void golden(int n, const double* a, const double* incl,
                        alpha[i], beta[i], probe);
     const double r = sim5::position_rad(g, P[i]);
     out[3 * i] = r;
-    out[3 * i + 1] = sim5::position_azm(g, r, P[i], q);
-    out[3 * i + 2] = sim5::timedelay(g, P[i], r1[i], P2[i], r2[i], q);
+    out[3 * i + 1] = sim5::position_azm<double, D>(g, r, P[i], q);
+    out[3 * i + 2] =
+        sim5::timedelay<double, D>(g, P[i], r1[i], P2[i], r2[i], q);
   }
 }
 
+extern "C" void golden(int adaptive, int n, const double* a,
+                       const double* incl, const double* alpha,
+                       const double* beta, const double* P, const double* r1,
+                       const double* P2, const double* r2,
+                       const double* gauss, double* out) {
+  SIM5_POLICY(adaptive, golden_t<D>(n, a, incl, alpha, beta, P, r1, P2, r2,
+                                    gauss, out));
+}
+
 // the special functions, one argument tuple (6 doubles) a lane
-extern "C" void special(int which, int n, const double* x, double* out) {
+template <typename D>
+static void special_t(int which, int n, const double* x, double* out) {
   using namespace sim5;
   for (int i = 0; i < n; ++i) {
     const double* v = x + 6 * i;
     double r = 0.0;
     switch (which) {
-      case 0: r = rc(v[0], v[1]); break;
-      case 1: r = rj(v[0], v[1], v[2], v[3]); break;
-      case 2: r = rd(v[0], v[1], v[2]); break;
-      case 3: r = elliptic_f_cos(v[0], v[1]); break;
-      case 4: r = elliptic_e_cos(v[0], v[1]); break;
-      case 5: r = elliptic_pi_cos(v[0], v[1], v[2]); break;
-      case 6: r = elliptic_pi_complete(v[0], v[1]); break;
-      case 7: r = jacobi_isn(v[0], v[1]); break;
-      case 8: r = jacobi_icn(v[0], v[1]); break;
-      case 9: r = icn_signed(v[0], v[1]); break;
-      case 10: r = jacobi_itn(v[0], v[1]); break;
-      case 11: r = integral_C1(v[0], v[1]); break;
-      case 12: r = integral_C2(v[0], v[1]); break;
-      case 13: r = integral_C2_cos(v[0], v[1]); break;
-      case 14: r = integral_Z1(v[0], v[1], v[2], v[3]); break;
-      case 15: r = integral_Z2(v[0], v[1], v[2], v[3]); break;
-      case 16: r = integral_Rm1(v[0], v[1], v[2]); break;
-      case 17: r = integral_Rm2(v[0], v[1], v[2]); break;
-      case 18: r = integral_R1(v[0], v[1], v[2]); break;
-      case 19: r = integral_R2(v[0], v[1], v[2]); break;
-      case 20: r = integral_R_r0_re(v[0], v[1], v[2], v[3], v[4]); break;
-      case 21: r = integral_R_r0_re_inf(v[0], v[1], v[2], v[3]); break;
-      case 22: r = integral_R_r1_re(v[0], v[1], v[2], v[3], v[4]); break;
-      case 23: r = integral_R_r2_re(v[0], v[1], v[2], v[3], v[4]); break;
-      case 24: r = integral_R_rp_re(v[0], v[1], v[2], v[3], v[4], v[5]); break;
-      case 25: r = integral_R_rp_re_inf(v[0], v[1], v[2], v[3], v[4]); break;
-      case 26: r = integral_R_r0_cc(v[0], v[1], v[2], v[3], v[4]); break;
-      case 27: r = integral_R_r0_cc_inf(v[0], v[1], v[2], v[3]); break;
-      case 28: r = integral_R_r1_cc(v[0], v[1], v[2], v[3], v[4], v[5]); break;
-      case 29: r = integral_R_r2_cc(v[0], v[1], v[2], v[3], v[4], v[5]); break;
-      case 30: r = integral_R_rp_cc2(v[0], v[1], v[2], v[3], 0.5, v[4], v[5]); break;
-      case 31: r = integral_R_rp_cc2_inf(v[0], v[1], v[2], v[3], v[4], v[5]); break;
-      case 32: r = integral_R_r0_bh(v[0], v[1], v[2], v[3], v[4]); break;
-      case 33: r = integral_R_r1_bh(v[0], v[1], v[2], v[3], v[4]); break;
-      case 34: r = integral_R_r2_bh(v[0], v[1], v[2], v[3], v[4]); break;
-      case 35: r = integral_R_rp_bh(v[0], v[1], v[2], v[3], v[4], v[5]); break;
-      case 36: r = integral_T_m0(v[0], v[1], v[2]); break;
-      case 37: r = integral_T_m2(v[0], v[1], v[2]); break;
-      case 38: r = integral_T_m0_dn(v[0], v[1], v[2]); break;
-      case 39: r = integral_T_m2_dn(v[0], v[1], v[2]); break;
-      case 40: r = integral_T_mp_dn(v[0], v[1], v[2], v[3]); break;
-      case 41: r = integral_T_mp(v[0], v[1], v[2], v[3]); break;
+      case 0: r = rc<double, D>(v[0], v[1]); break;
+      case 1: r = rj<double, D>(v[0], v[1], v[2], v[3]); break;
+      case 2: r = rd<double, D>(v[0], v[1], v[2]); break;
+      case 3: r = elliptic_f_cos<double, D>(v[0], v[1]); break;
+      case 4: r = elliptic_e_cos<double, D>(v[0], v[1]); break;
+      case 5: r = elliptic_pi_cos<double, D>(v[0], v[1], v[2]); break;
+      case 6: r = elliptic_pi_complete<double, D>(v[0], v[1]); break;
+      case 7: r = jacobi_isn<double, D>(v[0], v[1]); break;
+      case 8: r = jacobi_icn<double, D>(v[0], v[1]); break;
+      case 9: r = icn_signed<double, D>(v[0], v[1]); break;
+      case 10: r = jacobi_itn<double, D>(v[0], v[1]); break;
+      case 11: r = integral_C1<double>(v[0], v[1]); break;
+      case 12: r = integral_C2<double, D>(v[0], v[1]); break;
+      case 13: r = integral_C2_cos<double, D>(v[0], v[1]); break;
+      case 14: r = integral_Z1<double, D>(v[0], v[1], v[2], v[3]); break;
+      case 15: r = integral_Z2<double, D>(v[0], v[1], v[2], v[3]); break;
+      case 16: r = integral_Rm1<double>(v[0], v[1], v[2]); break;
+      case 17: r = integral_Rm2<double, D>(v[0], v[1], v[2]); break;
+      case 18: r = integral_R1<double, D>(v[0], v[1], v[2]); break;
+      case 19: r = integral_R2<double, D>(v[0], v[1], v[2]); break;
+      case 20: r = integral_R_r0_re<double, D>(v[0], v[1], v[2], v[3], v[4]); break;
+      case 21: r = integral_R_r0_re_inf<double, D>(v[0], v[1], v[2], v[3]); break;
+      case 22: r = integral_R_r1_re<double, D>(v[0], v[1], v[2], v[3], v[4]); break;
+      case 23: r = integral_R_r2_re<double, D>(v[0], v[1], v[2], v[3], v[4]); break;
+      case 24: r = integral_R_rp_re<double, D>(v[0], v[1], v[2], v[3], v[4], v[5]); break;
+      case 25: r = integral_R_rp_re_inf<double, D>(v[0], v[1], v[2], v[3], v[4]); break;
+      case 26: r = integral_R_r0_cc<double, D>(v[0], v[1], v[2], v[3], v[4]); break;
+      case 27: r = integral_R_r0_cc_inf<double, D>(v[0], v[1], v[2], v[3]); break;
+      case 28: r = integral_R_r1_cc<double, D>(v[0], v[1], v[2], v[3], v[4], v[5]); break;
+      case 29: r = integral_R_r2_cc<double, D>(v[0], v[1], v[2], v[3], v[4], v[5]); break;
+      case 30: r = integral_R_rp_cc2<double, D>(v[0], v[1], v[2], v[3], 0.5, v[4], v[5]); break;
+      case 31: r = integral_R_rp_cc2_inf<double, D>(v[0], v[1], v[2], v[3], v[4], v[5]); break;
+      case 32: r = integral_R_r0_bh<double, D>(v[0], v[1], v[2], v[3], v[4]); break;
+      case 33: r = integral_R_r1_bh<double, D>(v[0], v[1], v[2], v[3], v[4]); break;
+      case 34: r = integral_R_r2_bh<double, D>(v[0], v[1], v[2], v[3], v[4]); break;
+      case 35: r = integral_R_rp_bh<double, D>(v[0], v[1], v[2], v[3], v[4], v[5]); break;
+      case 36: r = integral_T_m0<double, D>(v[0], v[1], v[2]); break;
+      case 37: r = integral_T_m2<double, D>(v[0], v[1], v[2]); break;
+      case 38: r = integral_T_m0_dn<double, D>(v[0], v[1], v[2]); break;
+      case 39: r = integral_T_m2_dn<double, D>(v[0], v[1], v[2]); break;
+      case 40: r = integral_T_mp_dn<double, D>(v[0], v[1], v[2], v[3]); break;
+      case 41: r = integral_T_mp<double, D>(v[0], v[1], v[2], v[3]); break;
     }
     out[i] = r;
   }
+}
+
+extern "C" void special(int adaptive, int which, int n, const double* x,
+                        double* out) {
+  SIM5_POLICY(adaptive, special_t<D>(which, n, x, out));
 }
 """
 
@@ -268,11 +326,11 @@ def lib(tmp_path_factory):
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     dll = ctypes.CDLL(str(so))
-    dll.crossing.argtypes = [_D] * 4 + [_I, _I] + [_P] * 6
-    dll.seed.argtypes = [_I, _I] + [_D] * 5 + [_I] + [_P] * 4
-    dll.geod.argtypes = [_I] + [_P] * 8
-    dll.golden.argtypes = [_I] + [_P] * 10
-    dll.special.argtypes = [_I, _I, _P, _P]
+    dll.crossing.argtypes = [_I] + [_D] * 4 + [_I, _I] + [_P] * 6
+    dll.seed.argtypes = [_I, _I, _I] + [_D] * 5 + [_I] + [_P] * 4
+    dll.geod.argtypes = [_I, _I] + [_P] * 8
+    dll.golden.argtypes = [_I, _I] + [_P] * 10
+    dll.special.argtypes = [_I, _I, _I, _P, _P]
     for f in (dll.crossing, dll.seed, dll.geod, dll.golden, dll.special):
         f.restype = None
     return dll
@@ -328,29 +386,38 @@ def _within(err, bound, sel):
 
 # --- runs of the harness
 
-def host_crossing(lib, cfg, order, n=NPIX):
+def host_crossing(lib, cfg, order, n=NPIX, adaptive=False):
     a, incl, rmax = cfg["a"], cfg["incl"], cfg["rmax"]
     rms = float(r_ms(torch.tensor(a, dtype=torch.float64)))
     out = [np.empty((n, n)) for _ in range(4)]
     hit = np.empty((n, n), np.uint8)
-    lib.crossing(a, incl, rmax, rms, n, order, _ptr(GAUSS),
+    lib.crossing(int(adaptive), a, incl, rmax, rms, n, order, _ptr(GAUSS),
                  *(_ptr(o) for o in out), _ptr(hit))
     return dict(zip(("r", "phi", "g", "dt"), map(torch.from_numpy, out)),
                 hit=torch.from_numpy(hit.astype(bool)))
 
 
-def host_seed(lib, cfg, azm, dtype=np.float64, n=NPIX, t0=0.0):
+def host_seed(lib, cfg, azm, dtype=np.float64, n=NPIX, t0=0.0,
+              adaptive=False):
     x0 = np.empty((n, n, 4), dtype)
     k = np.empty_like(x0)
     ok = np.empty((n, n), np.uint8)
-    lib.seed(int(dtype == np.float64), int(azm), cfg["a"], cfg["incl"],
-             cfg["rmax"], cfg["r_start"], t0, n, _ptr(GAUSS), _ptr(x0),
-             _ptr(k), _ptr(ok))
+    lib.seed(int(adaptive), int(dtype == np.float64), int(azm), cfg["a"],
+             cfg["incl"], cfg["rmax"], cfg["r_start"], t0, n, _ptr(GAUSS),
+             _ptr(x0), _ptr(k), _ptr(ok))
     return (torch.from_numpy(x0), torch.from_numpy(k),
             torch.from_numpy(ok.astype(bool)))
 
 
 CASES = dict(spot=SPOT, shadow=SHADOW)
+
+
+@functools.lru_cache(maxsize=None)
+def plain_crossing(order):
+    """The plain chain's crossing map of example 07's spot, 32^2
+    (cached)."""
+    return tlc._crossing_map_unanchored(SPOT["a"], SPOT["incl"], NPIX, 17.5,
+                                        order, "cpu")
 
 
 @functools.lru_cache(maxsize=None)
@@ -407,12 +474,19 @@ def test_signatures_match_the_device_sources():
 
 
 def test_launch_names_are_the_kernels_instances():
-    """LAUNCHES names the crossing map and the four seed instances, and
-    the kernels' orders cap is the wrapper's."""
+    """LAUNCHES names each pass of the crossing map and of the four seed
+    instances (PASSES), and the kernels' orders cap is the wrapper's."""
+    assert kernel_analytic.PASSES == {
+        "crossing_map<double>": ("crossing_classify<double>",
+                                 "crossing_hits<double>"),
+        "volume_seed<double, true>": ("seed_geometry<double, true>",
+                                      "seed_azimuth<double>"),
+        "volume_seed<double, false>": ("seed_geometry<double, false>",),
+        "volume_seed<float, true>": ("seed_geometry<float, true>",
+                                     "seed_azimuth<float>"),
+        "volume_seed<float, false>": ("seed_geometry<float, false>",)}
     assert set(kernel_analytic.LAUNCHES) == {
-        "crossing_map<double>", "volume_seed<double, true>",
-        "volume_seed<double, false>", "volume_seed<float, true>",
-        "volume_seed<float, false>"}
+        p for v in kernel_analytic.PASSES.values() for p in v}
     cu = (_build.CSRC / "crossing_map.cu").read_text()
     assert int(re.search(r"constexpr int kMaxOrders = (\d+);", cu)[1]) \
         == kernel_analytic.MAX_ORDERS
@@ -532,22 +606,50 @@ def test_special_function(lib, name):
     arguments move by one ulp (the conditioning of the closed forms, up to
     ~4e-12 for the RC integrals near a pole); NaN where the plain version
     gives NaN."""
+    _check_special(lib, name, False)
+
+
+@pytest.mark.parametrize("name", SPECIALS)
+def test_special_function_adaptive(lib, name):
+    """test_special_function's check at AdaptiveDepth, the kernels'
+    Carlson chains (Carlson's stopping rule, RJ's term in closed form),
+    against the same plain torch functions (the JAX package's fixed
+    depth): 1e-13 relative plus 4x the plain version's change when its
+    arguments move by one ulp, here each argument on its own (the two
+    moves of all together and 6 random sign patterns).  The integrals are
+    homogeneous in their arguments, so a move of all of them by the same
+    factor scales the value exactly and the plain chain's change under it
+    is only its own rounding, which a chain that rounds otherwise does
+    not share: integral_R_rp_cc2_inf at Carlson's rule lies at 1.6 of
+    that narrower bound on one tuple, at 0.44 of this one, and as near a
+    30-digit quadrature as the plain chain (median 3.2e-14 against
+    2.6e-14 relative over 600 tuples)."""
+    _check_special(lib, name, True, patterns=6)
+
+
+def _check_special(lib, name, adaptive, patterns=0):
     rng = np.random.default_rng(SPECIALS.index(name))
     args, fn = _args(name, rng)
     x = np.zeros((len(args[0]), 6))
     x[:, :len(args)] = np.stack(args, -1)
     got = np.empty(len(x))
-    lib.special(SPECIALS.index(name), len(x), _ptr(np.ascontiguousarray(x)),
-                _ptr(got))
-    # the values and the one-ulp moves in one call of the plain version
+    lib.special(int(adaptive), SPECIALS.index(name), len(x),
+                _ptr(np.ascontiguousarray(x)), _ptr(got))
+    # the values and the one-ulp moves in one call of the plain version:
+    # all arguments up and down, then `patterns` random signs an argument
     tens = [torch.tensor(np.ascontiguousarray(v)) for v in args]
-    vals = fn(*(torch.cat([t, t * (1.0 + EPS64), t * (1.0 - EPS64)])
-                for t in tens)).numpy().reshape(3, -1)
+    signs = np.concatenate([np.ones((1, len(tens))), -np.ones((1, len(tens))),
+                            np.random.default_rng(1000 + SPECIALS.index(
+                                name)).choice([-1.0, 1.0],
+                                              (patterns, len(tens)))])
+    vals = fn(*(torch.cat([t] + [t * (1.0 + s * EPS64) for s in signs[:, j]])
+                for j, t in enumerate(tens))).numpy().reshape(
+        len(signs) + 1, -1)
     want = vals[0]
     assert np.array_equal(np.isfinite(got), np.isfinite(want)), name
     fin = np.isfinite(want)
     assert fin.mean() > 0.9, f"{name}: {fin.mean():.2f} finite"
-    cond = np.maximum(np.abs(vals[1] - want), np.abs(vals[2] - want))
+    cond = np.abs(vals[1:] - want).max(0)
     scale = np.maximum(np.abs(want[fin]), 1e-3 * np.abs(want[fin]).max())
     err = np.abs(got[fin] - want[fin]) / (1e-13 * scale + 4.0 * cond[fin])
     assert float(err.max()) <= 1.0, f"{name}: {err.max():.3f} of the bound"
@@ -619,41 +721,77 @@ def test_batch_covers_every_type(batch):
                  & (P > 2.0 * g.Rpc)).any())
 
 
-@pytest.fixture(scope="module")
-def geod_out(lib, batch):
+def _geod_run(lib, batch, adaptive):
     g, P, r = batch
     f, ints = pack(g)
     P2 = (0.05 * g.Rpc).numpy()
     r2 = tgd.geodesic_position_rad(g, torch.from_numpy(P2)).numpy()
     out = np.empty((len(P), 10))
-    lib.geod(len(P), _ptr(f), _ptr(ints), _ptr(P.numpy()), _ptr(r.numpy()),
-             _ptr(np.ascontiguousarray(P2)), _ptr(np.ascontiguousarray(r2)),
-             _ptr(GAUSS), _ptr(out))
+    lib.geod(int(adaptive), len(P), _ptr(f), _ptr(ints), _ptr(P.numpy()),
+             _ptr(r.numpy()), _ptr(np.ascontiguousarray(P2)),
+             _ptr(np.ascontiguousarray(r2)), _ptr(GAUSS), _ptr(out))
     return torch.from_numpy(out), torch.from_numpy(P2), torch.from_numpy(r2)
 
 
-def test_geodesic_azimuth(batch, geod_out):
+@pytest.fixture(scope="module")
+def geod_out(lib, batch):
+    return _geod_run(lib, batch, False)
+
+
+@pytest.fixture(scope="module")
+def geod_out_adaptive(lib, batch):
+    return _geod_run(lib, batch, True)
+
+
+@pytest.fixture(scope="module")
+def plain_geod(batch, geod_out):
+    """The plain versions' azimuth, radial time and full time of the
+    batch (P2, r2 geod_out's)."""
+    g, P, r = batch
+    _, P2, r2 = geod_out
+    m = torch.zeros_like(r)
+    azm = tgd.geodesic_position_azm(g, r, m, P)
+    t_rad = tgd.geodesic_timedelay(g, P, r, m, P2, r2, m)
+    # geodesic_timedelay_full's definition, without its second radial pass
+    t_full = t_rad + torch.abs(tan._theta_time_cum(g, P2)
+                               - tan._theta_time_cum(g, P))
+    return azm, t_rad, t_full
+
+
+def test_geodesic_azimuth(batch, geod_out, plain_geod):
     """position_azm on every type against geodesic_position_azm, within
     phi_bound; NaN where it gives NaN."""
+    _check_azimuth(batch, geod_out[0], plain_geod[0])
+
+
+def test_geodesic_azimuth_adaptive(batch, geod_out_adaptive, plain_geod):
+    """test_geodesic_azimuth's check at AdaptiveDepth (every type, RR_BH
+    included)."""
+    _check_azimuth(batch, geod_out_adaptive[0], plain_geod[0])
+
+
+def _check_azimuth(batch, out, want):
     g, P, r = batch
-    out = geod_out[0]
-    want = tgd.geodesic_position_azm(g, r, torch.zeros_like(r), P)
     assert torch.equal(torch.isfinite(out[:, 0]), torch.isfinite(want))
     fin = torch.isfinite(want) & (g.status == 0)
     assert int(fin.sum()) > 200
     assert _within((out[:, 0] - want).abs(), phi_bound(g, want), fin) <= 1.0
 
 
-def test_geodesic_time(batch, geod_out):
+def test_geodesic_time(batch, geod_out, plain_geod):
     """timedelay and timedelay_full on every type against the plain
     versions, within time_bound."""
-    g, P, r = batch
-    out, P2, r2 = geod_out
-    m = torch.zeros_like(r)
-    t_rad = tgd.geodesic_timedelay(g, P, r, m, P2, r2, m)
-    # geodesic_timedelay_full's definition, without its second radial pass
-    t_full = t_rad + torch.abs(tan._theta_time_cum(g, P2)
-                               - tan._theta_time_cum(g, P))
+    _check_time(batch, geod_out[0], plain_geod)
+
+
+def test_geodesic_time_adaptive(batch, geod_out_adaptive, plain_geod):
+    """test_geodesic_time's check at AdaptiveDepth."""
+    _check_time(batch, geod_out_adaptive[0], plain_geod)
+
+
+def _check_time(batch, out, plain):
+    g = batch[0]
+    _, t_rad, t_full = plain
     for col, want in ((1, t_full), (2, t_rad)):
         assert torch.equal(torch.isfinite(out[:, col]), torch.isfinite(want))
         fin = torch.isfinite(want) & (g.status == 0)
@@ -688,6 +826,16 @@ def test_goldens(lib):
     position samples (>= 97% within rtol 1e-4, atol 1e-6) and
     timedelay.txt (finiteness agreeing on > 95%, > 95% within rtol 1e-5,
     atol 1e-7): chip_smoke.py phase 13's gates."""
+    _check_goldens(lib, False)
+
+
+def test_goldens_adaptive(lib):
+    """test_goldens' check with the azimuth and the time at
+    AdaptiveDepth."""
+    _check_goldens(lib, True)
+
+
+def _check_goldens(lib, adaptive):
     rows, cur = [], None
     for line in (GOLDEN / "geod.txt").read_text().splitlines():
         parts = line.split()
@@ -702,8 +850,8 @@ def test_goldens(lib):
     n = len(d)
     cols = [np.ascontiguousarray(d[:, i]) for i in range(5)]
     out = np.empty((n, 3))
-    lib.golden(n, *(_ptr(c) for c in cols), _ptr(cols[4]), _ptr(cols[4]),
-               _ptr(cols[4]), _ptr(GAUSS), _ptr(out))
+    lib.golden(int(adaptive), n, *(_ptr(c) for c in cols), _ptr(cols[4]),
+               _ptr(cols[4]), _ptr(cols[4]), _ptr(GAUSS), _ptr(out))
     phi, want = out[:, 1], d[:, 5]
     ok = np.isfinite(want) & np.isfinite(phi) & np.isfinite(out[:, 0])
     frac = float((np.abs(phi - want) <= 1e-6 + 1e-4 * np.abs(want))[ok].mean())
@@ -714,7 +862,8 @@ def test_goldens(lib):
     n = len(d)
     cols = [np.ascontiguousarray(d[:, i]) for i in (0, 1, 2, 3, 4, 5, 7, 8)]
     out = np.empty((n, 3))
-    lib.golden(n, *(_ptr(c) for c in cols), _ptr(GAUSS), _ptr(out))
+    lib.golden(int(adaptive), n, *(_ptr(c) for c in cols), _ptr(GAUSS),
+               _ptr(out))
     dt, want = out[:, 2], d[:, 9]
     fin = np.isfinite(dt) == np.isfinite(want)
     both = np.isfinite(dt) & np.isfinite(want)
@@ -793,8 +942,20 @@ def test_seed_f64(lib, case, azm):
     """The f64 seed's x0, k and ok against the plain chain: ok equal; t0
     exactly; r0, m0 and k within `seed_bounds`; phi0 within phi_bound (0
     without the azimuth); the invalid pixels' dummy ray exactly."""
+    _check_seed_f64(lib, case, azm, False)
+
+
+@pytest.mark.parametrize("azm", [True, False])
+def test_seed_f64_adaptive(lib, case, azm):
+    """test_seed_f64's check of seed_pixel at AdaptiveDepth, the kernels'
+    policy (its azimuth's Carlson chains; the axisymmetric seed runs
+    none)."""
+    _check_seed_f64(lib, case, azm, True)
+
+
+def _check_seed_f64(lib, case, azm, adaptive):
     cfg = CASES[case]
-    x0, k, ok = host_seed(lib, cfg, azm)
+    x0, k, ok = host_seed(lib, cfg, azm, adaptive=adaptive)
     px0, pk, pok = plain_seed(case, azm)
     assert torch.equal(ok, pok)
     assert int(ok.sum()) > NPIX
@@ -818,7 +979,17 @@ def test_seed_f32(lib, case):
     """The f32 seed (with the azimuth) against the f64 plain version, no
     further than 2x the plain f32 chain's own distance (module
     docstring)."""
-    x0, k, ok = host_seed(lib, CASES[case], True, np.float32)
+    _check_seed_f32(lib, case, False)
+
+
+def test_seed_f32_adaptive(lib, case):
+    """test_seed_f32's check at AdaptiveDepth."""
+    _check_seed_f32(lib, case, True)
+
+
+def _check_seed_f32(lib, case, adaptive):
+    x0, k, ok = host_seed(lib, CASES[case], True, np.float32,
+                          adaptive=adaptive)
     px0, pk, pok = plain_seed(case, True, torch.float32)
     wx0, wk, wok = plain_seed(case, True)
     n = ok.numel()
@@ -844,10 +1015,20 @@ def test_crossing_map(lib, order):
     added); the pixels that are no hit exactly
     the plain version's phi = 0, g = 1 and delay 0 (and r = 10 where
     there is no crossing)."""
+    _check_crossing(lib, order, False)
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_crossing_map_adaptive(lib, order):
+    """test_crossing_map's check of crossing_pixel at AdaptiveDepth, the
+    kernels' policy."""
+    _check_crossing(lib, order, True)
+
+
+def _check_crossing(lib, order, adaptive):
     cfg = dict(a=SPOT["a"], incl=SPOT["incl"], rmax=17.5)
-    m = host_crossing(lib, cfg, order)
-    p = tlc._crossing_map_unanchored(cfg["a"], cfg["incl"], NPIX,
-                                     cfg["rmax"], order, "cpu")
+    m = host_crossing(lib, cfg, order, adaptive=adaptive)
+    p = plain_crossing(order)
     hit = p["hit"]
     assert torch.equal(m["hit"], hit)
     assert int(hit.sum()) > 50
@@ -894,8 +1075,17 @@ class TestAgainstJax:
         return out
 
     def test_axisymmetric_seed(self, lib, jax_seeds, case):
+        self._check(lib, jax_seeds, case, False)
+
+    def test_axisymmetric_seed_adaptive(self, lib, jax_seeds, case):
+        """seed_pixel<T, false> instantiated at AdaptiveDepth: the
+        geometry keeps its fixed chains whatever the policy."""
+        self._check(lib, jax_seeds, case, True)
+
+    @staticmethod
+    def _check(lib, jax_seeds, case, adaptive):
         jx, jk, jok = jax_seeds[case]
-        x0, k, ok = host_seed(lib, CASES[case], False)
+        x0, k, ok = host_seed(lib, CASES[case], False, adaptive=adaptive)
         assert torch.equal(ok, jok)
         assert _field_rel(x0[..., 1:3], jx[..., 1:3], ok) <= 1e-10
         assert _field_rel(k, jk, ok) <= 1e-10
@@ -907,12 +1097,21 @@ class TestOperationCounts:
     and count each precision's operations where the pixel runs them."""
 
     def test_crossing(self, lib):
+        self._crossing(lib, False)
+
+    def test_crossing_adaptive(self, lib):
+        """At Carlson's rule (adaptive=True): the harness's AdaptiveDepth
+        bits."""
+        self._crossing(lib, True)
+
+    @staticmethod
+    def _crossing(lib, adaptive):
         cfg = dict(a=SPOT["a"], incl=SPOT["incl"], rmax=17.5)
         ops, out = kernel_analytic.operation_counts(
             "crossing", cfg["a"], cfg["incl"], 16, cfg["rmax"], (0, 1),
-            threads=2)
+            threads=2, adaptive=adaptive)
         for j, order in enumerate((0, 1)):
-            m = host_crossing(lib, cfg, order, n=16)
+            m = host_crossing(lib, cfg, order, n=16, adaptive=adaptive)
             for key, v in zip(("r", "phi", "g", "dt", "hit"), out):
                 assert np.array_equal(v[j], m[key].numpy()), (order, key)
         assert sum(ops["f32"].values()) == 0
@@ -921,11 +1120,23 @@ class TestOperationCounts:
 
     @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
     def test_seed(self, lib, dtype):
+        self._seed(lib, dtype, False)
+
+    @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+    def test_seed_adaptive(self, lib, dtype):
+        """At Carlson's rule (adaptive=True): the harness's AdaptiveDepth
+        bits."""
+        self._seed(lib, dtype, True)
+
+    @staticmethod
+    def _seed(lib, dtype, adaptive):
         np_dt = np.float64 if dtype == torch.float64 else np.float32
         ops, (x0, k, ok) = kernel_analytic.operation_counts(
             "seed", SPOT["a"], SPOT["incl"], 16, SPOT["rmax"],
-            r_start=SPOT["r_start"], dtype=dtype, threads=2)
-        hx, hk, hok = host_seed(lib, SPOT, True, np_dt, n=16)
+            r_start=SPOT["r_start"], dtype=dtype, threads=2,
+            adaptive=adaptive)
+        hx, hk, hok = host_seed(lib, SPOT, True, np_dt, n=16,
+                                adaptive=adaptive)
         assert np.array_equal(x0, hx.numpy()) and np.array_equal(k, hk.numpy())
         assert np.array_equal(ok, hok.numpy())
         # the azimuth in f64 whatever the seed's type
@@ -935,5 +1146,5 @@ class TestOperationCounts:
         _, (_, _, ok_axi) = kernel_analytic.operation_counts(
             "seed", SPOT["a"], SPOT["incl"], 16, SPOT["rmax"],
             r_start=SPOT["r_start"], dtype=dtype, axisymmetric=True,
-            threads=2)
+            threads=2, adaptive=adaptive)
         assert np.array_equal(ok_axi, ok)
